@@ -15,3 +15,9 @@ except ImportError:  # container without hypothesis: deterministic stub
 
 settings.register_profile("ci", max_examples=25, deadline=None)
 settings.load_profile("ci")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the port's CUDA kernels); "
+        "skips where there is none")
