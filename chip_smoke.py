@@ -8,22 +8,34 @@ file; without a card (or without the checkout) it exits non-zero and
 prints no result.  Phases, each of which must pass:
 
   1. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-     per source, in parallel) and print the build seconds;
+     per source, all in parallel) and print the build seconds;
   2. hold each kernel against its plain PyTorch version on the card,
      array-equal, on integer-valued float32 inputs with ~20% +inf at
      shapes that are not tile multiples (and all-+inf blocks), timing
-     kernel and plain version with CUDA events;
-  3. a small end-to-end reference: road_like(900) built and served on
+     kernel and plain version with CUDA events: the witness FW and the
+     twoside combine at the dense path's shapes and at the hierarchy's
+     (group closures [6, 1024, 1024], top closure S_top+1 = 1712), the
+     distance-only FW, the (min,+) products with and without
+     accumulation, and the whole blocked APSP (``ops.fw_apsp``);
+  3. small end-to-end references: road_like(900) built and served on
      the card equals the same run on the CPU (plain versions), table
-     for table and answer for answer;
-  4. the main path at road4000 through ``repro_torch.launch.serve``:
-     host build, device build, planner warmup, 5 batches of 1024,
-     64 answers validated against Dijkstra (0 mismatches); every
-     kernel's launch counter is zeroed just before and read just after;
-  5. the same at road64k (dense overlay, S ~ 4.6k), 32 validated;
-  6. the ``kernels`` JSON line (launches from the road4000 run, times
-     and bounds from phase 2), the card's name and power limit from
-     nvidia-smi, and the ``{"ok": true, ...}`` line last.
+     for table and answer for answer, densely and at
+     ``hierarchy_levels`` 2 and 3 (per-level tables included);
+  4. the dense main path at road4000 through
+     ``repro_torch.launch.serve``: host build, device build, planner
+     warmup, 5 batches of 1024, 64 answers validated against Dijkstra
+     (0 mismatches); every kernel's launch counter is zeroed just
+     before and read just after;
+  5. road4000 at hierarchy levels 1, 2 and 3 serves 1,024 array-equal
+     answers;
+  6. the hierarchical main path at road64k (its preset's 3 levels)
+     through the same entry points, 32 validated, then
+     ``serve_one_to_all`` from 3 sources against Dijkstra, counters
+     zeroed just before and read just after;
+  7. the ``kernels`` JSON line (launches summed over the main paths of
+     phases 4 and 6, times and bounds from phase 2), the card's name
+     and power limit from nvidia-smi, and the ``{"ok": true, ...}``
+     line last.
 
 Details of every case go to ``chiprun_out/chip_smoke.json``.
 """
@@ -98,7 +110,7 @@ def _check_fw(cases, out):
         dist_ok = torch.equal(got[0], want[0])
         nxt_ok = torch.equal(got[1], want[1])
         err = _max_abs_err(got[0], want[0])
-        big = n > 1000
+        big = b * n * n > 4_000_000
         ms = _time_ms(lambda: kernel(d), 2 if big else 10)
         plain_ms = _time_ms(lambda: ops.fw_batch_next(d, force="ref"),
                             1 if big else 3)
@@ -147,69 +159,265 @@ def _check_twoside(cases, out):
             raise AssertionError(f"{label}: kernel != plain version")
 
 
-def _reset_counts():
+def _finite_triples(a, b) -> float:
+    """(i, k, j) triples of a (min,+) product whose two terms are both
+    finite: the work this data needs (a +inf term cannot move a min)."""
+    import torch
+    fa = torch.isfinite(a).double().sum(dim=0)
+    fb = torch.isfinite(b).double().sum(dim=1)
+    return float((fa * fb).sum())
+
+
+def _record(out, rec, ok):
+    print(f"  {rec['case']}: {rec}")
+    out.append(rec)
+    if not ok:
+        raise AssertionError(f"{rec['case']}: kernel != plain version")
+
+
+def _check_fw_batch(cases, out):
+    import numpy as np
+    import torch
     from repro_torch.kernels import floyd_warshall as fw
-    from repro_torch.kernels import minplus_twoside as ts
-    fw.fw_next_smem_cuda.launches = 0
-    fw.fw_next_global_cuda.launches = 0
-    ts.minplus_twoside_cuda.launches = 0
+    from repro_torch.kernels import ops
+    for label, b, n, all_inf in cases:
+        rng = np.random.default_rng(b * 7907 + n)
+        d_np = _int_inf((b, n, n), rng)
+        d_np[list(all_inf)] = np.inf
+        d = torch.from_numpy(d_np).cuda()
+        got = fw.fw_batch_cuda(d)
+        want = ops.fw_batch(d, force="ref")
+        torch.cuda.synchronize()
+        bound, by = _bound_ms(8.0 * b * n * n, 2.0 * b * n ** 3)
+        _record(out, {
+            "case": label, "kernel": "fw_batch_cuda", "b": b, "n": n,
+            "variant": ("smem" if n <= fw.DIST_SMEM_MAX_N else "global"),
+            "equal": torch.equal(got, want),
+            "max_abs_err": _max_abs_err(got, want),
+            "ms": _time_ms(lambda: fw.fw_batch_cuda(d), 10),
+            "plain_ms": _time_ms(lambda: ops.fw_batch(d, force="ref"), 2),
+            "bound_ms": bound, "bound_by": by}, torch.equal(got, want))
+
+
+def _check_minplus(cases, out):
+    """(label, m, k, n, accum): minplus_accum (C_in = an independent
+    matrix, or B itself as the blocked FW's phase 2 passes it) or
+    minplus, against the plain version."""
+    import functools
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import minplus as mp
+    from repro_torch.kernels import ops
+    for label, m, k, n, accum in cases:
+        rng = np.random.default_rng(m * 31 + k * 7 + n)
+        a = torch.from_numpy(_int_inf((m, k), rng)).cuda()
+        b = torch.from_numpy(_int_inf((k, n), rng)).cuda()
+        if accum == "alias":
+            c = b
+        else:
+            c = torch.from_numpy(_int_inf((m, n), rng, 0.5)).cuda()
+        if accum:
+            kern = functools.partial(mp.minplus_accum_cuda, c, a, b)
+            plain = functools.partial(ops.minplus_accum, c, a, b,
+                                      force="ref")
+            nbytes = 4.0 * (m * k + k * n + 2 * m * n)
+        else:
+            kern = functools.partial(mp.minplus_cuda, a, b)
+            plain = functools.partial(ops.minplus, a, b, force="ref")
+            nbytes = 4.0 * (m * k + k * n + m * n)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        triples = _finite_triples(a, b)
+        bound, by = _bound_ms(nbytes, 2.0 * triples)
+        ok = torch.equal(got, want)
+        _record(out, {
+            "case": label,
+            "kernel": "minplus_accum_cuda" if accum else "minplus_cuda",
+            "m": m, "k": k, "n": n, "equal": ok,
+            "max_abs_err": _max_abs_err(got, want),
+            "ms": _time_ms(kern, 20), "plain_ms": _time_ms(plain, 2),
+            "bound_ms": bound, "bound_by": by,
+            "finite_triples": triples}, ok)
+
+
+def _check_fw_apsp(cases, out):
+    """The whole blocked schedule (ops.fw_apsp on the card: kernels
+    fw_batch and minplus_accum) against the plain fw_ref."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    for label, n, block, inf_frac in cases:
+        rng = np.random.default_rng(n + block)
+        d = torch.from_numpy(_int_inf((n, n), rng, inf_frac)).cuda()
+        got = ops.fw_apsp(d, block=block)
+        want = ops.fw_apsp(d, force="ref")
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want)
+        bound, by = _bound_ms(8.0 * n * n, 2.0 * n ** 3)
+        _record(out, {
+            "case": label, "kernel": "ops.fw_apsp (fw_blocked)", "n": n,
+            "block": block, "equal": ok,
+            "max_abs_err": _max_abs_err(got, want),
+            "ms": _time_ms(lambda: ops.fw_apsp(d, block=block), 3),
+            "plain_ms": _time_ms(lambda: ops.fw_apsp(d, force="ref"), 1),
+            "bound_ms": bound, "bound_by": by}, ok)
+
+
+#: every kernel entry: (name, wrapper module, wrapper attribute)
+KERNELS = (("fw_next_smem", "floyd_warshall", "fw_next_smem_cuda"),
+           ("fw_next_global", "floyd_warshall", "fw_next_global_cuda"),
+           ("minplus_twoside", "minplus_twoside", "minplus_twoside_cuda"),
+           ("fw_batch", "floyd_warshall", "fw_batch_cuda"),
+           ("minplus_accum", "minplus", "minplus_accum_cuda"),
+           ("minplus", "minplus", "minplus_cuda"))
+
+
+def _wrapper(module: str, attr: str):
+    import importlib
+    return getattr(importlib.import_module(
+        f"repro_torch.kernels.{module}"), attr)
+
+
+def _reset_counts():
+    for _name, module, attr in KERNELS:
+        _wrapper(module, attr).launches = 0
 
 
 def _read_counts() -> dict:
-    from repro_torch.kernels import floyd_warshall as fw
-    from repro_torch.kernels import minplus_twoside as ts
-    return {"fw_next_smem": fw.fw_next_smem_cuda.launches,
-            "fw_next_global": fw.fw_next_global_cuda.launches,
-            "minplus_twoside": ts.minplus_twoside_cuda.launches}
+    return {name: _wrapper(module, attr).launches
+            for name, module, attr in KERNELS}
+
+
+def _differ(a: dict, b: dict) -> list:
+    """Names whose values differ between two convert.device_index_to_numpy
+    dicts: arrays, per-level lists of arrays, and SlotMap sidecars."""
+    import numpy as np
+
+    def same(x, y):
+        if isinstance(x, list):
+            return (isinstance(y, list) and len(x) == len(y)
+                    and all(same(p, q) for p, q in zip(x, y)))
+        if hasattr(x, "keys") and hasattr(x, "slots"):        # SlotMap
+            return (x.stride == y.stride
+                    and np.array_equal(x.keys, y.keys)
+                    and np.array_equal(x.slots, y.slots))
+        return np.array_equal(x, y)
+    return sorted(k for k in set(a) | set(b)
+                  if k not in a or k not in b or not same(a[k], b[k]))
 
 
 def _small_reference() -> dict:
     """road_like(900) on the card == the same build and serve on the CPU
-    (plain versions): every field, and every answer (== Dijkstra)."""
+    (plain versions), densely and at hierarchy levels 2 and 3: every
+    field (per-level tables and sidecars included), and every answer
+    (== Dijkstra); one-to-all too on the hierarchical builds."""
     import numpy as np
     from repro_torch import convert
     from repro_torch.core import dijkstra
-    from repro_torch.core.device_engine import build_device_index
+    from repro_torch.core.device_engine import (build_device_index,
+                                                serve_one_to_all)
     from repro_torch.core.dist_engine import QueryPlanner
     from repro_torch.core.graph import road_like
     from repro_torch.core.supergraph import build_index
     g = road_like(900, seed=0)
     ix = build_index(g)
-    on_card = build_device_index(ix, device="cuda", hierarchy_levels=1)
-    on_cpu = build_device_index(ix, device="cpu", hierarchy_levels=1)
-    a = convert.device_index_to_numpy(on_card)
-    b = convert.device_index_to_numpy(on_cpu)
-    bad = [k for k in a if not np.array_equal(a[k], b[k])]
     rng = np.random.default_rng(7)
     s, t = rng.integers(0, g.n, 256), rng.integers(0, g.n, 256)
-    got = QueryPlanner(on_card).query(s, t)
-    want = QueryPlanner(on_cpu).query(s, t)
     oracle = np.array([dijkstra.pair(g, int(x), int(y))
                        for x, y in zip(s[:64], t[:64])], np.float32)
-    res = {"fields_differ": bad,
-           "answers_equal": bool(np.array_equal(got, want)),
-           "dijkstra_equal": bool(np.array_equal(got[:64], oracle))}
-    print(f"  road_like(900) card vs cpu: {res}")
-    if bad or not res["answers_equal"] or not res["dijkstra_equal"]:
-        raise AssertionError(f"card and CPU builds disagree: {res}")
-    return res
+    out = {}
+    for lv in (1, 2, 3):
+        on_card = build_device_index(ix, device="cuda", hierarchy_levels=lv)
+        on_cpu = build_device_index(ix, device="cpu", hierarchy_levels=lv)
+        bad = _differ(convert.device_index_to_numpy(on_card),
+                      convert.device_index_to_numpy(on_cpu))
+        got = QueryPlanner(on_card).query(s, t)
+        want = QueryPlanner(on_cpu).query(s, t)
+        res = {"levels_built": on_card.hierarchy_levels,
+               "fields_differ": bad,
+               "answers_equal": bool(np.array_equal(got, want)),
+               "dijkstra_equal": bool(np.array_equal(got[:64], oracle))}
+        if lv > 1:
+            o2a = serve_one_to_all(on_card, 5).cpu().numpy()
+            res["one_to_all_equal"] = bool(
+                np.array_equal(o2a, serve_one_to_all(on_cpu, 5).numpy())
+                and np.array_equal(o2a, dijkstra.sssp(g, 5).astype(
+                    np.float32)))
+        print(f"  road_like(900) levels={lv} card vs cpu: {res}")
+        out[f"levels_{lv}"] = res
+        if bad or not all(v for k, v in res.items()
+                          if k not in ("fields_differ", "levels_built")):
+            raise AssertionError(f"card and CPU builds disagree: {res}")
+    return out
 
 
-def _main_path(graph: str, validate: int) -> dict:
+def _main_path(graph: str, validate: int, sources=()) -> dict:
+    """The main path through the serve CLI's entry points (build, then
+    warmup + batches + validation), then ``serve_one_to_all`` from
+    ``sources`` against Dijkstra; kernel launches counted in between."""
+    import numpy as np
+    from repro_torch.core import dijkstra
+    from repro_torch.core.device_engine import serve_one_to_all
     from repro_torch.launch import serve
     args = serve.parse_args(["--graph", graph, "--batches", "5",
                              "--batch-size", "1024", "--validate",
                              str(validate), "--device", "cuda"])
     _reset_counts()
-    res = serve.run(args)
+    g, dix, _plan, summary = serve.build(args)
+    res = serve.serve(args, g, dix, summary)
+    bad_o2a = 0
+    t0 = time.perf_counter()
+    for src in sources:
+        got = serve_one_to_all(dix, int(src)).cpu().numpy()
+        want = dijkstra.sssp(g, int(src)).astype(np.float32)
+        bad_o2a += int((got != want).sum())
     res["launches"] = _read_counts()
+    if sources:
+        res["one_to_all"] = {"sources": [int(x) for x in sources],
+                             "mismatches": bad_o2a,
+                             "s_with_dijkstra": time.perf_counter() - t0}
+        print(f"  {graph} one-to-all from {list(sources)}: {bad_o2a} "
+              f"mismatches against Dijkstra")
     print(f"  {graph} launches: {res['launches']}")
-    if res["mismatches"] or not res["answers_finite"]:
+    if res["mismatches"] or not res["answers_finite"] or bad_o2a:
         raise AssertionError(f"{graph}: {res['mismatches']} mismatches, "
-                             f"answers finite: {res['answers_finite']}")
-    zero = [k for k, v in res["launches"].items() if v <= 0]
+                             f"answers finite: {res['answers_finite']}, "
+                             f"one-to-all mismatches: {bad_o2a}")
+    return res
+
+
+def _require_launched(res: dict, graph: str, names) -> None:
+    zero = [k for k in names if res["launches"][k] <= 0]
     if zero:
         raise AssertionError(f"{graph}: kernels never launched: {zero}")
+
+
+def _level_differential() -> dict:
+    """road4000 at hierarchy levels 1, 2 and 3 on the card: 1,024
+    array-equal answers (and the built depths)."""
+    import numpy as np
+    from repro_torch.core.device_engine import build_device_index
+    from repro_torch.core.dist_engine import QueryPlanner
+    from repro_torch.core.graph import road_like
+    from repro_torch.core.supergraph import build_index
+    g = road_like(4000, seed=0)
+    ix = build_index(g)
+    rng = np.random.default_rng(2)
+    s, t = rng.integers(0, g.n, 1024), rng.integers(0, g.n, 1024)
+    base, res = None, {}
+    for lv in (1, 2, 3):
+        dix = build_device_index(ix, device="cuda", hierarchy_levels=lv)
+        out = QueryPlanner(dix).query(s, t)
+        res[f"levels_{lv}"] = {"built": dix.hierarchy_levels,
+                               "finite": bool(np.isfinite(out).all())}
+        if base is None:
+            base = out
+        elif not np.array_equal(base, out):
+            raise AssertionError(f"road4000 levels={lv} differs from "
+                                 f"levels=1 on "
+                                 f"{int((base != out).sum())} answers")
+    print(f"  road4000 levels 1/2/3: 1024 answers array-equal; {res}")
     return res
 
 
@@ -224,6 +432,7 @@ def main() -> int:
     report: dict = {"phases": {}}
     fw_cases: list = []
     ts_cases: list = []
+    new_cases: list = []
 
     def phase(name, fn):
         print(f"== {name}", flush=True)
@@ -266,11 +475,40 @@ def main() -> int:
         ("q=1024 S+1=4614", 1024, 4614, 0.2),
         ("q=64 S+1=480 all-inf rows", 64, 480, 1.0),
     ], ts_cases))
+    phase("hier_kernel_shapes", lambda: (
+        _check_fw([("global b=6 n=1024 (sf_stage)", 6, 1024, ())],
+                  fw_cases),
+        _check_twoside([("q=1024 S_top+1=1712", 1024, 1712, 0.2)],
+                       ts_cases)))
+    phase("fw_batch_kernel", lambda: _check_fw_batch([
+        ("fw_batch b=1 n=128", 1, 128, ()),
+        ("fw_batch b=3 n=100", 3, 100, ()),
+        ("fw_batch b=4 n=496 all-inf block", 4, 496, (1,)),
+    ], new_cases))
+    phase("minplus_kernels", lambda: _check_minplus([
+        ("accum phase2 row C[128,1792] A[128,128] B[128,1792] (C=B)",
+         128, 128, 1792, "alias"),
+        ("accum phase2 col C[1792,128] A[1792,128] B[128,128]",
+         1792, 128, 128, True),
+        ("accum phase3 C[1792,1792] A[1792,128] B[128,1792]",
+         1792, 128, 1792, True),
+        ("accum m,k,n=100,37,250", 100, 37, 250, True),
+        ("minplus [1,1712]x[1712,1712]", 1, 1712, 1712, False),
+        ("minplus [1,480]x[480,480]", 1, 480, 480, False),
+        ("minplus [33,77]x[77,129]", 33, 77, 129, False),
+    ], new_cases))
+    phase("fw_apsp", lambda: _check_fw_apsp([
+        ("fw_apsp n=1711 block=128", 1711, 128, 0.995),
+        ("fw_apsp n=100 block=32", 100, 32, 0.9),
+    ], new_cases))
     phase("small_reference", _small_reference)
     phase("road4000", lambda: _main_path("road4000", 64))
-    phase("road64k", lambda: _main_path("road64k", 32))
+    phase("road4000_levels", _level_differential)
+    phase("road64k", lambda: _main_path("road64k", 32,
+                                        sources=(0, 31_000, 61_000)))
 
     report["fw_cases"], report["ts_cases"] = fw_cases, ts_cases
+    report["new_cases"] = new_cases
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -291,7 +529,25 @@ def main() -> int:
     def pick(cases, label):
         return next(c for c in cases if c["case"] == label)
 
-    launches = report["road4000"]["launches"]
+    try:
+        _require_launched(report["road4000"], "road4000",
+                          ("fw_next_smem", "fw_next_global",
+                           "minplus_twoside"))
+        _require_launched(report["road64k"], "road64k",
+                          ("fw_batch", "minplus_accum", "minplus",
+                           "fw_next_global", "minplus_twoside"))
+        launches = {name: report["road4000"]["launches"][name]
+                    + report["road64k"]["launches"][name]
+                    for name, _m, _a in KERNELS}
+        _require_launched({"launches": launches}, "main paths",
+                          launches)
+    except AssertionError:
+        traceback.print_exc()
+        print("chip_smoke: FAILED launch counts", file=sys.stderr)
+        return 1
+    report["launches_main_paths"] = launches
+    (out_dir / "chip_smoke.json").write_text(
+        json.dumps(report, indent=1, default=str))
     rows = [
         ("fw_next_smem", pick(fw_cases, "smem b=36 n=128"),
          "src/repro_torch/csrc/fw_next.cu",
@@ -302,6 +558,16 @@ def main() -> int:
         ("minplus_twoside", pick(ts_cases, "q=1024 S+1=4614"),
          "src/repro_torch/csrc/minplus_twoside.cu",
          "src/repro/kernels/minplus_twoside.py:89"),
+        ("fw_batch", pick(new_cases, "fw_batch b=1 n=128"),
+         "src/repro_torch/csrc/fw_dist.cu",
+         "src/repro/kernels/floyd_warshall.py:54"),
+        ("minplus_accum", pick(
+            new_cases, "accum phase3 C[1792,1792] A[1792,128] B[128,1792]"),
+         "src/repro_torch/csrc/minplus.cu",
+         "src/repro/kernels/minplus.py:116"),
+        ("minplus", pick(new_cases, "minplus [1,1712]x[1712,1712]"),
+         "src/repro_torch/csrc/minplus.cu",
+         "src/repro/kernels/minplus.py:64"),
     ]
     kernels = [{
         "name": name, "route": "cuda", "source": source,

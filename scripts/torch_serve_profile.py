@@ -2,9 +2,12 @@
 """Where a serve batch's time goes on the card, for the PyTorch/CUDA port.
 
     python3 scripts/torch_serve_profile.py --graph road64k
+    python3 scripts/torch_serve_profile.py --graph road64k \
+        --hierarchy-levels 1
 
-Builds the dense-overlay index with ``repro_torch`` on the card, warms
-the query planner up, then serves ``--batches`` batches of
+Builds the index with ``repro_torch`` on the card (the preset's overlay
+hierarchy unless ``--hierarchy-levels`` overrides it), warms the query
+planner up, then serves ``--batches`` batches of
 ``--batch-size`` uniform random queries twice: once timed by the host
 clock (each batch ends in a device-to-host copy, so it includes the
 card), once under ``torch.profiler``, whose CUDA activity gives device
@@ -12,7 +15,7 @@ time by kernel name.  Prints the device-build stage seconds, the median
 batch time, device time per batch by kernel, and the device's idle share
 of the profiled window (1 - summed kernel time / wall time; one stream,
 so kernels do not overlap).  Writes the same as JSON to
-``chiprun_out/profile_<graph>.json``.  Needs a card.
+``chiprun_out/profile_<graph>_l<levels>.json``.  Needs a card.
 """
 from __future__ import annotations
 
@@ -39,6 +42,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--graph", default="road64k")
+    ap.add_argument("--hierarchy-levels", default=None,
+                    help="1, 2..5 or auto (default: the preset's)")
     ap.add_argument("--batches", type=int, default=5)
     ap.add_argument("--batch-size", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
@@ -47,10 +52,14 @@ def main() -> int:
         print("torch_serve_profile: needs a CUDA device", file=sys.stderr)
         return 2
     preset = road_preset(args.graph)
+    levels = preset.hierarchy
+    if args.hierarchy_levels is not None:
+        levels = (args.hierarchy_levels if args.hierarchy_levels == "auto"
+                  else int(args.hierarchy_levels))
     g = preset.make()
     ix = build_index(g)
     dix, plan = build_device_index_with_plan(
-        ix, device="cuda", hierarchy_levels=preset.hierarchy)
+        ix, device="cuda", hierarchy_levels=levels)
     planner = QueryPlanner(dix)
     planner.warmup(args.batch_size)
     rng = np.random.default_rng(args.seed + 1)
@@ -87,7 +96,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     res = {
-        "graph": args.graph, "n": g.n, "S": plan.S, "k": plan.k,
+        "graph": args.graph, "hierarchy_levels": plan.hierarchy_levels,
+        "levels_S2": [h.S2 for h in plan.hier or []],
+        "n": g.n, "S": plan.S, "k": plan.k,
         "maxf": plan.maxf, "mb": plan.mb, "card": smi,
         "build_stages_s": plan.build_timings,
         "batch_size": args.batch_size, "buckets_last_batch": buckets,
@@ -99,7 +110,8 @@ def main() -> int:
         "kernels": kernels,
     }
     print(f"{args.graph}: n={g.n} S={plan.S} k={plan.k} maxf={plan.maxf}"
-          f" mb={plan.mb}; card {smi}")
+          f" mb={plan.mb} levels={res['hierarchy_levels']} "
+          f"S2={res['levels_S2']}; card {smi}")
     print(f"build stages (s): {plan.build_timings}")
     print(f"median batch {res['median_batch_ms']:.3f} ms "
           f"(profiled {res['profiled_ms_per_batch']:.3f} ms); device busy "
@@ -110,7 +122,8 @@ def main() -> int:
               f"{k['calls_per_batch']:6.1f} calls  {name[:90]}")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / f"profile_{args.graph}.json").write_text(
+    (out / f"profile_{args.graph}_l{plan.hierarchy_levels}.json"
+     ).write_text(
         json.dumps(res, indent=1, default=str))
     return 0
 

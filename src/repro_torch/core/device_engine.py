@@ -1,13 +1,20 @@
-"""Device DISLAND engine on PyTorch: the dense-overlay main path.
+"""Device DISLAND engine on PyTorch.
 
-Port of the dense subset of ``repro/core/device_engine.py``
-(``hierarchy_levels=1``, no hub labels, no resident rows): every query
-becomes gathers plus (min,+) algebra over padded tensors.
+Port of ``repro/core/device_engine.py``: the dense overlay
+(``hierarchy_levels=1``) and the N-level overlay hierarchy with its
+resident pre-lifted rows (no hub labels, no refresh, no witness mode
+yet).  Every query becomes gathers plus (min,+) algebra over padded
+tensors.
 
 Offline (``build_device_index_with_plan``, device-resident products):
   * per-fragment dense APSP        [k, maxf, maxf]   (witness FW kernel)
   * boundary-row table             [k, maxf, mb]     (node -> boundary)
-  * SUPER boundary x boundary APSP [S+1, S+1]        (dense witness FW)
+  * the overlay closure, either
+      - dense: SUPER boundary x boundary APSP [S+1, S+1] (witness FW), or
+      - hierarchical: per level, group closures [ng+1, m2, m2] (witness
+        FW) and next-boundary rows, then the TOP closure d2 (blocked FW
+        kernels) and, for hot level-1 groups, rows pre-lifted to the
+        top boundary (``res_rows``)
   * per-piece APSP, flattened      [sum_b P_b*mp_b^2] (+ per-node
     base/stride so one gather answers any same-piece query)
   * per-node lookup vectors        agent/fragment/piece ids + positions
@@ -15,11 +22,13 @@ Offline (``build_device_index_with_plan``, device-resident products):
 Online (``serve_step``, or the planner's per-case programs):
   dist(s,t) = same-DRA answer                                (case 1)
             | d(s,u_s) + min(local, combine) + d(u_t,t)      (case 2)
-  combine = min_{b1,b2} row_s[b1] + D_super[b1,b2] + row_t[b2],
-computed without a [q, mb, mb] block: on the card the boundary rows are
-scattered into SUPER coordinates and contracted by the fused
-``minplus_twoside`` CUDA kernel; on the CPU an x-chunked gather keeps
-the peak intermediate at [q, 8, mb].
+  combine = min_{b1,b2} row_s[b1] + D_overlay[b1,b2] + row_t[b2],
+computed without a [q, mb, mb] block.  On the card the (top-level)
+boundary rows are scattered into closure coordinates and contracted by
+the fused ``minplus_twoside`` CUDA kernel; elsewhere chunked gathers
+keep the peak intermediate at [q, c, width] (``_chunk``).
+``serve_one_to_all`` answers one source against every node through the
+``minplus`` kernel.
 
 Everything is exact: integer weights make every float32 (min,+) sum
 exactly representable, so every table and answer is bit-for-bit the
@@ -30,8 +39,12 @@ they use them.
 Differences from the reference that its semantics force on PyTorch:
 JAX clamps out-of-range gathers and wraps -1, while ``torch`` gathers
 need in-range indices, so every index that JAX masks only *after* a
-gather is masked *before* it here (``serve_cross`` with a fragment id
-of -1, the piece index in ``_same_dra_dist``).
+gather is masked *before* it here (a fragment id of -1 in
+``serve_cross``, ``serve_cross_res`` and ``serve_one_to_all``, the piece
+index in ``_same_dra_dist``).  The hierarchical tables keep every
+sentinel in range by construction (``sf_of[S_l]`` is the sentinel
+group, ``sf_members`` pads with S_l, ``bnd2_sid`` with S_{l+1},
+``res_of_frag`` uses R for cold groups).
 """
 from __future__ import annotations
 
@@ -43,19 +56,15 @@ import torch
 
 from ..kernels import ops
 from ..obs import trace
-from . import padding
+from . import hierarchy, padding
 from .supergraph import DislandIndex
 
 INF = np.float32(np.inf)
 _INF = float("inf")                  # the same +inf for torch calls
 PIECE_BUCKETS = (8, 32, 128, 512, 2048)
-#: ``hierarchy_levels="auto"`` closes the overlay densely up to this
-#: many boundary nodes (the reference's hierarchy.AUTO_THRESHOLD)
-AUTO_THRESHOLD = 1024
-#: the reference's hierarchy.MAX_LEVELS: the range the knob accepts
-MAX_LEVELS = 5
 
 _pad_to = padding.pad_to
+_to = hierarchy.to_device
 
 
 def resolve_device(device=None) -> torch.device:
@@ -76,14 +85,15 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _to(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+def _dummy(shape, fill, dtype):
+    return lambda: torch.full(shape, fill, dtype=dtype)
 
 
 @dataclasses.dataclass
 class DeviceIndex:
-    """The dense-path fields of the reference's ``DeviceIndex``, same
-    names, dtypes and shapes."""
+    """The reference's ``DeviceIndex`` without the hub-label tier: same
+    names, dtypes, shapes and dummies.  The dummy defaults are built on
+    the CPU; the build passes every field on its own device."""
     # per-node lookups [n]
     agent_of: torch.Tensor          # int32
     dist_to_agent: torch.Tensor     # f32
@@ -100,18 +110,56 @@ class DeviceIndex:
     bpos: torch.Tensor              # int32 [k, mb] boundary position in frag
     bvalid: torch.Tensor            # bool [k, mb]
     bnd_super: torch.Tensor         # int32 [k, mb] super id (S = sentinel)
-    # super graph (dense overlay)
+    # super graph (dense overlay; a [1, 1] dummy on hierarchical builds)
     d_super: torch.Tensor           # f32 [S+1, S+1] (+inf sentinel row/col)
     super_next: torch.Tensor        # int32 [S+1, S+1] overlay first hop (-1)
     # pieces: every bucketed APSP tensor, flattened end to end
     piece_flat: torch.Tensor        # f32 [sum_b P_b * mp_b * mp_b]
     piece_next: torch.Tensor        # int32, same layout as piece_flat (-1)
-    # host sidecar: winning SUPER slot per overlay pair (path unwinding)
-    host_ov_slot: Optional[np.ndarray] = None
+    # hierarchical overlay: one tuple entry per grouping level, bottom
+    # first, empty at hierarchy_levels=1; d2/d2_next hold the TOP
+    # (last level's boundary) closure.  Serving dispatches on len(sf_of).
+    sf_of: tuple = ()        # int32 [S_l+1] each (group count = sentinel)
+    pos_in_sf: tuple = ()    # int32 [S_l+1]
+    sf_members: tuple = ()   # int32 [ng+1, m2] (S_l = pad)
+    sf_closure: tuple = ()   # f32 [ng+1, m2, m2]
+    sf_next: tuple = ()      # int32 [ng+1, m2, m2]
+    l2row: tuple = ()        # f32 [ng+1, m2, mb2]
+    bnd2_sid: tuple = ()     # int32 [ng+1, mb2] (S_{l+1} = pad)
+    d2: torch.Tensor = dataclasses.field(          # f32 [S_top+1, S_top+1]
+        default_factory=_dummy((1, 1), _INF, torch.float32))
+    d2_next: torch.Tensor = dataclasses.field(     # int32 [S_top+1, S_top+1]
+        default_factory=_dummy((1, 1), -1, torch.int32))
+    # resident pre-lifted rows: for each hot level-1 group, its members'
+    # exact confined distances to every TOP boundary node; row R is the
+    # all-INF sentinel, res_of_frag maps every fragment to its group's
+    # row (R when cold)
+    res_rows: torch.Tensor = dataclasses.field(    # f32 [R+1, m2, S_top+1]
+        default_factory=_dummy((1, 1, 1), _INF, torch.float32))
+    res_of_frag: torch.Tensor = dataclasses.field(  # int32 [k]
+        default_factory=_dummy((1,), 0, torch.int32))
+    # fragment -> TOP-level group (the gather layout contracts only
+    # against each endpoint's own top-group boundary columns)
+    topgrp_of_frag: torch.Tensor = dataclasses.field(  # int32 [k]
+        default_factory=_dummy((1,), 0, torch.int32))
+    # host sidecars.  host_ov_slot: winning SUPER slot per overlay pair
+    # (dense: the [S, S] table; hierarchical: a hierarchy.SlotMap),
+    # host_l2_slot: one SlotMap per grouping level (path unwinding);
+    # host_res_frag (fragment -> resident row, -1 cold) and
+    # host_topgrp_frag (fragment -> TOP group): the planner's cross_res
+    # gate
+    host_ov_slot: object = None
+    host_l2_slot: Optional[list] = None
+    host_res_frag: Optional[np.ndarray] = None
+    host_topgrp_frag: Optional[np.ndarray] = None
 
     @property
     def device(self) -> torch.device:
         return self.agent_of.device
+
+    @property
+    def hierarchy_levels(self) -> int:
+        return 1 + len(self.sf_of)
 
 
 #: every tensor field with its dtype (convert.py checks against these)
@@ -124,7 +172,17 @@ FIELD_DTYPES = {
     "brow": torch.float32, "bpos": torch.int32, "bvalid": torch.bool,
     "bnd_super": torch.int32, "d_super": torch.float32,
     "super_next": torch.int32, "piece_flat": torch.float32,
-    "piece_next": torch.int32,
+    "piece_next": torch.int32, "d2": torch.float32, "d2_next": torch.int32,
+    "res_rows": torch.float32, "res_of_frag": torch.int32,
+    "topgrp_of_frag": torch.int32,
+}
+
+#: every per-level tuple field with its dtype (empty tuples when dense)
+TUPLE_FIELD_DTYPES = {
+    "sf_of": torch.int32, "pos_in_sf": torch.int32,
+    "sf_members": torch.int32, "sf_closure": torch.float32,
+    "sf_next": torch.int32, "l2row": torch.float32,
+    "bnd2_sid": torch.int32,
 }
 
 
@@ -169,6 +227,13 @@ class BuildPlan:
     piece_agent_pos: np.ndarray       # int32 [P]
     piece_cap: np.ndarray             # int32 [P] padded size
     piece_base: np.ndarray            # int64 [P] offset into piece_flat
+    # overlay hierarchy: 1 = dense d_super closure, N >= 2 = per-group
+    # closures at N-1 grouping levels (``hier``, one HierPlan per level,
+    # bottom first) + dense TOP boundary closure
+    hierarchy_levels: int = 1
+    hier: "List[hierarchy.HierPlan] | None" = None
+    # resident pre-lift budget in MiB (0 disables)
+    resident_mb: float = 0.0
     # per-stage wall times of the build that produced this plan
     build_timings: "dict | None" = None
 
@@ -417,22 +482,176 @@ def piece_stage(plan: BuildPlan, g, device: torch.device, *, force=None
     return flat, nflat
 
 
+def hier_super_stage(plan: BuildPlan, device: torch.device, *,
+                     force=None) -> dict:
+    """Stage 2, hierarchical: close the overlay as an N-level partition
+    hierarchy instead of one dense FW.
+
+    Per grouping level, bottom first: fill the level's group adjacency
+    from its source overlay's current slot weights (level 1 gathers
+    ``plan.sup_w``; level l > 1 the previous level's derived ``l2_w``),
+    run the batched witness FW once at the pow2 tile shape
+    [nsf, m2, m2] (``hierarchy.sf_stage``), then gather the NEXT
+    overlay's clique weights from those closures.  Only the top boundary
+    set closes densely (``hierarchy.l2_stage`` -> d2).  Returns the
+    DeviceIndex field dict (per-level tuples) plus the host-side
+    provenance sidecars (one SlotMap per level).  Per-level FW seconds
+    (``sf_stage_l<i>``), the top closure (``l2_fw``) and ``first_hops``
+    land in ``plan.build_timings``.
+    """
+    levels = plan.hier
+    bt = plan.build_timings
+    per: dict = {name: [] for name in TUPLE_FIELD_DTYPES}
+    l2_slots = []
+    w = plan.sup_w
+    for li, h in enumerate(levels):
+        hierarchy.sf_adj_fill(h, w)
+        with trace.timed("build.sf_stage", bt, f"sf_stage_l{li + 1}",
+                         nsf=h.nsf, m2=h.m2):
+            sf_closure, sf_next, l2row = hierarchy.sf_stage(h, device,
+                                                            force=force)
+            blocks = sf_closure[:h.nsf].cpu().numpy()
+        hierarchy.hier_weights(h, blocks, w)
+        Sl = h.sf_of.shape[0]                    # this overlay's size
+        sf_of = np.concatenate([h.sf_of, [h.nsf]]).astype(np.int32)
+        pos_in_sf = np.concatenate([h.pos_in_sf, [0]]).astype(np.int32)
+        members = np.where(h.sf_members < 0, Sl,
+                           h.sf_members).astype(np.int32)
+        members = np.concatenate(
+            [members, np.full((1, h.m2), Sl, np.int32)])
+        bnd2_sid = np.concatenate(
+            [h.bnd2_sid, np.full((1, h.mb2), h.S2, np.int32)])
+        per["sf_of"].append(_to(sf_of, device))
+        per["pos_in_sf"].append(_to(pos_in_sf, device))
+        per["sf_members"].append(_to(members, device))
+        per["sf_closure"].append(sf_closure)
+        per["sf_next"].append(sf_next)
+        per["l2row"].append(l2row)
+        per["bnd2_sid"].append(_to(bnd2_sid, device))
+        l2_slots.append(hierarchy.l2_slot_map(h))
+        w = h.l2_w
+    d2, d2_next = hierarchy.l2_stage(levels[-1], device, force=force,
+                                     timings=bt)
+    fields = {name: tuple(v) for name, v in per.items()}
+    fields["d2"] = d2
+    fields["d2_next"] = d2_next
+    return {
+        "fields": fields,
+        "ov_slot": hierarchy.ov_slot_map(plan),
+        "l2_slot": l2_slots,
+    }
+
+
+def _compose_minplus(U: torch.Tensor, M: torch.Tensor,
+                     chunk: int = 32) -> torch.Tensor:
+    """out[i, j] = min_b U[i, b] + M[b, j], chunked over b so the peak
+    intermediate stays [m2, chunk, mb'] (build-time helper for the
+    resident pre-lift; runs once per hot group per build)."""
+    out = torch.full((U.shape[0], M.shape[1]), _INF, dtype=U.dtype,
+                     device=U.device)
+    for i in range(0, U.shape[1], chunk):
+        out = torch.minimum(out, (U[:, i:i + chunk, None]
+                                  + M[None, i:i + chunk, :]).amin(dim=1))
+    return out
+
+
+def resident_stage(plan: BuildPlan, fields: dict) -> dict | None:
+    """Stage 2b: resident pre-lifted rows.
+
+    For each hot level-1 group g (top traffic mass, capped by
+    ``plan.resident_mb``), compose the per-level lift chain once:
+
+      U_g[p, c] = min over (a_1, ..., a_{L-1}) of
+                  l2row[0][g, p, a_1] + l2row[1][g_2, pos(a_1), a_2]
+                  + ... (+ sentinel-masked at every step)
+
+    scattered to dense top coordinates: the exact confined distance
+    from every member position p to every TOP boundary node c.  A hot
+    cross-top-group query then runs ONE fused minplus_twoside against
+    d2 instead of L per-level lifts; exact because a route between
+    different top groups must touch the top boundary, and its prefix up
+    to the first top contact stays hierarchically confined.
+
+    Returns the DeviceIndex field dict plus the planner's host sidecars,
+    or None when disabled or degenerate.
+    """
+    levels = plan.hier
+    if not levels or plan.resident_mb <= 0:
+        return None
+    h0 = levels[0]
+    stp1 = int(fields["d2"].shape[0])
+    if h0.nsf == 0 or stp1 <= 1:
+        return None
+    # traffic-mass proxy: original graph nodes per level-1 group
+    frag_nodes = np.bincount(plan.frag_of[plan.frag_of >= 0].astype(
+        np.int64), minlength=plan.k)
+    mass = np.zeros(h0.nsf, dtype=np.int64)
+    np.add.at(mass, h0.sf_of_frag.astype(np.int64), frag_nodes)
+    per_sf = h0.m2 * stp1 * 4
+    cap = int(plan.resident_mb * (1 << 20)) // max(per_sf, 1)
+    if cap <= 0:
+        return None
+    hot = np.sort(np.argsort(-mass, kind="stable")[:min(cap, h0.nsf)])
+    l2rows = fields["l2row"]
+    dev = l2rows[0].device
+    sids = [x.cpu().numpy() for x in fields["bnd2_sid"]]
+    poss = [x.cpu().numpy() for x in fields["pos_in_sf"]]
+    L = len(l2rows)
+    rows_out = []
+    for g in hot.tolist():
+        U = l2rows[0][g]                         # [m2, mb2_1]
+        ids = sids[0][g]                         # next-overlay ids
+        gg = g
+        for li in range(1, L):
+            sent = levels[li - 1].S2             # ids' sentinel value
+            gg = int(levels[li].sf_of_frag[gg])  # groups nest upward
+            M = l2rows[li][gg][_to(poss[li][ids], dev).long()]
+            M = torch.where(_to(ids != sent, dev)[:, None], M, _INF)
+            U = _compose_minplus(U, M)
+            ids = sids[li][gg]
+        cols = _to(ids, dev).long()[None, :].expand(U.shape[0], -1)
+        rows_out.append(torch.full((U.shape[0], stp1), _INF,
+                                   dtype=U.dtype, device=dev
+                                   ).scatter_reduce_(1, cols, U, "amin"))
+    R = len(rows_out)
+    res_rows = torch.stack(rows_out + [torch.full(
+        (h0.m2, stp1), _INF, dtype=torch.float32, device=dev)])
+    rmap = np.full(h0.nsf, R, np.int32)
+    rmap[hot] = np.arange(R, dtype=np.int32)
+    res_of_frag = rmap[h0.sf_of_frag.astype(np.int64)]
+    top = h0.sf_of_frag.astype(np.int64)
+    for li in range(1, L):
+        top = levels[li].sf_of_frag.astype(np.int64)[top]
+    return {
+        "fields": {"res_rows": res_rows,
+                   "res_of_frag": _to(res_of_frag, dev),
+                   "topgrp_of_frag": _to(top.astype(np.int32), dev)},
+        # planner sidecars: fragment -> resident row (-1: cold) and
+        # fragment -> TOP group (the exactness gate)
+        "res_frag": np.where(res_of_frag < R, res_of_frag,
+                             -1).astype(np.int32),
+        "topgrp_frag": top.astype(np.int32),
+    }
+
+
 def resolve_hierarchy_levels(S: int, hierarchy_levels) -> int:
     """Normalize the ``hierarchy_levels`` build knob as the reference
-    does: "auto" closes densely up to AUTO_THRESHOLD boundary nodes,
-    explicit 1..MAX_LEVELS is honored (1 on an empty overlay)."""
+    does: "auto" switches off the dense overlay once S crosses
+    hierarchy.AUTO_THRESHOLD (the planner then deepens on its own until
+    the top closure fits); explicit 1..MAX_LEVELS is honored (1 on an
+    empty overlay; the depth plan_hierarchy builds is authoritative)."""
     if hierarchy_levels == "auto":
-        hierarchy_levels = 2 if S > AUTO_THRESHOLD else 1
+        hierarchy_levels = 2 if S > hierarchy.AUTO_THRESHOLD else 1
     try:
         lv = int(hierarchy_levels)
     except (TypeError, ValueError):
         raise ValueError(
             f"hierarchy_levels must be an int or 'auto': "
             f"{hierarchy_levels!r}")
-    if not 1 <= lv <= MAX_LEVELS:
+    if not 1 <= lv <= hierarchy.MAX_LEVELS:
         raise ValueError(
-            f"hierarchy_levels must be in 1..{MAX_LEVELS} or 'auto': "
-            f"{hierarchy_levels!r}")
+            f"hierarchy_levels must be in 1..{hierarchy.MAX_LEVELS} "
+            f"or 'auto': {hierarchy_levels!r}")
     if lv > 1 and S == 0:
         return 1
     return lv
@@ -450,18 +669,35 @@ def _node_piece_addressing(plan: BuildPlan) -> tuple[np.ndarray,
     return base, stride
 
 
+#: default resident pre-lift budget (MiB) when ``resident_mb="auto"``
+#: on a hierarchical index, sized so every road64k-scale group fits
+RESIDENT_MB_AUTO = 64.0
+
+
+def _dummies(device: torch.device) -> dict:
+    """The hierarchical tensor fields' dummies (their defaults, a dense
+    build's values), on ``device``."""
+    return {f.name: f.default_factory().to(device)
+            for f in dataclasses.fields(DeviceIndex)
+            if f.default_factory is not dataclasses.MISSING}
+
+
 def build_device_index_with_plan(
         ix: DislandIndex, *, device=None, force=None,
-        hierarchy_levels: int | str = "auto", hub_nodes=None
+        hierarchy_levels: int | str = "auto",
+        resident_mb: float | str = "auto", hub_nodes=None
         ) -> tuple[DeviceIndex, BuildPlan]:
-    """Full from-scratch build of the dense-overlay index on ``device``
-    (default ``cuda``).  Each stage's wall time, kernels included, lands
-    in ``plan.build_timings``.
+    """Full from-scratch build on ``device`` (default ``cuda``).  Each
+    stage's wall time, kernels included, lands in ``plan.build_timings``.
 
-    The port closes the overlay densely only: ``hierarchy_levels`` that
-    resolves above 1 (the N-level hierarchy) and ``hub_nodes`` (the
-    hub-label tier) raise ``NotImplementedError`` until those slices of
-    ROADMAP.md are ported.
+    ``hierarchy_levels`` picks the overlay closure: 1 = the dense
+    [S+1, S+1] witness FW, N in 2..5 = the N-level partition hierarchy,
+    "auto" = hierarchical once S crosses ``hierarchy.AUTO_THRESHOLD``,
+    deepening until the top closure fits under it.  ``resident_mb``
+    budgets the resident pre-lifted rows on hierarchical indices
+    ("auto" = RESIDENT_MB_AUTO; 0 disables).  ``hub_nodes`` (the
+    hub-label tier) raises ``NotImplementedError`` until that slice of
+    ROADMAP.md is ported.
     """
     if hub_nodes is not None and len(hub_nodes):
         raise NotImplementedError(
@@ -472,25 +708,45 @@ def build_device_index_with_plan(
     with trace.timed("build.plan", bt, "plan"):
         plan = make_build_plan(ix)
         lv = resolve_hierarchy_levels(plan.S, hierarchy_levels)
-        if lv != 1:
-            raise NotImplementedError(
-                f"hierarchy_levels={hierarchy_levels!r} resolves to {lv} "
-                f"levels at S={plan.S}: the N-level overlay hierarchy is "
-                f"not ported yet (ROADMAP.md, hierarchy slice); pass "
-                f"hierarchy_levels=1 for the dense overlay")
+        if lv >= 2:
+            plan.hier = hierarchy.plan_hierarchy(
+                plan,
+                levels="auto" if hierarchy_levels == "auto" else lv)
+            # the planner may stop early on degenerate levels (or
+            # deepen, under "auto"): the built depth is authoritative
+            plan.hierarchy_levels = 1 + len(plan.hier)
+            plan.resident_mb = (RESIDENT_MB_AUTO if resident_mb == "auto"
+                                else float(resident_mb))
     plan.build_timings = bt
     with trace.timed("build.frag_stage", bt, "frag_stage", k=plan.k):
         frag_apsp, brow, frag_next = frag_stage(plan, dev, force=force)
         super_weights(plan, frag_apsp.cpu().numpy())
         _sync(dev)
-    with trace.timed("build.super_stage", bt, "super_stage", S=plan.S):
-        d_super, super_next = super_stage(plan, dev, force=force)
-        _sync(dev)
+    fields = _dummies(dev)
+    hres = rres = None
+    if plan.hierarchy_levels >= 2:
+        with trace.timed("build.hier_super_stage", bt, "super_stage",
+                         levels=plan.hierarchy_levels):
+            hres = hier_super_stage(plan, dev, force=force)
+            fields.update(hres["fields"])
+            _sync(dev)
+        with trace.timed("build.resident_stage", bt, "resident_stage"):
+            rres = resident_stage(plan, fields)
+            if rres is not None:
+                fields.update(rres["fields"])
+            _sync(dev)
+        d_super = torch.full((1, 1), _INF, dtype=torch.float32, device=dev)
+        super_next = torch.full((1, 1), -1, dtype=torch.int32, device=dev)
+    else:
+        with trace.timed("build.super_stage", bt, "super_stage", S=plan.S):
+            d_super, super_next = super_stage(plan, dev, force=force)
+            _sync(dev)
     with trace.timed("build.piece_stage", bt, "piece_stage",
                      pieces=plan.n_pieces):
         piece_flat, piece_next = piece_stage(plan, ix.g, dev, force=force)
     base, stride = _node_piece_addressing(plan)
     dix = DeviceIndex(
+        **fields,
         agent_of=_to(plan.agent_of, dev),
         dist_to_agent=_to(ix.dras.dist_to_agent.astype(np.float32), dev),
         frag_of=_to(plan.frag_of, dev),
@@ -509,18 +765,29 @@ def build_device_index_with_plan(
         super_next=super_next,
         piece_flat=_to(piece_flat, dev),
         piece_next=_to(piece_next, dev),
-        host_ov_slot=overlay_slot_table(plan),
     )
+    # host sidecars: slot provenance for the overlay closure this index
+    # was built with (dense: the [S, S] table; hierarchical: the sparse
+    # SlotMap plus one per level), and the planner's cross_res gate
+    if hres is not None:
+        dix.host_ov_slot = hres["ov_slot"]
+        dix.host_l2_slot = hres["l2_slot"]
+        if rres is not None:
+            dix.host_res_frag = rres["res_frag"]
+            dix.host_topgrp_frag = rres["topgrp_frag"]
+    else:
+        dix.host_ov_slot = overlay_slot_table(plan)
     return dix, plan
 
 
 def build_device_index(ix: DislandIndex, *, device=None, force=None,
-                       hierarchy_levels: int | str = "auto"
+                       hierarchy_levels: int | str = "auto",
+                       resident_mb: float | str = "auto"
                        ) -> DeviceIndex:
     """Assemble padded tensors on the host, run the device stages."""
     return build_device_index_with_plan(
         ix, device=device, force=force,
-        hierarchy_levels=hierarchy_levels)[0]
+        hierarchy_levels=hierarchy_levels, resident_mb=resident_mb)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -541,24 +808,171 @@ def _same_dra_dist(dix: DeviceIndex, s, t, ds, dt):
                        d_via_agent)
 
 
+def _layout(device: torch.device, force, layout) -> str:
+    """The combine layout: "scatter" (dense rows contracted by the fused
+    twoside kernel) or "gather" (chunked gathers of the closure).  None
+    picks "scatter" where ``ops`` would run the kernel and "gather"
+    elsewhere, as the reference picks by its ``force``."""
+    if layout is None:
+        return "scatter" if ops.use_kernel(device, force) else "gather"
+    if layout not in ("scatter", "gather"):
+        raise ValueError(f"layout must be None, 'scatter' or 'gather': "
+                         f"{layout!r}")
+    return layout
+
+
+#: bytes one chunk's gathered block [q, c, width] may take on the card
+_CHUNK_BYTES = 64 << 20
+
+
+def _chunk(row: torch.Tensor, width: int) -> int:
+    """Columns of ``row`` [q, mb] per step of the chunked gather loops.
+    The CPU keeps the reference's 8, which bounds its intermediates; on
+    the card each step costs a handful of launches whatever its size,
+    so a step takes as many columns (a multiple of 8) as keep the
+    gathered [q, c, width] block under _CHUNK_BYTES.  The chunking only
+    regroups a min, so every width gives the same bits."""
+    q, mb = row.shape
+    if row.device.type != "cuda":
+        return min(8, mb)
+    c = _CHUNK_BYTES // max(1, 4 * q * width) // 8 * 8
+    return max(min(8, mb), min(mb, c))
+
+
+def _overlay_size(dix: DeviceIndex) -> int:
+    """S + 1: the sentinel super id + 1.  Hierarchical indices carry it
+    as the bottom sf_of's length (their d_super is a [1, 1] dummy);
+    dense indices as d_super's side."""
+    return (dix.sf_of[0].shape[0] if len(dix.sf_of)
+            else dix.d_super.shape[0])
+
+
+def _hier_leg(dix: DeviceIndex, li: int, row_s, grp_s, pos_s,
+              row_t, grp_t, pos_t):
+    """Same-group leg at grouping level ``li``: min over slot pairs
+    (i, j) in the SAME level-li group of
+    row_s[i] + sf_closure[li][g, pos_i, pos_j] + row_t[j], chunked over
+    the s-axis (``_chunk``) so the gathered block stays [q, c, width]."""
+    q, mbs = row_s.shape
+    c = _chunk(row_s, row_t.shape[1])
+    clo = dix.sf_closure[li]
+    acc = torch.full((q, row_t.shape[1]), _INF, dtype=row_s.dtype,
+                     device=row_s.device)
+    for i in range(0, mbs, c):
+        g_c, p_c = grp_s[:, i:i + c, None], pos_s[:, i:i + c, None]
+        blk = clo[g_c, p_c, pos_t[:, None, :]]          # [q, c, mbt]
+        same = g_c == grp_t[:, None, :]
+        cand = torch.where(same, row_s[:, i:i + c, None] + blk, _INF)
+        acc = torch.minimum(acc, cand.amin(dim=1))
+    return (acc + row_t).amin(dim=1)
+
+
+def _lift_compact(dix: DeviceIndex, li: int, row, grp, pos):
+    """Lift a compact boundary row one level: out[q, j] = min_b
+    row[q, b] + l2row[li][grp_b, pos_b, j].  All valid slots of one side
+    share one group per level (groups nest), so the output stays
+    COMPACT: its next-level ids are that group's bnd2_sid row, read by
+    the caller.  Chunked (``_chunk``) so the gathered block stays
+    [q, c, mb']."""
+    q, mb = row.shape
+    l2 = dix.l2row[li]
+    c = _chunk(row, l2.shape[2])
+    acc = torch.full((q, l2.shape[2]), _INF, dtype=row.dtype,
+                     device=row.device)
+    for i in range(0, mb, c):
+        l2_c = l2[grp[:, i:i + c], pos[:, i:i + c]]      # [q, c, mb']
+        acc = torch.minimum(acc, (row[:, i:i + c, None] + l2_c).amin(dim=1))
+    return acc
+
+
+def _scatter_top(dix: DeviceIndex, row, ids):
+    """Scatter a compact top-level row into dense d2 coordinates."""
+    out = torch.full((row.shape[0], dix.d2.shape[0]), _INF,
+                     dtype=row.dtype, device=row.device)
+    return out.scatter_reduce_(1, ids, row, "amin")
+
+
+def _top_mid_gather(dix: DeviceIndex, row_s, ids_s, row_t, ids_t):
+    """Contract compact top rows against d2 without scattering:
+
+      mid = min_{x,y} row_s[x] + d2[ids_s[x], ids_t[y]] + row_t[y]
+
+    The scattered row is +inf outside its own top-group boundary
+    columns, so gathering d2 at just [ids_s x ids_t] equals scatter +
+    full minplus_twoside.  Sentinel slots carry id S_top, which indexes
+    d2's +inf row/col.  Chunked with the largest of 24/16/8 that
+    divides the (pad_to-8) width, as the reference."""
+    q, mb = row_s.shape
+    c = next(cc for cc in (24, 16, 8, mb) if mb % cc == 0)
+    acc = torch.full((q, row_t.shape[1]), _INF, dtype=row_s.dtype,
+                     device=row_s.device)
+    for i in range(0, mb, c):
+        blk = dix.d2[ids_s[:, i:i + c, None], ids_t[:, None, :]]
+        acc = torch.minimum(acc,
+                            (row_s[:, i:i + c, None] + blk).amin(dim=1))
+    return (acc + row_t).amin(dim=1)
+
+
+def _combine_mid_h(dix: DeviceIndex, row_s, bs, row_t, bt, *,
+                   force=None, layout=None):
+    """Hierarchical combine:
+
+      mid = min_{x,y} row_s[x] + OD(x, y) + row_t[y]
+
+    where OD decomposes per level: either both sides sit in the same
+    level-l group (its closure answers exactly: the va legs), or the
+    route crosses every level's boundary and the TOP closure answers
+    against both rows lifted level by level (the vb leg).  The scatter
+    layout scatters both top rows dense and runs the fused
+    minplus_twoside (the kernel on the card); the gather layout stays
+    compact and gathers only each side's own top-group columns of d2
+    (``_top_mid_gather``).  Both give the same bits."""
+    layout = _layout(row_s.device, force, layout)
+    q = row_s.shape[0]
+    ids_s, ids_t = bs.long(), bt.long()
+    va = torch.full((q,), _INF, dtype=row_s.dtype, device=row_s.device)
+    for li in range(len(dix.sf_of)):
+        grp_s = dix.sf_of[li][ids_s].long()
+        pos_s = dix.pos_in_sf[li][ids_s].long()
+        grp_t = dix.sf_of[li][ids_t].long()
+        pos_t = dix.pos_in_sf[li][ids_t].long()
+        va = torch.minimum(va, _hier_leg(dix, li, row_s, grp_s, pos_s,
+                                         row_t, grp_t, pos_t))
+        new_s = _lift_compact(dix, li, row_s, grp_s, pos_s)
+        new_t = _lift_compact(dix, li, row_t, grp_t, pos_t)
+        # slot 0 is valid-first by construction, so its group IS the
+        # side's group (sentinel-only rows land on the sentinel group,
+        # whose bnd2_sid row is all-sentinel and whose rows are +inf)
+        ids_s = dix.bnd2_sid[li][grp_s[:, 0]].long()
+        ids_t = dix.bnd2_sid[li][grp_t[:, 0]].long()
+        row_s, row_t = new_s, new_t
+    if layout == "scatter":
+        vb = ops.minplus_twoside(_scatter_top(dix, row_s, ids_s), dix.d2,
+                                 _scatter_top(dix, row_t, ids_t),
+                                 force=force)
+    else:
+        vb = _top_mid_gather(dix, row_s, ids_s, row_t, ids_t)
+    return torch.minimum(va, vb)
+
+
 def _combine_mid(dix: DeviceIndex, row_s, bs, row_t, bt, *, force=None,
                  layout=None):
     """combine = min_{b1,b2} row_s[b1] + D_super[bs[b1], bt[b2]]
     + row_t[b2] without a [q, mb, mb] intermediate.
 
-    ``layout`` picks one of the reference's two layouts:
-    "scatter" scatter-mins the boundary rows into SUPER coordinates
-    (one O(q*mb) scatter each) and runs the fused two-sided contraction
-    against D_super (``ops.minplus_twoside``: the CUDA kernel on the
-    card, its plain version on the CPU); "gather" chunks the b1 axis so
-    the gathered block never exceeds [q, 8, mb].  None picks "scatter"
-    where ``ops`` would run the kernel and "gather" elsewhere, as the
-    reference picks by its ``force``.
+    Hierarchical indices (non-empty ``sf_of``) route to
+    ``_combine_mid_h``.  ``layout`` picks one of the reference's two
+    layouts (``_layout``): "scatter" scatter-mins the boundary rows into
+    SUPER coordinates (one O(q*mb) scatter each) and runs the fused
+    two-sided contraction against D_super (``ops.minplus_twoside``: the
+    CUDA kernel on the card, its plain version on the CPU); "gather"
+    chunks the b1 axis (``_chunk``) so the gathered block stays
+    [q, c, mb].
     """
-    if layout is None:
-        layout = ("scatter" if ops.use_kernel(row_s.device, force)
-                  else "gather")
-    if layout == "scatter":
+    if len(dix.sf_of):
+        return _combine_mid_h(dix, row_s, bs, row_t, bt, force=force,
+                              layout=layout)
+    if _layout(row_s.device, force, layout) == "scatter":
         q, s1 = row_s.shape[0], dix.d_super.shape[0]
         rs = torch.full((q, s1), _INF, dtype=row_s.dtype,
                         device=row_s.device)
@@ -567,11 +981,8 @@ def _combine_mid(dix: DeviceIndex, row_s, bs, row_t, bt, *, force=None,
                         device=row_t.device)
         rt.scatter_reduce_(1, bt.long(), row_t, "amin")
         return ops.minplus_twoside(rs, dix.d_super, rt, force=force)
-    if layout != "gather":
-        raise ValueError(f"layout must be None, 'scatter' or 'gather': "
-                         f"{layout!r}")
     q, mb = row_s.shape
-    c = min(8, mb)                       # mb is padded to a multiple of 8
+    c = _chunk(row_s, mb)
     bs, bt = bs.long(), bt.long()
     acc = torch.full((q, mb), _INF, dtype=row_s.dtype,
                      device=row_s.device)
@@ -631,3 +1042,140 @@ def serve_step(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
     d_same = serve_same_dra(dix, s, t)
     out = torch.where(us == ut, d_same, d_cross)
     return torch.where(s == t, 0.0, out)
+
+
+def _lift_res(dix: DeviceIndex, row, pos, ridx, cols=None):
+    """Resident lift: rs[q, c] = min_b row[q, b] +
+    res_rows[ridx, pos_b, c], the whole per-level lift ladder collapsed
+    into one chunked gather against the pre-composed rows.  With
+    ``cols`` ([q, w] d2 column ids) the output is restricted to those
+    columns per query instead of the full S_top+1 width."""
+    q, mb = row.shape
+    width = dix.res_rows.shape[2] if cols is None else cols.shape[1]
+    c = _chunk(row, width)
+    acc = torch.full((q, width), _INF, dtype=row.dtype, device=row.device)
+    for i in range(0, mb, c):
+        p_c = pos[:, i:i + c]
+        if cols is None:
+            blk = dix.res_rows[ridx[:, None], p_c]       # [q, c, S_top+1]
+        else:
+            blk = dix.res_rows[ridx[:, None, None], p_c[:, :, None],
+                               cols[:, None, :]]         # [q, c, w]
+        acc = torch.minimum(acc, (row[:, i:i + c, None] + blk).amin(dim=1))
+    return acc
+
+
+def serve_cross_res(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
+                    force=None, layout=None) -> torch.Tensor:
+    """Planner bucket 4: the resident fast path for hot cross-top-group
+    queries.  Both endpoints' fragments must be in RESIDENT level-1
+    groups and in DIFFERENT top-level groups (the planner guarantees
+    both): then the route must touch the top boundary, every confined
+    prefix is pre-composed in res_rows, and the whole combine is one
+    contraction against d2, a fused minplus_twoside in the scatter
+    layout, or a gather restricted to each endpoint's own top-group
+    boundary columns in the gather layout.  A fragment id of -1 is
+    clamped before the gathers and its answer masked to +inf, as in
+    ``serve_cross``."""
+    s, t = s.long(), t.long()
+    us, ut = dix.agent_of[s].long(), dix.agent_of[t].long()
+    ds, dt = dix.dist_to_agent[s], dix.dist_to_agent[t]
+    fs, ft = dix.frag_of[us].long(), dix.frag_of[ut].long()
+    valid = (fs >= 0) & (ft >= 0)
+    fs_c, ft_c = fs.clamp(min=0), ft.clamp(min=0)
+    ps, pt = dix.pos_in_frag[us].long(), dix.pos_in_frag[ut].long()
+    row_s = dix.brow[fs_c, ps]                   # [q, mb]
+    row_t = dix.brow[ft_c, pt]
+    pos_s = dix.pos_in_sf[0][dix.bnd_super[fs_c].long()].long()
+    pos_t = dix.pos_in_sf[0][dix.bnd_super[ft_c].long()].long()
+    rid_s = dix.res_of_frag[fs_c].long()
+    rid_t = dix.res_of_frag[ft_c].long()
+    if _layout(row_s.device, force, layout) == "scatter":
+        rs = _lift_res(dix, row_s, pos_s, rid_s)
+        rt = _lift_res(dix, row_t, pos_t, rid_t)
+        mid = ops.minplus_twoside(rs, dix.d2, rt, force=force)
+    else:
+        ids_s = dix.bnd2_sid[-1][dix.topgrp_of_frag[fs_c].long()].long()
+        ids_t = dix.bnd2_sid[-1][dix.topgrp_of_frag[ft_c].long()].long()
+        rs = _lift_res(dix, row_s, pos_s, rid_s, cols=ids_s)
+        rt = _lift_res(dix, row_t, pos_t, rid_t, cols=ids_t)
+        mid = _top_mid_gather(dix, rs, ids_s, rt, ids_t)
+    d = ds + mid + dt
+    return torch.where(valid, d, _INF)
+
+
+def _overlay_row_h(dix: DeviceIndex, rs: torch.Tensor, *,
+                   force=None) -> torch.Tensor:
+    """Exact overlay distances from a scattered source row rs [S+1] to
+    EVERY overlay node, through the hierarchy: ascend the ladder
+    (within-group (min,+) against the group closures + boundary lift per
+    level), one vector (x) matrix product against the top closure
+    (``ops.minplus``, the kernel on the card), then descend (lift back
+    through each level's rows, min-merged with that level's
+    within-group leg)."""
+    L = len(dix.sf_of)
+    r = rs
+    withins = []
+    for li in range(L):
+        members = dix.sf_members[li].long()      # [ng+1, m2] (S_l pad)
+        rm = r[members]                          # [ng+1, m2]
+        withins.append((rm[:, :, None] + dix.sf_closure[li]).amin(dim=1))
+        lift = (rm[:, :, None] + dix.l2row[li]).amin(dim=1)
+        np1 = (dix.sf_of[li + 1].shape[0] if li + 1 < L
+               else dix.d2.shape[0])
+        r = torch.full((np1,), _INF, dtype=rs.dtype, device=rs.device)
+        r.scatter_reduce_(0, dix.bnd2_sid[li].long().reshape(-1),
+                          lift.reshape(-1), "amin")
+    z = ops.minplus(r[None, :], dix.d2, force=force)[0]   # [S_top+1]
+    for li in range(L - 1, -1, -1):
+        back = z[dix.bnd2_sid[li].long()]        # [ng+1, mb2]
+        via = (dix.l2row[li] + back[:, None, :]).amin(dim=2)
+        out = torch.minimum(withins[li], via)    # [ng+1, m2]
+        z = torch.full((dix.sf_of[li].shape[0],), _INF, dtype=rs.dtype,
+                       device=rs.device)
+        z.scatter_reduce_(0, dix.sf_members[li].long().reshape(-1),
+                          out.reshape(-1), "amin")
+    return z
+
+
+def serve_one_to_all(dix: DeviceIndex, s, *, force=None) -> torch.Tensor:
+    """Exact distances from one source to EVERY node: [n].
+
+    Scatter the source boundary row into overlay coordinates, one
+    vector (x) matrix (min,+) product against the overlay closure (the
+    ``minplus`` kernel on the card; per level on hierarchical indices),
+    then a per-node gather combine.  A fragment id of -1 (source or
+    target) is clamped before the gathers and its cross-DRA answers
+    masked to +inf, where the reference wraps the -1 and masks after.
+    """
+    dev = dix.device
+    s = torch.as_tensor(s, dtype=torch.long, device=dev).reshape(())
+    n = dix.agent_of.shape[0]
+    us = dix.agent_of[s].long()
+    ds = dix.dist_to_agent[s]
+    fs = dix.frag_of[us].long()
+    fs_c = fs.clamp(min=0)
+    ps = dix.pos_in_frag[us].long()
+    row_s = dix.brow[fs_c, ps]                           # [mb]
+    bs = dix.bnd_super[fs_c].long()                      # [mb]
+    rs = torch.full((_overlay_size(dix),), _INF, dtype=row_s.dtype,
+                    device=dev).scatter_reduce_(0, bs, row_s, "amin")
+    if len(dix.sf_of):
+        x = _overlay_row_h(dix, rs, force=force)         # [S+1]
+    else:
+        x = ops.minplus(rs[None, :], dix.d_super, force=force)[0]
+    # per-target combine (sentinel slots hit x's +inf entry)
+    tt = torch.arange(n, dtype=torch.long, device=dev)
+    ut = dix.agent_of.long()
+    dt = dix.dist_to_agent
+    ft = dix.frag_of[ut].long()
+    ft_c = ft.clamp(min=0)
+    ptv = dix.pos_in_frag[ut].long()
+    row_t = dix.brow[ft_c, ptv]                          # [n, mb]
+    mid = (x[dix.bnd_super[ft_c].long()] + row_t).amin(dim=1)   # [n]
+    local = torch.where(ft == fs, dix.frag_apsp[ft_c, ps, ptv], _INF)
+    d_cross = ds + torch.minimum(mid, local) + dt
+    d_cross = torch.where((fs >= 0) & (ft >= 0), d_cross, _INF)
+    d_same = _same_dra_dist(dix, s.expand(n), tt, ds.expand(n), dt)
+    out = torch.where(us == ut, d_same, d_cross)
+    return torch.where(tt == s, 0.0, out)

@@ -1,12 +1,13 @@
 """Query planner: the host-side front end of the port's serve path.
 
-Port of ``repro/core/dist_engine.py:QueryPlanner`` for dense-overlay
-indices.  It buckets each incoming batch by case (same-DRA /
-same-fragment / cross-fragment) and runs one program per bucket, so
-same-DRA queries never pay for the SUPER combine and cross-fragment
-queries never touch the piece tables.  Each bucket is padded to a power
-of two with (0, 0) filler queries, exactly as the reference pads, so a
-bucket runs at one of O(log batch) shapes.
+Port of ``repro/core/dist_engine.py:QueryPlanner``.  It buckets each
+incoming batch by case (same-DRA / same-fragment / cross-fragment, and
+on hierarchical indices with resident rows the cross_res fast path) and
+runs one program per bucket, so same-DRA queries never pay for the
+overlay combine and cross-fragment queries never touch the piece
+tables.  Each bucket is padded to a power of two with (0, 0) filler
+queries, exactly as the reference pads, so a bucket runs at one of
+O(log batch) shapes.
 
 Owned invariant: ``plan()``'s buckets cover every query exactly once.
 """
@@ -18,7 +19,8 @@ import numpy as np
 import torch
 
 from . import padding
-from .device_engine import DeviceIndex, serve_cross, serve_same_dra
+from .device_engine import (DeviceIndex, serve_cross, serve_cross_res,
+                            serve_same_dra)
 
 _pad_pow2 = padding.pad_pow2
 
@@ -26,9 +28,10 @@ _pad_pow2 = padding.pad_pow2
 class QueryPlanner:
     """Bucket a query batch by case and dispatch per-case programs on
     the index's device.  ``force`` and ``layout`` pass through to the
-    cross-fragment programs (``device_engine._combine_mid``)."""
+    cross-fragment programs (``device_engine._combine_mid``) and the
+    resident program (``serve_cross_res``)."""
 
-    CASES = ("same_dra", "same_frag", "cross_frag")
+    CASES = ("same_dra", "same_frag", "cross_frag", "cross_res")
 
     def __init__(self, dix: DeviceIndex, *, force=None, layout=None):
         self._fns = {
@@ -37,16 +40,23 @@ class QueryPlanner:
                 serve_cross, with_local=True, force=force, layout=layout),
             "cross_frag": functools.partial(
                 serve_cross, with_local=False, force=force, layout=layout),
+            # resident fast path: both endpoints in pre-lifted hot
+            # groups of *different* top-level groups, so the whole query
+            # is one contraction against the top closure
+            "cross_res": functools.partial(
+                serve_cross_res, force=force, layout=layout),
         }
         self.last_counts: dict = {}
         self.set_index(dix)
 
     def set_index(self, dix: DeviceIndex) -> None:
         """Serve from ``dix``; ``plan`` buckets with host copies of its
-        membership maps, taken once here."""
+        membership maps and its cross_res sidecars, taken once here."""
         self.dix = dix
         self._agent_of = dix.agent_of.cpu().numpy()
         self._frag_of = dix.frag_of.cpu().numpy()
+        self._res_frag = dix.host_res_frag
+        self._topgrp = dix.host_topgrp_frag
 
     @staticmethod
     def bucket_sizes(batch_size: int) -> list[int]:
@@ -66,7 +76,13 @@ class QueryPlanner:
         dev = self.dix.device
         z = torch.zeros(max(self.bucket_sizes(batch_size)),
                         dtype=torch.int64, device=dev)
-        for fn in self._fns.values():
+        # the resident program only runs on indices that carry real
+        # pre-lifted rows (the cold dummy is (1, 1, 1)); its bucket is
+        # provably empty otherwise
+        has_res = self.dix.res_rows.shape[0] > 1
+        fns = [fn for case, fn in self._fns.items()
+               if has_res or case != "cross_res"]
+        for fn in fns:
             for size in self.bucket_sizes(batch_size):
                 fn(self.dix, z[:size], z[:size])
         if dev.type == "cuda":
@@ -79,10 +95,24 @@ class QueryPlanner:
         case1 = us == ut
         case2 = ~case1 & (fs == ft)
         case3 = ~case1 & ~case2
+        res_frag, topgrp = self._res_frag, self._topgrp
+        if res_frag is not None and topgrp is not None:
+            # hot split of cross_frag: both fragments pre-lifted AND in
+            # different top-level groups (the exactness gate for the
+            # resident rows: nested grouping means different top groups
+            # imply different groups at every level)
+            valid = (fs >= 0) & (ft >= 0)
+            fs_v, ft_v = np.where(valid, fs, 0), np.where(valid, ft, 0)
+            hot = (case3 & valid & (res_frag[fs_v] >= 0)
+                   & (res_frag[ft_v] >= 0) & (topgrp[fs_v] != topgrp[ft_v]))
+            case3 = case3 & ~hot
+        else:
+            hot = np.zeros(s.shape, bool)
         return {
             "same_dra": np.nonzero(case1)[0],
             "same_frag": np.nonzero(case2)[0],
             "cross_frag": np.nonzero(case3)[0],
+            "cross_res": np.nonzero(hot)[0],
         }
 
     def _dispatch(self, s, t, out) -> None:

@@ -1,5 +1,4 @@
 # Copied from src/repro/data/roads.py (numpy only); keep the two in step.
-# One deliberate difference: road64k closes its overlay densely here.
 """Named road-graph presets for the serve/benchmark drivers.
 
 One registry for every graph size the drivers, benchmarks, CI smokes,
@@ -16,13 +15,8 @@ anyway); road64k pins the measured sweet spot of three levels so the
 CI smoke and BENCH records can't drift with the auto heuristics;
 road250k rides "auto", which keeps adding grouping levels until the
 top boundary fits under the dense threshold or stops shrinking
-(DESIGN.md §13).
-
-The port has no overlay hierarchy yet, so its road64k preset pins the
-dense closure (``hierarchy=1``): the largest preset whose overlay
-(S ~ 4.6k) still closes as one dense witness Floyd-Warshall on one
-card.  Presets that resolve to more than one level are refused by the
-device build until the hierarchy is ported.
+(DESIGN.md §13).  The port's presets are the reference's, level for
+level.
 """
 from __future__ import annotations
 
@@ -48,7 +42,7 @@ ROAD_PRESETS = {
         RoadPreset("road2000", nodes=2000, hierarchy=1),
         RoadPreset("road4000", nodes=4000, hierarchy=1),
         RoadPreset("road16k", nodes=16_000),
-        RoadPreset("road64k", nodes=64_000, hierarchy=1),
+        RoadPreset("road64k", nodes=64_000, hierarchy=3),
         RoadPreset("road250k", nodes=250_000),
     )
 }

@@ -19,7 +19,8 @@ from typing import Literal, Optional
 import torch
 
 from . import ref as _ref
-from .floyd_warshall import fw_batch_next_cuda
+from .floyd_warshall import fw_batch_cuda, fw_batch_next_cuda, fw_blocked
+from .minplus import minplus_accum_cuda, minplus_cuda
 from .minplus_twoside import minplus_twoside_cuda
 
 Force = Optional[Literal["kernel", "ref"]]
@@ -65,3 +66,37 @@ def minplus_twoside(rows: torch.Tensor, d: torch.Tensor,
     if use_kernel(rows.device, force):
         return minplus_twoside_cuda(rows, d, rowt)
     return _ref.minplus_twoside_ref(rows, d, rowt)
+
+
+def minplus(a: torch.Tensor, b: torch.Tensor, *, force: Force = None
+            ) -> torch.Tensor:
+    """Tropical GEMM: C[i, j] = min_k A[i, k] + B[k, j]."""
+    if use_kernel(a.device, force):
+        return minplus_cuda(a, b)
+    return _ref.minplus_ref(a, b)
+
+
+def minplus_accum(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
+                  force: Force = None) -> torch.Tensor:
+    """min(C, A (x) B), in a new tensor."""
+    if use_kernel(a.device, force):
+        return minplus_accum_cuda(c, a, b)
+    return _ref.minplus_accum_ref(c, a, b)
+
+
+def fw_batch(d: torch.Tensor, *, force: Force = None) -> torch.Tensor:
+    """Distance-only batched APSP over [b, n, n] (diagonal forced to 0)."""
+    if use_kernel(d.device, force):
+        return fw_batch_cuda(d)
+    return _ref.fw_batch_ref(d)
+
+
+def fw_apsp(d: torch.Tensor, *, block: int = 128, force: Force = None
+            ) -> torch.Tensor:
+    """APSP for a single [n, n] matrix: the blocked 3-phase schedule
+    over kernels ``fw_batch`` and ``minplus_accum`` on the card, the
+    single-pivot plain version ``fw_ref`` on the CPU (as the reference's
+    CPU path runs)."""
+    if use_kernel(d.device, force):
+        return fw_blocked(d, block=block, force=force)
+    return _ref.fw_ref(d)

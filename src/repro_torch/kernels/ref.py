@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the main path's kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Counterparts of ``repro/kernels/ref.py``: the CPU path runs these, the
 tests hold them equal to the reference's jnp oracles, and on the card
@@ -69,3 +69,43 @@ def minplus_twoside_ref(rows: torch.Tensor, d: torch.Tensor,
                 + d[None, i:i + chunk, :]).amin(dim=1)
         acc = torch.minimum(acc, cand)
     return (acc + rowt).amin(dim=1)
+
+
+def minplus_ref(a: torch.Tensor, b: torch.Tensor, *, chunk: int = 16
+                ) -> torch.Tensor:
+    """C[i, j] = min_k A[i, k] + B[k, j] (tropical GEMM).
+
+    k-chunked so the peak intermediate is [m, chunk, n]; min does not
+    depend on order, so the result equals the unchunked oracle.
+    """
+    m, k = a.shape
+    out = torch.full((m, b.shape[1]), float("inf"), dtype=a.dtype,
+                     device=a.device)
+    for i in range(0, k, chunk):
+        out = torch.minimum(out, (a[:, i:i + chunk, None]
+                                  + b[None, i:i + chunk, :]).amin(dim=1))
+    return out
+
+
+def minplus_accum_ref(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+                      ) -> torch.Tensor:
+    """min(C, A (x) B)."""
+    return torch.minimum(c, minplus_ref(a, b))
+
+
+def fw_batch_ref(d: torch.Tensor) -> torch.Tensor:
+    """Distance-only Floyd-Warshall over a batch [b, n, n]: diagonal
+    forced to 0, then the serial pivot recurrence of
+    ``repro.kernels.ref.fw_ref``."""
+    n = d.shape[-1]
+    eye = torch.eye(n, dtype=torch.bool, device=d.device)
+    mat = torch.where(eye, torch.zeros((), dtype=d.dtype, device=d.device),
+                      d)
+    for k in range(n):
+        mat = torch.minimum(mat, mat[:, :, k:k + 1] + mat[:, k:k + 1, :])
+    return mat
+
+
+def fw_ref(d: torch.Tensor) -> torch.Tensor:
+    """Floyd-Warshall APSP on one [n, n] matrix (diag forced to 0)."""
+    return fw_batch_ref(d[None])[0]

@@ -13,9 +13,12 @@ buckets, and validates a sample of the last batch against host Dijkstra
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --nodes 900 --batches 1 --batch-size 64 --validate 16
 
-The port closes the overlay densely (``hierarchy_levels=1``); a preset
-or size whose overlay needs the N-level hierarchy is refused by the
-device build until that slice is ported.
+``--hierarchy-levels`` picks the overlay closure (1 dense, 2..5 the
+N-level hierarchy, auto; default the preset's, else auto) and
+``--resident-mb`` the resident pre-lifted row budget on hierarchical
+indices (0 disables).  On a hierarchical index the run prints the
+per-level overlay shapes and memory (``hier_overlay_stats``) and the
+resident group count.
 """
 from __future__ import annotations
 
@@ -24,10 +27,12 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 from ..core import dijkstra
 from ..core.device_engine import (build_device_index_with_plan,
                                   resolve_device)
+from ..core.hierarchy import hier_overlay_stats
 from ..core.dist_engine import QueryPlanner
 from ..core.graph import road_like
 from ..core.supergraph import build_index
@@ -39,6 +44,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--nodes", type=int, default=4000)
     ap.add_argument("--graph", default=None,
                     help="named road preset (overrides --nodes)")
+    ap.add_argument("--hierarchy-levels", default=None,
+                    help="overlay closure: 1 (dense), N in 2..5 (N-level "
+                         "hierarchy) or auto; default: the preset's "
+                         "setting, else auto")
+    ap.add_argument("--resident-mb", default="auto",
+                    help="budget (MiB) for the resident pre-lifted rows "
+                         "on hierarchical indices; 0 disables, auto uses "
+                         "the built-in default")
     ap.add_argument("--batches", type=int, default=5)
     ap.add_argument("--batch-size", type=int, default=1024)
     ap.add_argument("--validate", type=int, default=64,
@@ -49,15 +62,36 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def run(args: argparse.Namespace) -> dict:
-    """Build, warm up, serve and validate; returns the run's summary
-    (stage seconds, median batch ms, µs/query, planner buckets, the
-    validation mismatch count)."""
+def _levels_arg(value):
+    """``--hierarchy-levels`` as the build takes it: "auto" or an int."""
+    return value if value == "auto" else int(value)
+
+
+def _overlay_record(dix, plan) -> dict:
+    """Overlay-closure shapes and memory of the built index."""
+    if plan.hierarchy_levels >= 2:
+        rec = hier_overlay_stats(plan.hier, plan.S)
+        rec["resident_groups"] = max(0, int(dix.res_rows.shape[0]) - 1)
+        return rec
+    dense = 2 * (plan.S + 1) * (plan.S + 1) * 4
+    return {"hierarchy_levels": 1, "S": plan.S,
+            "overlay_bytes": dense, "overlay_dense_bytes": dense}
+
+
+def build(args: argparse.Namespace) -> tuple:
+    """Graph, host index and device index of the run ->
+    (graph, DeviceIndex, BuildPlan, summary of the build)."""
     device = resolve_device(args.device)
     levels = "auto"
     if args.graph:
         preset = road_preset(args.graph)
         args.nodes, levels = preset.nodes, preset.hierarchy
+    if args.hierarchy_levels is not None:
+        levels = _levels_arg(args.hierarchy_levels)
+    resident_mb = (args.resident_mb if args.resident_mb == "auto"
+                   else float(args.resident_mb))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     g = road_like(args.nodes, seed=args.seed)
     graph_s = time.perf_counter() - t0
@@ -67,14 +101,36 @@ def run(args: argparse.Namespace) -> dict:
     host_s = time.perf_counter() - t0
     print(f"host index: {ix.timings} ({host_s:.2f}s)")
     t0 = time.perf_counter()
-    dix, plan = build_device_index_with_plan(ix, device=device,
-                                             hierarchy_levels=levels)
+    dix, plan = build_device_index_with_plan(
+        ix, device=device, hierarchy_levels=levels,
+        resident_mb=resident_mb)
     device_s = time.perf_counter() - t0
     stages = {k: round(v, 3) for k, v in plan.build_timings.items()}
     print(f"device index on {device}: k={plan.k} maxf={plan.maxf} "
           f"mb={plan.mb} S={plan.S} pieces={plan.n_pieces} "
           f"stages={stages} ({device_s:.2f}s)")
+    overlay = _overlay_record(dix, plan)
+    if plan.hierarchy_levels >= 2:
+        print(f"overlay hierarchy: {overlay['hierarchy_levels']} levels, "
+              f"S={overlay['S']} -> levels_S2={overlay['levels_S2']} "
+              f"(top S={overlay['S_top']}), "
+              f"{overlay['overlay_bytes'] / 2**20:.1f} MiB (dense would be "
+              f"{overlay['overlay_dense_bytes'] / 2**20:.1f} MiB), "
+              f"{overlay['resident_groups']} resident groups")
+    return g, dix, plan, {
+        "graph": args.graph or f"road{args.nodes}", "n": g.n,
+        "device": str(device), "S": plan.S, "k": plan.k,
+        "maxf": plan.maxf, "mb": plan.mb, "overlay": overlay,
+        "host_build_s": host_s, "device_build_s": device_s,
+        "stages_s": dict(plan.build_timings)}
 
+
+def serve(args: argparse.Namespace, g, dix, summary: dict) -> dict:
+    """Warm the planner up, serve the batches and validate against
+    Dijkstra; returns ``summary`` completed with the median batch ms,
+    µs/query, planner buckets, peak device memory and the validation
+    mismatch count."""
+    device = dix.device
     planner = QueryPlanner(dix)
     t0 = time.perf_counter()
     planner.warmup(args.batch_size)
@@ -82,6 +138,7 @@ def run(args: argparse.Namespace) -> dict:
     rng = np.random.default_rng(args.seed + 1)
     times = []
     last = None
+    totals = dict.fromkeys(planner.CASES, 0)
     for _ in range(args.batches):
         s = rng.integers(0, g.n, args.batch_size)
         t = rng.integers(0, g.n, args.batch_size)
@@ -89,12 +146,19 @@ def run(args: argparse.Namespace) -> dict:
         out = planner(s, t)              # host copy: waits for the card
         times.append(time.perf_counter() - t0)
         last = (s, t, out)
+        for case, count in planner.last_counts.items():
+            totals[case] += count
     med = float(np.median(times)) if times else float("nan")
     per_q = med / args.batch_size
     print(f"served {args.batches * args.batch_size} queries; median batch "
           f"{med * 1e3:.3f}ms -> {per_q * 1e6:.3f}us/query "
           f"({1 / per_q:,.0f} qps)")
-    print(f"planner buckets (last batch): {planner.last_counts}")
+    print(f"planner buckets (all batches): {totals}")
+    peak_mb = None
+    if device.type == "cuda":
+        peak_mb = torch.cuda.max_memory_allocated(device) / 2**20
+        print(f"peak device memory (max_memory_allocated): "
+              f"{peak_mb:.1f} MiB")
 
     bad = 0
     if args.validate and last is not None:
@@ -104,17 +168,20 @@ def run(args: argparse.Namespace) -> dict:
             want = dijkstra.pair(g, int(s[i]), int(t[i]))
             bad += dijkstra.mismatches_oracle(want, float(got[i]))
         print(f"validation: {bad} mismatches of {n_check}")
-    return {
-        "graph": args.graph or f"road{args.nodes}", "n": g.n,
-        "device": str(device), "S": plan.S, "k": plan.k,
-        "maxf": plan.maxf, "mb": plan.mb,
-        "host_build_s": host_s, "device_build_s": device_s,
-        "stages_s": dict(plan.build_timings), "warmup_s": warmup_s,
-        "median_batch_ms": med * 1e3, "us_per_query": per_q * 1e6,
-        "buckets": dict(planner.last_counts), "mismatches": bad,
-        "answers_finite": bool(last is not None
-                               and np.isfinite(last[2]).all()),
-    }
+    return dict(
+        summary, warmup_s=warmup_s, median_batch_ms=med * 1e3,
+        us_per_query=per_q * 1e6, buckets=totals, peak_device_mb=peak_mb,
+        mismatches=bad,
+        answers_finite=bool(last is not None
+                            and np.isfinite(last[2]).all()))
+
+
+def run(args: argparse.Namespace) -> dict:
+    """Build, warm up, serve and validate; returns the run's summary
+    (stage seconds, overlay shapes, median batch ms, µs/query, planner
+    buckets, the validation mismatch count)."""
+    g, dix, _plan, summary = build(args)
+    return serve(args, g, dix, summary)
 
 
 def main(argv=None) -> int:

@@ -93,7 +93,10 @@ def test_pairs_cover_every_case(world):
     g, dix, plan, _ = world
     s, t = _pairs(g, plan)
     buckets = QueryPlanner(dix).plan(s, t)
-    assert all(v.size for v in buckets.values()), buckets
+    # a dense index has no resident rows: its cross_res bucket is empty
+    assert buckets["cross_res"].size == 0
+    assert all(v.size for c, v in buckets.items() if c != "cross_res"), \
+        buckets
     covered = np.sort(np.concatenate(list(buckets.values())))
     np.testing.assert_array_equal(covered, np.arange(s.size))
 
@@ -124,6 +127,16 @@ def test_planner_matches_serve_step(world, layout):
     assert sum(planner.last_counts.values()) == s.size
 
 
+def test_serve_one_to_all_dense_matches_reference_and_dijkstra(world):
+    g, dix, _plan, jdix = world
+    for src in (0, 17, g.n - 1):
+        got = tde.serve_one_to_all(dix, src).numpy()
+        np.testing.assert_array_equal(
+            got, np.asarray(jde.serve_one_to_all(jdix, src)))
+        np.testing.assert_array_equal(got, dijkstra.sssp(g, src).astype(
+            np.float32))
+
+
 def test_port_serves_from_reference_built_index(world):
     g, _dix, plan, jdix = world
     fields = {name: np.asarray(getattr(jdix, name))
@@ -140,6 +153,8 @@ def test_port_serves_from_reference_built_index(world):
 
 
 def test_convert_rejects_wrong_dtype_missing_field_and_hierarchy(world):
+    """convert refuses a wrong dtype and a missing field; hierarchical
+    indices are carried across (tests/test_torch_hierarchy.py)."""
     _g, dix, _plan, _ = world
     fields = convert.device_index_to_numpy(dix)
     bad = dict(fields, agent_of=fields["agent_of"].astype(np.int64))
@@ -148,9 +163,6 @@ def test_convert_rejects_wrong_dtype_missing_field_and_hierarchy(world):
     missing = {k: v for k, v in fields.items() if k != "brow"}
     with pytest.raises(KeyError, match="brow"):
         convert.device_index_from_numpy(missing, "cpu")
-    with pytest.raises(ValueError, match="hierarchical"):
-        convert.device_index_from_numpy(
-            dict(fields, sf_of=(np.zeros(3, np.int32),)), "cpu")
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -224,9 +236,16 @@ def test_same_piece_index_masked_before_gather(world):
 
 
 def test_build_refuses_hierarchy_and_hub_tier():
+    """The build refuses hierarchy_levels outside 1..5 (and non-ints
+    other than "auto") and the hub-label tier, which is not ported."""
     ix = build_index(road_like(400, seed=1))
-    with pytest.raises(NotImplementedError, match="hierarchy"):
-        tde.build_device_index(ix, device="cpu", hierarchy_levels=2)
+    for bad in (0, 6, -1, "deep"):
+        with pytest.raises(ValueError, match="hierarchy_levels"):
+            tde.build_device_index(ix, device="cpu", hierarchy_levels=bad)
+    assert tde.resolve_hierarchy_levels(50, 5) == 5
+    assert tde.resolve_hierarchy_levels(0, 3) == 1
+    assert tde.resolve_hierarchy_levels(1025, "auto") == 2
+    assert tde.resolve_hierarchy_levels(1024, "auto") == 1
     with pytest.raises(NotImplementedError, match="hub"):
         tde.build_device_index_with_plan(ix, device="cpu",
                                          hub_nodes=np.arange(4))

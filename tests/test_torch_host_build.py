@@ -90,12 +90,15 @@ def test_padding_rules_match_reference(x):
 
 
 def test_presets_match_reference_but_road64k_closes_densely():
+    """Every preset equals the reference's, hierarchy included: road64k
+    no longer closes densely now that the hierarchy is ported (the name
+    is kept from the slice that pinned it to one level)."""
     assert sorted(troads.ROAD_PRESETS) == sorted(jroads.ROAD_PRESETS)
     for name, p in troads.ROAD_PRESETS.items():
         q = jroads.ROAD_PRESETS[name]
-        assert (p.nodes, p.seed) == (q.nodes, q.seed)
-        want = 1 if name == "road64k" else q.hierarchy
-        assert p.hierarchy == want, name
+        assert (p.nodes, p.seed, p.hierarchy) == (q.nodes, q.seed,
+                                                  q.hierarchy), name
+    assert troads.road_preset("road64k").hierarchy == 3
     with pytest.raises(ValueError, match="unknown road preset"):
         troads.road_preset("road1")
 

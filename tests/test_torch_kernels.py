@@ -17,8 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import _build, floyd_warshall, minplus_twoside
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, floyd_warshall, minplus
+from repro_torch.kernels import minplus_twoside, ops, ref
 
 # tiny tensors: one thread each, so the suite's parallel workers do not
 # oversubscribe the CPU
@@ -111,6 +111,70 @@ def test_minplus_twoside_all_inf(J):
     assert np.isinf(got.numpy()).all()
 
 
+MP_SHAPES = [(1, 1, 1), (1, 37, 53), (5, 7, 3), (33, 77, 129),
+             (40, 130, 9)]
+
+
+@pytest.mark.parametrize("m,k,n", MP_SHAPES)
+@pytest.mark.parametrize("jforce", ["ref", "pallas"])
+def test_minplus_refs_match_reference(J, m, k, n, jforce):
+    """minplus_ref and minplus_accum_ref == the reference's minplus /
+    minplus_accum (jnp oracle and Pallas in interpret mode), on odd
+    shapes with an all-+inf row of A and column of B."""
+    rng = np.random.default_rng(m * 7919 + k * 31 + n)
+    a, b, c = _int_inf((m, k), rng), _int_inf((k, n), rng), \
+        _int_inf((m, n), rng, hi=400)
+    a[-1] = np.inf
+    b[:, 0] = np.inf
+    ja, jb, jc = (J.jnp.asarray(x) for x in (a, b, c))
+    ta, tb, tc = (torch.from_numpy(x) for x in (a, b, c))
+    got = ops.minplus(ta, tb)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        J.ops.minplus(ja, jb, force=jforce)))
+    np.testing.assert_array_equal(got.numpy(), np.min(
+        a[:, :, None] + b[None], axis=1))
+    np.testing.assert_array_equal(ops.minplus_accum(tc, ta, tb).numpy(),
+                                  np.asarray(J.ops.minplus_accum(
+                                      jc, ja, jb, force=jforce)))
+
+
+@pytest.mark.parametrize("b,n,all_inf", FW_SHAPES)
+def test_fw_batch_ref_matches_reference(J, b, n, all_inf):
+    rng = np.random.default_rng(b * 1000 + n + 1)
+    d = _fw_input(b, n, rng, all_inf)
+    got = ops.fw_batch(torch.from_numpy(d))
+    for jforce in ("ref", "pallas"):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(
+            J.ops.fw_batch(J.jnp.asarray(d), force=jforce)))
+    # distance-only FW equals the witness FW's distances
+    np.testing.assert_array_equal(
+        got.numpy(), ref.fw_batch_next_ref(torch.from_numpy(d))[0].numpy())
+    np.testing.assert_array_equal(ref.fw_ref(torch.from_numpy(d[0])),
+                                  np.asarray(J.ref.fw_ref(J.jnp.asarray(
+                                      d[0]))))
+
+
+@pytest.mark.parametrize("n,block", [(100, 32), (61, 16), (8, 8),
+                                     (40, 64)])
+def test_fw_blocked_matches_reference(J, n, block):
+    """The blocked 3-phase schedule, run on the CPU through the plain
+    versions, == the reference's fw_blocked (Pallas, interpret mode) and
+    fw_ref; ops.fw_apsp on the CPU runs fw_ref, as the reference's CPU
+    path does."""
+    from repro.kernels import floyd_warshall as jfw
+    rng = np.random.default_rng(n * 3 + block)
+    d = _int_inf((n, n), rng, inf_frac=0.7)
+    got = floyd_warshall.fw_blocked(torch.from_numpy(d), block=block)
+    assert got.shape == (n, n) and got.is_contiguous()
+    want = np.asarray(jfw.fw_blocked(J.jnp.asarray(d), block=block,
+                                     interpret=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        ops.fw_apsp(torch.from_numpy(d), block=block).numpy(), want)
+    np.testing.assert_array_equal(
+        want, np.asarray(J.ops.fw_apsp(J.jnp.asarray(d), force="ref")))
+
+
 def test_ops_force_kernel_on_cpu_raises():
     d = torch.zeros((1, 4, 4))
     rows = torch.zeros((2, 3))
@@ -121,6 +185,14 @@ def test_ops_force_kernel_on_cpu_raises():
     with pytest.raises(ValueError, match="CUDA"):
         ops.minplus_twoside(rows, torch.zeros((3, 5)), torch.zeros((2, 5)),
                             force="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.fw_batch(d, force="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.fw_apsp(d[0], force="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.minplus(rows, rows.T, force="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.minplus_accum(rows, rows, torch.zeros((3, 3)), force="kernel")
     with pytest.raises(ValueError, match="force"):
         ops.use_kernel("cpu", "pallas")
 
@@ -128,22 +200,33 @@ def test_ops_force_kernel_on_cpu_raises():
 def test_cpu_dispatch_runs_plain_versions_and_counts_nothing():
     """A CPU tensor takes the plain version and launches no kernel;
     the kernel wrappers refuse CPU tensors outright."""
-    before = (floyd_warshall.fw_next_smem_cuda.launches,
-              floyd_warshall.fw_next_global_cuda.launches,
-              minplus_twoside.minplus_twoside_cuda.launches)
+    def counts():
+        return (floyd_warshall.fw_next_smem_cuda.launches,
+                floyd_warshall.fw_next_global_cuda.launches,
+                minplus_twoside.minplus_twoside_cuda.launches,
+                floyd_warshall.fw_batch_cuda.launches,
+                minplus.minplus_cuda.launches,
+                minplus.minplus_accum_cuda.launches)
+    before = counts()
     rng = np.random.default_rng(3)
     d = torch.from_numpy(_fw_input(2, 9, rng))
     for g, w in zip(ops.fw_batch_next(d), ref.fw_batch_next_ref(d)):
         assert torch.equal(g, w)
+    assert torch.equal(ops.fw_batch(d), ref.fw_batch_ref(d))
+    assert torch.equal(ops.fw_apsp(d[0], block=4), ref.fw_ref(d[0]))
+    assert torch.equal(ops.minplus(d[0], d[1]), ref.minplus_ref(d[0], d[1]))
     assert not ops.use_kernel("cpu") and not ops.use_kernel("cpu", "ref")
     with pytest.raises(ValueError, match="CUDA"):
         floyd_warshall.fw_batch_next_cuda(d)
     with pytest.raises(ValueError, match="CUDA"):
         minplus_twoside.minplus_twoside_cuda(d[0], d[0], d[0])
-    after = (floyd_warshall.fw_next_smem_cuda.launches,
-             floyd_warshall.fw_next_global_cuda.launches,
-             minplus_twoside.minplus_twoside_cuda.launches)
-    assert after == before
+    with pytest.raises(ValueError, match="CUDA"):
+        floyd_warshall.fw_batch_cuda(d)
+    with pytest.raises(ValueError, match="CUDA"):
+        minplus.minplus_cuda(d[0], d[1])
+    with pytest.raises(ValueError, match="CUDA"):
+        minplus.minplus_accum_cuda(d[0], d[0], d[1])
+    assert counts() == before
 
 
 def test_nvcc_command_keeps_exact_arithmetic():
@@ -185,3 +268,36 @@ def test_twoside_kernel_matches_plain_on_card(cuda_device, q, k1, k2):
             for s in ((q, k1), (k1, k2), (q, k2))]
     assert torch.equal(ops.minplus_twoside(*args),
                        ops.minplus_twoside(*args, force="ref"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(1, 128), (3, 100), (2, 240), (4, 241),
+                                 (1, 496)])
+def test_fw_batch_kernel_matches_plain_on_card(cuda_device, b, n):
+    d = torch.from_numpy(_fw_input(b, n, np.random.default_rng(n),
+                                   all_inf=(b - 1,))).to(cuda_device)
+    assert torch.equal(ops.fw_batch(d), ops.fw_batch(d, force="ref"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 1712, 1712), (33, 77, 129),
+                                   (128, 128, 1792), (100, 37, 250)])
+def test_minplus_kernels_match_plain_on_card(cuda_device, m, k, n):
+    rng = np.random.default_rng(m + k + n)
+    a, b, c = (torch.from_numpy(_int_inf(s, rng)).to(cuda_device)
+               for s in ((m, k), (k, n), (m, n)))
+    assert torch.equal(ops.minplus(a, b), ops.minplus(a, b, force="ref"))
+    assert torch.equal(ops.minplus_accum(c, a, b),
+                       ops.minplus_accum(c, a, b, force="ref"))
+    if m == k:                         # phase 2's aliasing: C_in is B
+        assert torch.equal(ops.minplus_accum(b, a, b),
+                           ops.minplus_accum(b, a, b, force="ref"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,block", [(100, 32), (300, 128)])
+def test_fw_apsp_kernels_match_plain_on_card(cuda_device, n, block):
+    d = torch.from_numpy(_int_inf((n, n), np.random.default_rng(n),
+                                  inf_frac=0.9)).to(cuda_device)
+    assert torch.equal(ops.fw_apsp(d, block=block),
+                       ops.fw_apsp(d, force="ref"))
