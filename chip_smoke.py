@@ -16,22 +16,32 @@ prints no result.  Phases, each of which must pass:
      twoside combine at the dense path's shapes and at the hierarchy's
      (group closures [6, 1024, 1024], top closure S_top+1 = 1712), the
      distance-only FW, the (min,+) products with and without
-     accumulation, and the whole blocked APSP (``ops.fw_apsp``);
-  3. small end-to-end references: road_like(900) built and served on
-     the card equals the same run on the CPU (plain versions), table
-     for table and answer for answer, densely and at
-     ``hierarchy_levels`` 2 and 3 (per-level tables included);
+     accumulation, the whole blocked APSP (``ops.fw_apsp``), the
+     witness twoside argmin (out, wx and wy array-equal, a tie-heavy
+     case with values from {0, 1, 2} included) and the hub-label merge;
+  3. small end-to-end references: road_like(900) with 96 seeded hub
+     nodes, built and served on the card, equals the same run on the
+     CPU (plain versions), table for table (hub tables and sidecars
+     included) and answer for answer, densely and at
+     ``hierarchy_levels`` 2 and 3: distances, witnesses
+     (``query_witness``), hub answers on gated pairs (== ``query`` ==
+     Dijkstra), and 64 card witnesses unwound to paths with
+     ``path_weight == dist == Dijkstra``;
   4. the dense main path at road4000 through
      ``repro_torch.launch.serve``: host build, device build, planner
-     warmup, 5 batches of 1024, 64 answers validated against Dijkstra
-     (0 mismatches); every kernel's launch counter is zeroed just
-     before and read just after;
+     warmup, 5 batches of 1024, 64 answers validated against Dijkstra,
+     then ``--paths``: 5 batches of 1024 witness queries unwound to
+     paths, 64 validated (0 mismatches each); every kernel's launch
+     counter is zeroed just before and read just after;
   5. road4000 at hierarchy levels 1, 2 and 3 serves 1,024 array-equal
      answers;
-  6. the hierarchical main path at road64k (its preset's 3 levels)
-     through the same entry points, 32 validated, then
-     ``serve_one_to_all`` from 3 sources against Dijkstra, counters
-     zeroed just before and read just after;
+  6. the hierarchical main path at road64k (its preset's 3 levels, with
+     2,048 seeded random hub nodes) through the same entry points, 32
+     validated, ``--paths`` at one batch of 16 (all validated), then
+     ``serve_one_to_all`` from 3 sources against Dijkstra and, from
+     4,096 random pairs of hub nodes, the hub-gated pairs through
+     ``query_hub`` (== ``query``, 32 == Dijkstra); counters zeroed just
+     before and read just after;
   7. the ``kernels`` JSON line (launches summed over the main paths of
      phases 4 and 6, times and bounds from phase 2), the card's name
      and power limit from nvidia-smi, and the ``{"ok": true, ...}``
@@ -74,6 +84,24 @@ def _time_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def _device_ms(fn, reps: int) -> float | None:
+    """Device time per call of ``fn``: the summed time of every kernel it
+    launches, from torch.profiler's CUDA activity (host enqueue gaps
+    excluded, unlike ``_time_ms``); None if the profiler saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+             for e in prof.key_averages()
+             if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    return us / reps / 1e3 if us > 0 else None
 
 
 def _int_inf(shape, rng, inf_frac=0.2):
@@ -157,6 +185,85 @@ def _check_twoside(cases, out):
         out.append(rec)
         if not ok:
             raise AssertionError(f"{label}: kernel != plain version")
+
+
+def _argmin_inputs(q, k, kind, rng):
+    """(rows, d, rowt) on the card: integers with ~20% +inf ("ragged"),
+    all-+inf query rows ("inf"), or values from {0, 1, 2} so that many
+    cells tie at the minimum ("ties")."""
+    import numpy as np
+    import torch
+    shapes = ((q, k), (k, k), (q, k))
+    if kind == "ties":
+        arrs = [rng.integers(0, 3, s).astype(np.float32) for s in shapes]
+    else:
+        arrs = [_int_inf(s, rng, 1.0 if (kind == "inf" and i == 0) else 0.2)
+                for i, s in enumerate(shapes)]
+    return [torch.from_numpy(x).cuda() for x in arrs]
+
+
+def _check_twoside_argmin(cases, out):
+    """(label, q, k, kind): the witness twoside kernel against its plain
+    version, out, wx and wy array-equal."""
+    import functools
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import minplus_twoside as ts
+    from repro_torch.kernels import ops
+    for label, q, k, kind in cases:
+        rows, d, rowt = _argmin_inputs(q, k, kind,
+                                       np.random.default_rng(q * 37 + k))
+        got = ts.minplus_twoside_argmin_cuda(rows, d, rowt)
+        want = ops.minplus_twoside_argmin(rows, d, rowt, force="ref")
+        torch.cuda.synchronize()
+        ok = all(torch.equal(a, b) for a, b in zip(got, want))
+        fin = [torch.isfinite(x).double() for x in (rows, d, rowt)]
+        triples = float(((fin[0] @ fin[1]) * fin[2]).sum())
+        nbytes = 4.0 * (rows.numel() + d.numel() + rowt.numel() + 3 * q)
+        bound, by = _bound_ms(nbytes, 2.0 * triples)
+        kern = functools.partial(ts.minplus_twoside_argmin_cuda, rows, d,
+                                 rowt)
+        _record(out, {
+            "case": label, "kernel": "minplus_twoside_argmin_cuda", "q": q,
+            "k": k, "kind": kind, "equal": ok,
+            "max_abs_err": _max_abs_err(got[0], want[0]),
+            "ms": _time_ms(kern, 10), "device_ms": _device_ms(kern, 10),
+            "plain_ms": _time_ms(lambda: ops.minplus_twoside_argmin(
+                rows, d, rowt, force="ref"), 2),
+            "bound_ms": bound, "bound_by": by, "finite_triples": triples},
+            ok)
+
+
+def _check_label_merge(cases, out):
+    """(label, q, w, inf_row): the label-merge kernel against its plain
+    version, array-equal."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import label_merge as lm
+    from repro_torch.kernels import ops
+    for label, q, w, inf_row in cases:
+        rng = np.random.default_rng(q * 13 + w)
+        labs = _int_inf((q, w), rng, 0.1)
+        labt = _int_inf((q, w), rng, 0.1)
+        if inf_row is not None:
+            labs[inf_row] = np.inf
+        labs, labt = torch.from_numpy(labs).cuda(), torch.from_numpy(
+            labt).cuda()
+        got = lm.label_merge_cuda(labs, labt)
+        want = ops.label_merge(labs, labt, force="ref")
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want)
+        bound, by = _bound_ms(8.0 * q * w + 4.0 * q, 2.0 * q * w)
+        _record(out, {
+            "case": label, "kernel": "label_merge_cuda", "q": q, "w": w,
+            "equal": ok, "max_abs_err": _max_abs_err(got, want),
+            "ms": _time_ms(lambda: lm.label_merge_cuda(labs, labt), 50),
+            "device_ms": _device_ms(lambda: lm.label_merge_cuda(labs, labt),
+                                    50),
+            "plain_ms": _time_ms(lambda: ops.label_merge(labs, labt,
+                                                         force="ref"), 10),
+            "bound_ms": bound, "bound_by": by}, ok)
 
 
 def _finite_triples(a, b) -> float:
@@ -270,7 +377,10 @@ KERNELS = (("fw_next_smem", "floyd_warshall", "fw_next_smem_cuda"),
            ("minplus_twoside", "minplus_twoside", "minplus_twoside_cuda"),
            ("fw_batch", "floyd_warshall", "fw_batch_cuda"),
            ("minplus_accum", "minplus", "minplus_accum_cuda"),
-           ("minplus", "minplus", "minplus_cuda"))
+           ("minplus", "minplus", "minplus_cuda"),
+           ("minplus_twoside_argmin", "minplus_twoside",
+            "minplus_twoside_argmin_cuda"),
+           ("label_merge", "label_merge", "label_merge_cuda"))
 
 
 def _wrapper(module: str, attr: str):
@@ -308,36 +418,77 @@ def _differ(a: dict, b: dict) -> list:
 
 
 def _small_reference() -> dict:
-    """road_like(900) on the card == the same build and serve on the CPU
-    (plain versions), densely and at hierarchy levels 2 and 3: every
-    field (per-level tables and sidecars included), and every answer
-    (== Dijkstra); one-to-all too on the hierarchical builds."""
+    """road_like(900) with 96 seeded hub nodes on the card == the same
+    build and serve on the CPU (plain versions), densely and at
+    hierarchy levels 2 and 3: every field (per-level tables, hub tables
+    and sidecars included), every answer (== Dijkstra), every witness
+    (the CPU in the scatter layout, the card's), 64 card witnesses
+    unwound to exact paths, and the hub answers on gated pairs
+    (== query == Dijkstra); one-to-all too on the hierarchical
+    builds."""
     import numpy as np
     from repro_torch import convert
     from repro_torch.core import dijkstra
-    from repro_torch.core.device_engine import (build_device_index,
+    from repro_torch.core.device_engine import (build_device_index_with_plan,
                                                 serve_one_to_all)
     from repro_torch.core.dist_engine import QueryPlanner
     from repro_torch.core.graph import road_like
+    from repro_torch.core.paths import PathUnwinder, path_weight
     from repro_torch.core.supergraph import build_index
     g = road_like(900, seed=0)
     ix = build_index(g)
     rng = np.random.default_rng(7)
     s, t = rng.integers(0, g.n, 256), rng.integers(0, g.n, 256)
+    hubs = rng.choice(g.n, 96, replace=False)
+    hs, ht = rng.integers(0, g.n, 4096), rng.integers(0, g.n, 4096)
     oracle = np.array([dijkstra.pair(g, int(x), int(y))
                        for x, y in zip(s[:64], t[:64])], np.float32)
     out = {}
     for lv in (1, 2, 3):
-        on_card = build_device_index(ix, device="cuda", hierarchy_levels=lv)
-        on_cpu = build_device_index(ix, device="cpu", hierarchy_levels=lv)
+        on_card, plan = build_device_index_with_plan(
+            ix, device="cuda", hierarchy_levels=lv, hub_nodes=hubs)
+        on_cpu = build_device_index_with_plan(
+            ix, device="cpu", hierarchy_levels=lv, hub_nodes=hubs)[0]
         bad = _differ(convert.device_index_to_numpy(on_card),
                       convert.device_index_to_numpy(on_cpu))
-        got = QueryPlanner(on_card).query(s, t)
-        want = QueryPlanner(on_cpu).query(s, t)
+        card, cpu = QueryPlanner(on_card), QueryPlanner(on_cpu,
+                                                        layout="scatter")
+        got = card.query(s, t)
+        want = cpu.query(s, t)
+        wd, ww = card.query_witness(s, t)
+        cd, cw = cpu.query_witness(s, t)
+        uw = PathUnwinder(on_card, plan)
+        bad_paths = 0
+        for i in range(64):
+            path = uw.unwind(int(s[i]), int(t[i]), wd[i], int(ww[i]))
+            bad_paths += not (path is not None and path[0] == s[i]
+                              and path[-1] == t[i]
+                              and path_weight(g, path) == float(wd[i])
+                              == oracle[i])
+        mask = card.hub_mask(hs, ht)
+        # the gate admits nothing where one TOP group holds every
+        # fragment (no route must touch the top boundary)
+        top_groups = (0 if on_card.host_topgrp_frag is None
+                      else np.unique(on_card.host_topgrp_frag).size)
+        hub = card.query_hub(hs[mask], ht[mask])
+        hub_oracle = np.array([dijkstra.pair(g, int(x), int(y)) for x, y
+                               in zip(hs[mask][:32], ht[mask][:32])],
+                              np.float32)
         res = {"levels_built": on_card.hierarchy_levels,
                "fields_differ": bad,
                "answers_equal": bool(np.array_equal(got, want)),
-               "dijkstra_equal": bool(np.array_equal(got[:64], oracle))}
+               "dijkstra_equal": bool(np.array_equal(got[:64], oracle)),
+               "witness_dist_equal": bool(np.array_equal(wd, cd)
+                                          and np.array_equal(wd, got)),
+               "witnesses_equal": bool(np.array_equal(ww, cw)),
+               "paths_exact": bad_paths == 0,
+               "hub_gated": int(mask.sum()), "top_groups": top_groups,
+               "hub_equal": bool((mask.any() or top_groups == 1)
+                                 and np.array_equal(
+                   hub, card.query(hs[mask], ht[mask]))
+                   and np.array_equal(hub, cpu.query_hub(hs[mask],
+                                                         ht[mask]))
+                   and np.array_equal(hub[:32], hub_oracle))}
         if lv > 1:
             o2a = serve_one_to_all(on_card, 5).cpu().numpy()
             res["one_to_all_equal"] = bool(
@@ -347,25 +498,78 @@ def _small_reference() -> dict:
         print(f"  road_like(900) levels={lv} card vs cpu: {res}")
         out[f"levels_{lv}"] = res
         if bad or not all(v for k, v in res.items()
-                          if k not in ("fields_differ", "levels_built")):
+                          if k not in ("fields_differ", "levels_built",
+                                       "hub_gated", "top_groups")):
             raise AssertionError(f"card and CPU builds disagree: {res}")
     return out
 
 
-def _main_path(graph: str, validate: int, sources=()) -> dict:
+def _hub_check(g, dix, hubs, seed: int = 5) -> dict:
+    """From 4,096 random candidate pairs of hub nodes (the endpoints the
+    hub set was chosen for: a deployment pins its most frequent ones):
+    the hub gate must admit some pairs, ``query_hub`` must equal the
+    planner's ``query`` on every admitted pair and Dijkstra on 32 of
+    them; times both on the gated pairs."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dijkstra
+    from repro_torch.core.dist_engine import QueryPlanner
+    rng = np.random.default_rng(seed)
+    s, t = rng.choice(hubs, 4096), rng.choice(hubs, 4096)
+    planner = QueryPlanner(dix)
+    mask = planner.hub_mask(s, t)
+    s, t = s[mask], t[mask]
+    got = planner.query_hub(s, t)
+    want = planner.query(s, t)
+    oracle = np.array([dijkstra.pair(g, int(a), int(b))
+                       for a, b in zip(s[:32], t[:32])], np.float32)
+    times = {}
+    for name, fn in (("hub", planner.query_hub), ("planner", planner.query),
+                     ("hub_again", planner.query_hub)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(s, t)                         # ends in a host copy
+        times[name] = time.perf_counter() - t0
+    res = {"candidates": 4096, "gated": int(mask.sum()),
+           "labels": int(dix.hub_rows.shape[0]) - 1,
+           "hub_equal_planner": bool(np.array_equal(got, want)),
+           "hub_equal_dijkstra": bool(np.array_equal(got[:32], oracle)),
+           "hub_us_per_query": [times[k] / max(1, s.size) * 1e6
+                                for k in ("hub", "hub_again")],
+           "planner_us_per_query": times["planner"] / max(1, s.size) * 1e6}
+    print(f"  hub tier: {res}")
+    if not (mask.any() and res["hub_equal_planner"]
+            and res["hub_equal_dijkstra"]):
+        raise AssertionError(f"hub tier: {res}")
+    return res
+
+
+def _main_path(graph: str, validate: int, sources=(), path_args=(),
+               n_hubs: int = 0) -> dict:
     """The main path through the serve CLI's entry points (build, then
-    warmup + batches + validation), then ``serve_one_to_all`` from
-    ``sources`` against Dijkstra; kernel launches counted in between."""
+    warmup + batches + validation, then the ``--paths`` loop), then
+    ``serve_one_to_all`` from ``sources`` against Dijkstra and, with
+    ``n_hubs`` seeded random hub nodes, the hub tier (``_hub_check``);
+    kernel launches counted in between."""
     import numpy as np
     from repro_torch.core import dijkstra
     from repro_torch.core.device_engine import serve_one_to_all
+    from repro_torch.core.graph import road_like
+    from repro_torch.data.roads import road_preset
     from repro_torch.launch import serve
     args = serve.parse_args(["--graph", graph, "--batches", "5",
                              "--batch-size", "1024", "--validate",
-                             str(validate), "--device", "cuda"])
+                             str(validate), "--device", "cuda", "--paths",
+                             *path_args])
+    hubs = None
+    if n_hubs:                           # the graph serve.build makes
+        n = road_like(road_preset(graph).nodes, seed=args.seed).n
+        hubs = np.random.default_rng(11).choice(n, n_hubs, replace=False)
     _reset_counts()
-    g, dix, _plan, summary = serve.build(args)
-    res = serve.serve(args, g, dix, summary)
+    g, dix, plan, summary = serve.build(args, hub_nodes=hubs)
+    res = serve.serve(args, g, dix, summary, plan)
+    if n_hubs:
+        res["hub"] = _hub_check(g, dix, hubs)
     bad_o2a = 0
     t0 = time.perf_counter()
     for src in sources:
@@ -380,10 +584,13 @@ def _main_path(graph: str, validate: int, sources=()) -> dict:
         print(f"  {graph} one-to-all from {list(sources)}: {bad_o2a} "
               f"mismatches against Dijkstra")
     print(f"  {graph} launches: {res['launches']}")
-    if res["mismatches"] or not res["answers_finite"] or bad_o2a:
+    if (res["mismatches"] or res["paths"]["mismatches"]
+            or not res["answers_finite"] or bad_o2a):
         raise AssertionError(f"{graph}: {res['mismatches']} mismatches, "
-                             f"answers finite: {res['answers_finite']}, "
-                             f"one-to-all mismatches: {bad_o2a}")
+                             f"{res['paths']['mismatches']} path "
+                             f"mismatches, answers finite: "
+                             f"{res['answers_finite']}, one-to-all "
+                             f"mismatches: {bad_o2a}")
     return res
 
 
@@ -433,6 +640,7 @@ def main() -> int:
     fw_cases: list = []
     ts_cases: list = []
     new_cases: list = []
+    slice3_cases: list = []
 
     def phase(name, fn):
         print(f"== {name}", flush=True)
@@ -501,14 +709,34 @@ def main() -> int:
         ("fw_apsp n=1711 block=128", 1711, 128, 0.995),
         ("fw_apsp n=100 block=32", 100, 32, 0.9),
     ], new_cases))
+    phase("twoside_argmin_kernel", lambda: _check_twoside_argmin([
+        ("argmin q=16 S+1=480", 16, 480, "ragged"),
+        ("argmin q=1024 S+1=480", 1024, 480, "ragged"),
+        ("argmin q=16 S+1=4614", 16, 4614, "ragged"),
+        ("argmin q=1024 S+1=4614", 1024, 4614, "ragged"),
+        ("argmin q=1024 S_top+1=1712", 1024, 1712, "ragged"),
+        ("argmin q=64 S+1=480 all-inf rows", 64, 480, "inf"),
+        ("argmin q=1024 S+1=480 ties {0,1,2}", 1024, 480, "ties"),
+        ("argmin q=100 k=1712 ties {0,1,2}", 100, 1712, "ties"),
+    ], slice3_cases))
+    phase("label_merge_kernel", lambda: _check_label_merge([
+        ("merge q=1024 W=1712", 1024, 1712, None),
+        ("merge q=1024 W=480", 1024, 480, None),
+        ("merge q=37 W=300 one all-inf row", 37, 300, 5),
+        ("merge q=33 W=299 (scalar loads)", 33, 299, 0),
+    ], slice3_cases))
     phase("small_reference", _small_reference)
     phase("road4000", lambda: _main_path("road4000", 64))
     phase("road4000_levels", _level_differential)
-    phase("road64k", lambda: _main_path("road64k", 32,
-                                        sources=(0, 31_000, 61_000)))
+    # road64k's path loop is one batch of 16: the host unwinder takes
+    # ~1.7 s a path there (PERF.md)
+    phase("road64k", lambda: _main_path(
+        "road64k", 32, sources=(0, 31_000, 61_000),
+        path_args=("--path-batches", "1", "--path-batch-size", "16"),
+        n_hubs=2048))
 
     report["fw_cases"], report["ts_cases"] = fw_cases, ts_cases
-    report["new_cases"] = new_cases
+    report["new_cases"], report["slice3_cases"] = new_cases, slice3_cases
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -532,10 +760,11 @@ def main() -> int:
     try:
         _require_launched(report["road4000"], "road4000",
                           ("fw_next_smem", "fw_next_global",
-                           "minplus_twoside"))
+                           "minplus_twoside", "minplus_twoside_argmin"))
         _require_launched(report["road64k"], "road64k",
                           ("fw_batch", "minplus_accum", "minplus",
-                           "fw_next_global", "minplus_twoside"))
+                           "fw_next_global", "minplus_twoside",
+                           "minplus_twoside_argmin", "label_merge"))
         launches = {name: report["road4000"]["launches"][name]
                     + report["road64k"]["launches"][name]
                     for name, _m, _a in KERNELS}
@@ -568,6 +797,13 @@ def main() -> int:
         ("minplus", pick(new_cases, "minplus [1,1712]x[1712,1712]"),
          "src/repro_torch/csrc/minplus.cu",
          "src/repro/kernels/minplus.py:64"),
+        ("minplus_twoside_argmin",
+         pick(slice3_cases, "argmin q=1024 S_top+1=1712"),
+         "src/repro_torch/csrc/minplus_twoside_argmin.cu",
+         "src/repro/kernels/minplus_twoside.py:191"),
+        ("label_merge", pick(slice3_cases, "merge q=1024 W=1712"),
+         "src/repro_torch/csrc/label_merge.cu",
+         "src/repro/kernels/label_merge.py:66"),
     ]
     kernels = [{
         "name": name, "route": "cuda", "source": source,
@@ -575,7 +811,7 @@ def main() -> int:
         "max_abs_err": c["max_abs_err"], "ms": c["ms"],
         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,
-        "shape": c["case"],
+        "shape": c["case"], "device_ms": c.get("device_ms"),
     } for name, c, source, replaces in rows]
     print(json.dumps({"kernels": kernels}))
     print(card)

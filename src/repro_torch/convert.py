@@ -6,9 +6,10 @@ every name in ``FIELD_DTYPES``, and a sequence of arrays for every
 per-level name in ``TUPLE_FIELD_DTYPES`` on hierarchical indices) and
 returns the port's index on ``device``; ``device_index_to_numpy`` is the
 reverse.  The host sidecars (``host_ov_slot``, ``host_l2_slot``,
-``host_res_frag``, ``host_topgrp_frag``) pass through as they are.  The
-port can then serve from an index the reference built, and the tests
-can hold the serve side apart from the build side.
+``host_res_frag``, ``host_topgrp_frag``, ``host_hub_agent``) pass
+through as they are.  The port can then serve from an index the
+reference built, and the tests can hold the serve side apart from the
+build side.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from .core.device_engine import (FIELD_DTYPES, TUPLE_FIELD_DTYPES,
                                  DeviceIndex, resolve_device)
 
 SIDECARS = ("host_ov_slot", "host_l2_slot", "host_res_frag",
-            "host_topgrp_frag")
+            "host_topgrp_frag", "host_hub_agent")
 
 
 def _tensor(name: str, arr, dtype: torch.dtype,

@@ -1,10 +1,10 @@
 """Device DISLAND engine on PyTorch.
 
 Port of ``repro/core/device_engine.py``: the dense overlay
-(``hierarchy_levels=1``) and the N-level overlay hierarchy with its
-resident pre-lifted rows (no hub labels, no refresh, no witness mode
-yet).  Every query becomes gathers plus (min,+) algebra over padded
-tensors.
+(``hierarchy_levels=1``), the N-level overlay hierarchy with its
+resident pre-lifted rows, the hub-label tier, and the witness (path)
+serve mode (no refresh yet).  Every query becomes gathers plus (min,+)
+algebra over padded tensors.
 
 Offline (``build_device_index_with_plan``, device-resident products):
   * per-fragment dense APSP        [k, maxf, maxf]   (witness FW kernel)
@@ -18,6 +18,7 @@ Offline (``build_device_index_with_plan``, device-resident products):
   * per-piece APSP, flattened      [sum_b P_b*mp_b^2] (+ per-node
     base/stride so one gather answers any same-piece query)
   * per-node lookup vectors        agent/fragment/piece ids + positions
+  * optionally, hub labels         [H+1, W] per labeled agent (hub_stage)
 
 Online (``serve_step``, or the planner's per-case programs):
   dist(s,t) = same-DRA answer                                (case 1)
@@ -28,7 +29,11 @@ boundary rows are scattered into closure coordinates and contracted by
 the fused ``minplus_twoside`` CUDA kernel; elsewhere chunked gathers
 keep the peak intermediate at [q, c, width] (``_chunk``).
 ``serve_one_to_all`` answers one source against every node through the
-``minplus`` kernel.
+``minplus`` kernel.  The ``*_w`` programs return a witness beside each
+distance (the winning overlay pair from the ``minplus_twoside_argmin``
+kernel on the card), which ``paths.PathUnwinder`` expands into a node
+sequence; ``serve_hub`` answers hub-gated pairs with one
+``label_merge`` of two label rows.
 
 Everything is exact: integer weights make every float32 (min,+) sum
 exactly representable, so every table and answer is bit-for-bit the
@@ -91,8 +96,8 @@ def _dummy(shape, fill, dtype):
 
 @dataclasses.dataclass
 class DeviceIndex:
-    """The reference's ``DeviceIndex`` without the hub-label tier: same
-    names, dtypes, shapes and dummies.  The dummy defaults are built on
+    """The reference's ``DeviceIndex``: same names, dtypes, shapes and
+    dummies.  The dummy defaults are built on
     the CPU; the build passes every field on its own device."""
     # per-node lookups [n]
     agent_of: torch.Tensor          # int32
@@ -142,16 +147,26 @@ class DeviceIndex:
     # against each endpoint's own top-group boundary columns)
     topgrp_of_frag: torch.Tensor = dataclasses.field(  # int32 [k]
         default_factory=_dummy((1,), 0, torch.int32))
+    # hub labels: row hub_of_agent[a] of hub_rows is agent a's exact
+    # overlay distance to every TOP closure coordinate (dense indices:
+    # every SUPER node); the last row is the all-INF sentinel, which
+    # unlabeled agents map to
+    hub_rows: torch.Tensor = dataclasses.field(     # f32 [H+1, W]
+        default_factory=_dummy((1, 1), _INF, torch.float32))
+    hub_of_agent: torch.Tensor = dataclasses.field(  # int32 [n]
+        default_factory=_dummy((1,), 0, torch.int32))
     # host sidecars.  host_ov_slot: winning SUPER slot per overlay pair
     # (dense: the [S, S] table; hierarchical: a hierarchy.SlotMap),
     # host_l2_slot: one SlotMap per grouping level (path unwinding);
     # host_res_frag (fragment -> resident row, -1 cold) and
     # host_topgrp_frag (fragment -> TOP group): the planner's cross_res
-    # gate
+    # and hub gates; host_hub_agent (agent -> label row, -1 unlabeled):
+    # the hub gate
     host_ov_slot: object = None
     host_l2_slot: Optional[list] = None
     host_res_frag: Optional[np.ndarray] = None
     host_topgrp_frag: Optional[np.ndarray] = None
+    host_hub_agent: Optional[np.ndarray] = None
 
     @property
     def device(self) -> torch.device:
@@ -174,7 +189,8 @@ FIELD_DTYPES = {
     "super_next": torch.int32, "piece_flat": torch.float32,
     "piece_next": torch.int32, "d2": torch.float32, "d2_next": torch.int32,
     "res_rows": torch.float32, "res_of_frag": torch.int32,
-    "topgrp_of_frag": torch.int32,
+    "topgrp_of_frag": torch.int32, "hub_rows": torch.float32,
+    "hub_of_agent": torch.int32,
 }
 
 #: every per-level tuple field with its dtype (empty tuples when dense)
@@ -234,6 +250,8 @@ class BuildPlan:
     hier: "List[hierarchy.HierPlan] | None" = None
     # resident pre-lift budget in MiB (0 disables)
     resident_mb: float = 0.0
+    # pinned hub-label node set (None: no hub tier)
+    hub_nodes: Optional[np.ndarray] = None
     # per-stage wall times of the build that produced this plan
     build_timings: "dict | None" = None
 
@@ -599,16 +617,7 @@ def resident_stage(plan: BuildPlan, fields: dict) -> dict | None:
     L = len(l2rows)
     rows_out = []
     for g in hot.tolist():
-        U = l2rows[0][g]                         # [m2, mb2_1]
-        ids = sids[0][g]                         # next-overlay ids
-        gg = g
-        for li in range(1, L):
-            sent = levels[li - 1].S2             # ids' sentinel value
-            gg = int(levels[li].sf_of_frag[gg])  # groups nest upward
-            M = l2rows[li][gg][_to(poss[li][ids], dev).long()]
-            M = torch.where(_to(ids != sent, dev)[:, None], M, _INF)
-            U = _compose_minplus(U, M)
-            ids = sids[li][gg]
+        U, ids = _group_chain(levels, l2rows, sids, poss, g)
         cols = _to(ids, dev).long()[None, :].expand(U.shape[0], -1)
         rows_out.append(torch.full((U.shape[0], stp1), _INF,
                                    dtype=U.dtype, device=dev
@@ -632,6 +641,126 @@ def resident_stage(plan: BuildPlan, fields: dict) -> dict | None:
                              -1).astype(np.int32),
         "topgrp_frag": top.astype(np.int32),
     }
+
+
+def _group_chain(levels, l2rows, sids, poss, g: int
+                 ) -> tuple[torch.Tensor, np.ndarray]:
+    """(U, ids): level-1 group g's confined member rows composed up the
+    per-level lift ladder (resident_stage's loop, kept compact), and the
+    TOP ids of U's columns."""
+    U = l2rows[0][g]
+    ids = sids[0][g]
+    dev = U.device
+    gg = g
+    for li in range(1, len(l2rows)):
+        sent = levels[li - 1].S2
+        gg = int(levels[li].sf_of_frag[gg])
+        M = l2rows[li][gg][_to(poss[li][ids], dev).long()]
+        M = torch.where(_to(ids != sent, dev)[:, None], M, _INF)
+        U = _compose_minplus(U, M)
+        ids = sids[li][gg]
+    return U, ids
+
+
+def hub_stage(plan: BuildPlan, fields: dict) -> dict | None:
+    """Stage 2c: hub labels for the hub-label tier.
+
+    For every agent of a node in ``plan.hub_nodes`` (fragment-batched),
+    compose its label row, the exact overlay distance from the agent to
+    every TOP closure coordinate:
+
+      lab[a, y] = min_{j, x} brow[f, p_a, j] + chain_f[j, x] + d2[x, y]
+
+    where ``chain_f`` is the per-level confined lift ladder the resident
+    rows pre-compose, restricted to fragment f's boundary slots, and the
+    trailing d2 contraction closes the row over the whole top boundary.
+    Dense indices skip the ladder: lab[a] = brow row (min,+) d_super.
+    Every leg is a (min,+) product over tables the build already holds.
+
+    Exact for endpoints in different TOP groups (dense: different
+    fragments): their route must touch the top boundary, so
+    min_y lab_s[y] + lab_t[y] equals the planner's two-sided combine.
+    Same-top-group pairs fall through to the planner.  Returns the
+    DeviceIndex field dict plus the planner's host sidecars, or None
+    when there is no hub set or no labeled agent.
+    """
+    nodes = plan.hub_nodes
+    if nodes is None or len(nodes) == 0:
+        return None
+    nodes = np.asarray(nodes, np.int64)
+    agents = np.unique(plan.agent_of[nodes].astype(np.int64))
+    agents = agents[plan.frag_of[agents] >= 0]
+    if agents.size == 0:
+        return None
+    brow = fields["brow"]
+    dev = brow.device
+    levels = plan.hier
+    frag_a = plan.frag_of[agents]
+    pos_a = plan.pos_in_frag[agents]
+    # fragment-batched construction; (fragment, agent) order is the
+    # label row order
+    order = np.lexsort((agents, frag_a))
+    agents, frag_a, pos_a = agents[order], frag_a[order], pos_a[order]
+    H = int(agents.size)
+    rows_out = []
+    topgrp_frag = None
+    if levels:
+        h0 = levels[0]
+        l2rows, d2 = fields["l2row"], fields["d2"]
+        sids = [x.cpu().numpy() for x in fields["bnd2_sid"]]
+        poss = [x.cpu().numpy() for x in fields["pos_in_sf"]]
+        width = int(d2.shape[0])
+        chains: dict = {}
+        for f in np.unique(frag_a).tolist():
+            sel = frag_a == f
+            g = int(h0.sf_of_frag[f])
+            if g not in chains:
+                chains[g] = _group_chain(levels, l2rows, sids, poss, g)
+            U, ids = chains[g]
+            Z = U[_to(poss[0][plan.bnd_super[f]], dev).long()]  # [mb, w]
+            Z = torch.where(_to(plan.bvalid[f], dev)[:, None], Z, _INF)
+            conf = _compose_minplus(brow[f][_to(pos_a[sel], dev).long()], Z)
+            # sentinel ids land on d2's +inf row: absorbing, no mask
+            rows_out.append(_compose_minplus(conf,
+                                             d2[_to(ids, dev).long()]))
+        top = h0.sf_of_frag.astype(np.int64)
+        for li in range(1, len(levels)):
+            top = levels[li].sf_of_frag.astype(np.int64)[top]
+        topgrp_frag = top.astype(np.int32)
+    else:
+        d_super = fields["d_super"]
+        width = int(d_super.shape[0])
+        for f in np.unique(frag_a).tolist():
+            sel = frag_a == f
+            M = d_super[_to(plan.bnd_super[f], dev).long()]   # [mb, S+1]
+            M = torch.where(_to(plan.bvalid[f], dev)[:, None], M, _INF)
+            rows_out.append(_compose_minplus(
+                brow[f][_to(pos_a[sel], dev).long()], M))
+    hub_rows = torch.cat(rows_out + [torch.full(
+        (1, width), _INF, dtype=torch.float32, device=dev)])
+    hmap = np.full(plan.n, H, np.int32)          # sentinel row for all
+    hmap[agents] = np.arange(H, dtype=np.int32)
+    hub_agent = np.full(plan.n, -1, np.int32)    # planner gate sidecar
+    hub_agent[agents] = np.arange(H, dtype=np.int32)
+    return {
+        "fields": {"hub_rows": hub_rows, "hub_of_agent": _to(hmap, dev)},
+        "hub_agent": hub_agent,
+        # fragment -> TOP group, the hierarchical exactness gate: hub
+        # serving must not depend on the resident stage having run
+        "topgrp_frag": topgrp_frag,
+    }
+
+
+def hub_base_fields(plan: BuildPlan, src, brow) -> dict:
+    """The hub_stage input dict: ``src`` maps a field name to its
+    current tensor, ``brow`` is the fragment boundary-row table."""
+    base = {"brow": brow}
+    if plan.hierarchy_levels >= 2:
+        base.update({name: src(name) for name in
+                     ("l2row", "bnd2_sid", "pos_in_sf", "d2")})
+    else:
+        base["d_super"] = src("d_super")
+    return base
 
 
 def resolve_hierarchy_levels(S: int, hierarchy_levels) -> int:
@@ -675,8 +804,8 @@ RESIDENT_MB_AUTO = 64.0
 
 
 def _dummies(device: torch.device) -> dict:
-    """The hierarchical tensor fields' dummies (their defaults, a dense
-    build's values), on ``device``."""
+    """The defaulted tensor fields' dummies (hierarchical and hub tables:
+    the values of a dense build without hubs), on ``device``."""
     return {f.name: f.default_factory().to(device)
             for f in dataclasses.fields(DeviceIndex)
             if f.default_factory is not dataclasses.MISSING}
@@ -695,18 +824,15 @@ def build_device_index_with_plan(
     "auto" = hierarchical once S crosses ``hierarchy.AUTO_THRESHOLD``,
     deepening until the top closure fits under it.  ``resident_mb``
     budgets the resident pre-lifted rows on hierarchical indices
-    ("auto" = RESIDENT_MB_AUTO; 0 disables).  ``hub_nodes`` (the
-    hub-label tier) raises ``NotImplementedError`` until that slice of
-    ROADMAP.md is ported.
+    ("auto" = RESIDENT_MB_AUTO; 0 disables).  ``hub_nodes`` pins the
+    hub-label tier's node set (None or empty: no hub tier).
     """
-    if hub_nodes is not None and len(hub_nodes):
-        raise NotImplementedError(
-            "hub_nodes: the hub-label tier is not ported yet (ROADMAP.md, "
-            "hub-label slice); build without it")
     dev = resolve_device(device)
     bt: dict = {}
     with trace.timed("build.plan", bt, "plan"):
         plan = make_build_plan(ix)
+        if hub_nodes is not None and len(hub_nodes):
+            plan.hub_nodes = np.asarray(hub_nodes, np.int64)
         lv = resolve_hierarchy_levels(plan.S, hierarchy_levels)
         if lv >= 2:
             plan.hier = hierarchy.plan_hierarchy(
@@ -741,6 +867,12 @@ def build_device_index_with_plan(
         with trace.timed("build.super_stage", bt, "super_stage", S=plan.S):
             d_super, super_next = super_stage(plan, dev, force=force)
             _sync(dev)
+    with trace.timed("build.hub_stage", bt, "hub_stage"):
+        hub = hub_stage(plan, hub_base_fields(
+            plan, {**fields, "d_super": d_super}.__getitem__, brow))
+        if hub is not None:
+            fields.update(hub["fields"])
+        _sync(dev)
     with trace.timed("build.piece_stage", bt, "piece_stage",
                      pieces=plan.n_pieces):
         piece_flat, piece_next = piece_stage(plan, ix.g, dev, force=force)
@@ -777,26 +909,50 @@ def build_device_index_with_plan(
             dix.host_topgrp_frag = rres["topgrp_frag"]
     else:
         dix.host_ov_slot = overlay_slot_table(plan)
+    if hub is not None:
+        dix.host_hub_agent = hub["hub_agent"]
+        if hub["topgrp_frag"] is not None and dix.host_topgrp_frag is None:
+            # hierarchical index without resident rows: the hub gate
+            # still needs the fragment -> TOP group map
+            dix.host_topgrp_frag = hub["topgrp_frag"]
     return dix, plan
 
 
 def build_device_index(ix: DislandIndex, *, device=None, force=None,
                        hierarchy_levels: int | str = "auto",
-                       resident_mb: float | str = "auto"
-                       ) -> DeviceIndex:
+                       resident_mb: float | str = "auto",
+                       hub_nodes=None) -> DeviceIndex:
     """Assemble padded tensors on the host, run the device stages."""
     return build_device_index_with_plan(
         ix, device=device, force=force,
-        hierarchy_levels=hierarchy_levels, resident_mb=resident_mb)[0]
+        hierarchy_levels=hierarchy_levels, resident_mb=resident_mb,
+        hub_nodes=hub_nodes)[0]
 
 
 # ---------------------------------------------------------------------------
 # online serving
 # ---------------------------------------------------------------------------
-def _same_dra_dist(dix: DeviceIndex, s, t, ds, dt):
-    """Case 1: same agent.  Same piece -> one flat gather; else via
-    agent.  The piece index is masked before the gather (it is only
-    meaningful where both ends lie in one piece)."""
+# ---------------------------------------------------------------------------
+# witness conventions (copied from src/repro/core/device_engine.py:1505):
+# the *_w programs return (dist, wit) with wit int32 per query:
+#   same-DRA bucket:  WIT_PIECE (same-piece table won) or WIT_VIA_AGENT
+#   cross buckets:    x * (S+1) + y, the winning SUPER boundary pair,
+#                     or WIT_LOCAL (intra-fragment path won)
+#   any bucket:       WIT_NONE when the distance is +inf
+# paths.PathUnwinder turns (s, t, wit) into a node sequence by walking
+# frag_next / piece_next / super_next (per-level tables when
+# hierarchical).  The packed pair fits int32 up to S+1 = 46,340.
+# ---------------------------------------------------------------------------
+WIT_NONE = -1       # unreachable; nothing to unwind
+WIT_LOCAL = -2      # case 2, intra-fragment path beat the SUPER combine
+WIT_VIA_AGENT = 0   # case 1, s -> agent -> t
+WIT_PIECE = 1       # case 1, same-piece direct path
+
+
+def _same_dra_w(dix: DeviceIndex, s, t, ds, dt):
+    """Case 1: same agent -> (dist, piece_won).  Same piece -> one flat
+    gather; else via agent.  The piece index is masked before the gather
+    (it is only meaningful where both ends lie in one piece)."""
     gid_s = dix.piece_gid[s]
     same_piece = (gid_s >= 0) & (gid_s == dix.piece_gid[t])
     d_via_agent = ds + dt
@@ -804,8 +960,38 @@ def _same_dra_dist(dix: DeviceIndex, s, t, ds, dt):
            + dix.pos_in_piece[s].long() * dix.piece_stride[s].long()
            + dix.pos_in_piece[t].long())
     d_piece = dix.piece_flat[torch.where(same_piece, idx, 0)]
-    return torch.where(same_piece, torch.minimum(d_piece, d_via_agent),
-                       d_via_agent)
+    out = torch.where(same_piece, torch.minimum(d_piece, d_via_agent),
+                      d_via_agent)
+    return out, same_piece & (d_piece <= d_via_agent)
+
+
+def _same_dra_dist(dix: DeviceIndex, s, t, ds, dt):
+    """Case 1 distances (``_same_dra_w`` without the witness)."""
+    return _same_dra_w(dix, s, t, ds, dt)[0]
+
+
+def _first_min(x: torch.Tensor, dim: int):
+    """(min along ``dim``, the smallest index at the min): the
+    reference's min-of-where argmin, whose tie rule the witnesses
+    follow."""
+    m = x.amin(dim=dim)
+    shape = [1] * x.dim()
+    shape[dim] = -1
+    iota = torch.arange(x.shape[dim], device=x.device).reshape(shape)
+    return m, torch.where(x == m.unsqueeze(dim), iota,
+                          x.shape[dim]).amin(dim=dim)
+
+
+def _carry_min(best, besti, block, offset: int):
+    """Fold one chunk into a running (min, argmin) over dim 1 of
+    ``block``, whose index 0 is ``offset`` overall: the smallest index
+    wins inside the chunk and the carried best is replaced only on a
+    strict <, so the smallest index overall wins whatever the chunk
+    width."""
+    cand, loc = _first_min(block, 1)
+    better = cand < best
+    return (torch.where(better, cand, best),
+            torch.where(better, offset + loc, besti))
 
 
 def _layout(device: torch.device, force, layout) -> str:
@@ -885,11 +1071,17 @@ def _lift_compact(dix: DeviceIndex, li: int, row, grp, pos):
     return acc
 
 
+def _scatter_rows(row, ids, width: int):
+    """Scatter-min compact rows [q, mb] at column ids [q, mb] into dense
+    [q, width] rows (+inf elsewhere)."""
+    out = torch.full((row.shape[0], width), _INF, dtype=row.dtype,
+                     device=row.device)
+    return out.scatter_reduce_(1, ids, row, "amin")
+
+
 def _scatter_top(dix: DeviceIndex, row, ids):
     """Scatter a compact top-level row into dense d2 coordinates."""
-    out = torch.full((row.shape[0], dix.d2.shape[0]), _INF,
-                     dtype=row.dtype, device=row.device)
-    return out.scatter_reduce_(1, ids, row, "amin")
+    return _scatter_rows(row, ids, dix.d2.shape[0])
 
 
 def _top_mid_gather(dix: DeviceIndex, row_s, ids_s, row_t, ids_t):
@@ -973,14 +1165,11 @@ def _combine_mid(dix: DeviceIndex, row_s, bs, row_t, bt, *, force=None,
         return _combine_mid_h(dix, row_s, bs, row_t, bt, force=force,
                               layout=layout)
     if _layout(row_s.device, force, layout) == "scatter":
-        q, s1 = row_s.shape[0], dix.d_super.shape[0]
-        rs = torch.full((q, s1), _INF, dtype=row_s.dtype,
-                        device=row_s.device)
-        rs.scatter_reduce_(1, bs.long(), row_s, "amin")
-        rt = torch.full((q, s1), _INF, dtype=row_t.dtype,
-                        device=row_t.device)
-        rt.scatter_reduce_(1, bt.long(), row_t, "amin")
-        return ops.minplus_twoside(rs, dix.d_super, rt, force=force)
+        s1 = dix.d_super.shape[0]
+        return ops.minplus_twoside(_scatter_rows(row_s, bs.long(), s1),
+                                   dix.d_super,
+                                   _scatter_rows(row_t, bt.long(), s1),
+                                   force=force)
     q, mb = row_s.shape
     c = _chunk(row_s, mb)
     bs, bt = bs.long(), bt.long()
@@ -1002,28 +1191,32 @@ def serve_same_dra(dix: DeviceIndex, s: torch.Tensor,
     return torch.where(s == t, 0.0, out)
 
 
+def _ends(dix: DeviceIndex, s, t):
+    """Endpoint lookups of the cross programs: (ds, dt, fs, ft, ps, pt,
+    valid).  A fragment id of -1 (an agent outside every fragment) is
+    clamped to 0 before any gather, and ``valid`` marks where neither
+    was -1: the callers mask those answers to +inf after, where the
+    reference lets JAX wrap the -1 and masks only after."""
+    us, ut = dix.agent_of[s].long(), dix.agent_of[t].long()
+    fs, ft = dix.frag_of[us].long(), dix.frag_of[ut].long()
+    return (dix.dist_to_agent[s], dix.dist_to_agent[t], fs.clamp(min=0),
+            ft.clamp(min=0), dix.pos_in_frag[us].long(),
+            dix.pos_in_frag[ut].long(), (fs >= 0) & (ft >= 0))
+
+
 def serve_cross(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
                 with_local: bool, force=None, layout=None) -> torch.Tensor:
     """Planner buckets 2/3: endpoints in different DRAs.  with_local
-    folds in the intra-fragment distance (same-fragment bucket only).
-
-    A fragment id of -1 (an agent outside every fragment) is clamped to
-    0 before the gathers and its answer masked to +inf after, where the
-    reference lets JAX wrap the -1 and masks only after."""
+    folds in the intra-fragment distance (same-fragment bucket only)."""
     s, t = s.long(), t.long()
-    us, ut = dix.agent_of[s].long(), dix.agent_of[t].long()
-    ds, dt = dix.dist_to_agent[s], dix.dist_to_agent[t]
-    fs, ft = dix.frag_of[us].long(), dix.frag_of[ut].long()
-    valid = (fs >= 0) & (ft >= 0)
-    fs_c, ft_c = fs.clamp(min=0), ft.clamp(min=0)
-    ps, pt = dix.pos_in_frag[us].long(), dix.pos_in_frag[ut].long()
-    row_s = dix.brow[fs_c, ps]                   # [q, mb]
-    row_t = dix.brow[ft_c, pt]
-    mid = _combine_mid(dix, row_s, dix.bnd_super[fs_c], row_t,
-                       dix.bnd_super[ft_c], force=force, layout=layout)
+    ds, dt, fs, ft, ps, pt, valid = _ends(dix, s, t)
+    row_s = dix.brow[fs, ps]                     # [q, mb]
+    row_t = dix.brow[ft, pt]
+    mid = _combine_mid(dix, row_s, dix.bnd_super[fs], row_t,
+                       dix.bnd_super[ft], force=force, layout=layout)
     if with_local:
         mid = torch.minimum(mid, torch.where(
-            fs == ft, dix.frag_apsp[fs_c, ps, pt], _INF))
+            fs == ft, dix.frag_apsp[fs, ps, pt], _INF))
     d = ds + mid + dt
     return torch.where(valid, d, _INF)
 
@@ -1042,6 +1235,211 @@ def serve_step(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
     d_same = serve_same_dra(dix, s, t)
     out = torch.where(us == ut, d_same, d_cross)
     return torch.where(s == t, 0.0, out)
+
+
+# ---------------------------------------------------------------------------
+# witness (path) serve mode: the *_w programs (encoding above WIT_NONE).
+# Every chunked loop carries a running argmin (``_carry_min``) whose tie
+# rule does not depend on the chunk width.
+# ---------------------------------------------------------------------------
+def _hier_leg_w(dix: DeviceIndex, li: int, row_s, ids_s, grp_s, pos_s,
+                row_t, ids_t, grp_t, pos_t):
+    """_hier_leg carrying its argmin -> (va, xa, ya), the winning pair
+    as level-li overlay ids."""
+    q, mbs = row_s.shape
+    mbt = row_t.shape[1]
+    c = _chunk(row_s, mbt)
+    clo = dix.sf_closure[li]
+    acc = torch.full((q, mbt), _INF, dtype=row_s.dtype, device=row_s.device)
+    accb = torch.full((q, mbt), -1, dtype=torch.long, device=row_s.device)
+    for i in range(0, mbs, c):
+        g_c, p_c = grp_s[:, i:i + c, None], pos_s[:, i:i + c, None]
+        blk = clo[g_c, p_c, pos_t[:, None, :]]          # [q, c, mbt]
+        same = g_c == grp_t[:, None, :]
+        acc, accb = _carry_min(acc, accb, torch.where(
+            same, row_s[:, i:i + c, None] + blk, _INF), i)
+    va, pos_tw = _first_min(acc + row_t, 1)
+    pos_sw = accb.gather(1, pos_tw[:, None]).clamp(0, mbs - 1)
+    return (va, ids_s.gather(1, pos_sw)[:, 0],
+            ids_t.gather(1, pos_tw[:, None])[:, 0])
+
+
+def _lift_src_of(dix: DeviceIndex, li: int, row, ids, grp, pos, wc):
+    """Witness recovery for one lift: the level-li id whose lifted
+    contribution achieved the next-level row at target id ``wc``
+    (``_lift_compact``'s chunked schedule carrying a running argmin; an
+    exact float32 re-comparison)."""
+    q, mb = row.shape
+    l2 = dix.l2row[li]
+    c = _chunk(row, l2.shape[2])
+    best = torch.full((q,), _INF, dtype=row.dtype, device=row.device)
+    besti = torch.zeros((q,), dtype=torch.long, device=row.device)
+    for i in range(0, mb, c):
+        g_c = grp[:, i:i + c]
+        l2_c = l2[g_c, pos[:, i:i + c]]                  # [q, c, mb']
+        hit = dix.bnd2_sid[li][g_c] == wc[:, None, None]
+        best, besti = _carry_min(best, besti, torch.where(
+            hit, row[:, i:i + c, None] + l2_c, _INF).amin(dim=2), i)
+    return ids.gather(1, besti[:, None])[:, 0]
+
+
+def _combine_mid_h_w(dix: DeviceIndex, row_s, bs, row_t, bt, *,
+                     force=None):
+    """Witness variant of _combine_mid_h -> (mid, wx, wy): the winning
+    level-1 SUPER pair under the hierarchical overlay metric.  Each
+    same-group leg carries its argmin; the top leg takes the winning
+    boundary pair from ``ops.minplus_twoside_argmin`` on the scattered
+    top rows (the kernel on the card, in every layout) and resolves it
+    back down the ladder: at each level the winning id comes from that
+    level's same-group leg if it won, else it is un-lifted one level by
+    re-finding the row entry whose lift achieved it."""
+    L = len(dix.sf_of)
+    q = row_s.shape[0]
+    ids_s, ids_t = bs.long(), bt.long()
+    states, vas, legx, legy = [], [], [], []
+    for li in range(L):
+        grp_s = dix.sf_of[li][ids_s].long()
+        pos_s = dix.pos_in_sf[li][ids_s].long()
+        grp_t = dix.sf_of[li][ids_t].long()
+        pos_t = dix.pos_in_sf[li][ids_t].long()
+        states.append((row_s, ids_s, grp_s, pos_s, row_t, ids_t, grp_t,
+                       pos_t))
+        va, xa, ya = _hier_leg_w(dix, li, row_s, ids_s, grp_s, pos_s,
+                                 row_t, ids_t, grp_t, pos_t)
+        vas.append(va)
+        legx.append(xa)
+        legy.append(ya)
+        row_s = _lift_compact(dix, li, row_s, grp_s, pos_s)
+        row_t = _lift_compact(dix, li, row_t, grp_t, pos_t)
+        ids_s = dix.bnd2_sid[li][grp_s[:, 0]].long()
+        ids_t = dix.bnd2_sid[li][grp_t[:, 0]].long()
+    mid, wc, wd = ops.minplus_twoside_argmin(
+        _scatter_top(dix, row_s, ids_s), dix.d2,
+        _scatter_top(dix, row_t, ids_t), force=force)
+    for va in vas:
+        mid = torch.minimum(mid, va)
+    # winner selection, lowest level first (a same-group leg beats the
+    # lifted leg on a tie)
+    taken = torch.zeros((q,), dtype=torch.bool, device=row_s.device)
+    wins = []
+    for va in vas:
+        w = (va == mid) & ~taken
+        taken = taken | w
+        wins.append(w)
+    cur_x, cur_y = wc.long(), wd.long()
+    for li in range(L - 1, -1, -1):
+        r_s, i_s, g_s, p_s, r_t, i_t, g_t, p_t = states[li]
+        dx = _lift_src_of(dix, li, r_s, i_s, g_s, p_s, cur_x)
+        dy = _lift_src_of(dix, li, r_t, i_t, g_t, p_t, cur_y)
+        cur_x = torch.where(wins[li], legx[li], dx)
+        cur_y = torch.where(wins[li], legy[li], dy)
+    fin = torch.isfinite(mid)
+    return mid, torch.where(fin, cur_x, -1), torch.where(fin, cur_y, -1)
+
+
+def _combine_mid_w(dix: DeviceIndex, row_s, bs, row_t, bt, *, force=None,
+                   layout=None):
+    """Witness variant of _combine_mid -> (mid, wx, wy): (wx, wy) is the
+    winning SUPER boundary pair in super ids (-1 where mid is +inf).
+    The same two layouts as the distance path: "scatter" runs
+    ``ops.minplus_twoside_argmin`` on the scattered rows (the smallest
+    y, then x, in super ids), "gather" the chunked gather carrying its
+    argmin (the smallest t-slot, then s-slot); hierarchical indices
+    route to _combine_mid_h_w."""
+    if len(dix.sf_of):
+        return _combine_mid_h_w(dix, row_s, bs, row_t, bt, force=force)
+    bs, bt = bs.long(), bt.long()
+    if _layout(row_s.device, force, layout) == "scatter":
+        s1 = dix.d_super.shape[0]
+        mid, wx, wy = ops.minplus_twoside_argmin(
+            _scatter_rows(row_s, bs, s1), dix.d_super,
+            _scatter_rows(row_t, bt, s1), force=force)
+        return mid, wx.long(), wy.long()
+    q, mb = row_s.shape
+    c = _chunk(row_s, mb)
+    acc = torch.full((q, mb), _INF, dtype=row_s.dtype, device=row_s.device)
+    accb = torch.full((q, mb), -1, dtype=torch.long, device=row_s.device)
+    for i in range(0, mb, c):
+        blk = dix.d_super[bs[:, i:i + c, None], bt[:, None, :]]  # [q,c,mb]
+        acc, accb = _carry_min(acc, accb, row_s[:, i:i + c, None] + blk, i)
+    mid, pos_t = _first_min(acc + row_t, 1)
+    pos_s = accb.gather(1, pos_t[:, None]).clamp(0, mb - 1)
+    fin = torch.isfinite(mid)
+    wx = torch.where(fin, bs.gather(1, pos_s)[:, 0], -1)
+    wy = torch.where(fin, bt.gather(1, pos_t[:, None])[:, 0], -1)
+    return mid, wx, wy
+
+
+def serve_same_dra_w(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """serve_same_dra in witness mode -> (dist, wit) with wit in
+    {WIT_PIECE, WIT_VIA_AGENT, WIT_NONE}."""
+    s, t = s.long(), t.long()
+    out, piece_won = _same_dra_w(dix, s, t, dix.dist_to_agent[s],
+                                 dix.dist_to_agent[t])
+    out = torch.where(s == t, 0.0, out)
+    wit = torch.where(piece_won, WIT_PIECE, WIT_VIA_AGENT)
+    wit = torch.where(torch.isfinite(out), wit, WIT_NONE)
+    return out, wit.to(torch.int32)
+
+
+def serve_cross_w(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
+                  with_local: bool, force=None, layout=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """serve_cross in witness mode -> (dist, wit): wit is the packed
+    winning SUPER pair x * (S+1) + y, WIT_LOCAL when the intra-fragment
+    path won (same-fragment bucket only), WIT_NONE when unreachable.
+    Fragment ids of -1 are clamped before the gathers (``_ends``)."""
+    s, t = s.long(), t.long()
+    ds, dt, fs, ft, ps, pt, valid = _ends(dix, s, t)
+    row_s = dix.brow[fs, ps]                     # [q, mb]
+    row_t = dix.brow[ft, pt]
+    mid, wx, wy = _combine_mid_w(dix, row_s, dix.bnd_super[fs], row_t,
+                                 dix.bnd_super[ft], force=force,
+                                 layout=layout)
+    wit = wx * _overlay_size(dix) + wy
+    if with_local:
+        local = torch.where(fs == ft, dix.frag_apsp[fs, ps, pt], _INF)
+        wit = torch.where(local <= mid, WIT_LOCAL, wit)
+        mid = torch.minimum(mid, local)
+    d = torch.where(valid, ds + mid + dt, _INF)
+    wit = torch.where(torch.isfinite(d), wit, WIT_NONE)
+    return d, wit.to(torch.int32)
+
+
+def serve_step_w(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
+                 force=None, layout=None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """serve_step in witness mode -> (dist, wit).  The witness namespace
+    is per case (same-DRA flags or packed SUPER pairs); the unwinder
+    re-derives the case from agent_of."""
+    s, t = s.long(), t.long()
+    d_cross, w_cross = serve_cross_w(dix, s, t, with_local=True,
+                                     force=force, layout=layout)
+    d_same, w_same = serve_same_dra_w(dix, s, t)
+    same = dix.agent_of[s] == dix.agent_of[t]
+    out = torch.where(same, d_same, d_cross)
+    return (torch.where(s == t, 0.0, out),
+            torch.where(same, w_same, w_cross))
+
+
+def serve_hub(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
+              force=None) -> torch.Tensor:
+    """The hub-label tier: both endpoints' agents labeled and in
+    different TOP groups (dense: different fragments), which the
+    planner's hub_mask guarantees; then the query is two label-row
+    gathers and one ``ops.label_merge``.  A mis-gated pair gathers the
+    all-INF sentinel row and returns +inf, never a wrong distance.  The
+    gathers are indexed by agent, never by fragment id; a fragment id
+    of -1 only masks the answer to +inf."""
+    s, t = s.long(), t.long()
+    us, ut = dix.agent_of[s].long(), dix.agent_of[t].long()
+    valid = (dix.frag_of[us] >= 0) & (dix.frag_of[ut] >= 0)
+    ls = dix.hub_rows[dix.hub_of_agent[us].long()]   # [q, W]
+    lt = dix.hub_rows[dix.hub_of_agent[ut].long()]
+    mid = ops.label_merge(ls, lt, force=force)
+    d = dix.dist_to_agent[s] + mid + dix.dist_to_agent[t]
+    return torch.where(valid, d, _INF)
 
 
 def _lift_res(dix: DeviceIndex, row, pos, ridx, cols=None):
@@ -1078,12 +1476,7 @@ def serve_cross_res(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
     clamped before the gathers and its answer masked to +inf, as in
     ``serve_cross``."""
     s, t = s.long(), t.long()
-    us, ut = dix.agent_of[s].long(), dix.agent_of[t].long()
-    ds, dt = dix.dist_to_agent[s], dix.dist_to_agent[t]
-    fs, ft = dix.frag_of[us].long(), dix.frag_of[ut].long()
-    valid = (fs >= 0) & (ft >= 0)
-    fs_c, ft_c = fs.clamp(min=0), ft.clamp(min=0)
-    ps, pt = dix.pos_in_frag[us].long(), dix.pos_in_frag[ut].long()
+    ds, dt, fs_c, ft_c, ps, pt, valid = _ends(dix, s, t)
     row_s = dix.brow[fs_c, ps]                   # [q, mb]
     row_t = dix.brow[ft_c, pt]
     pos_s = dix.pos_in_sf[0][dix.bnd_super[fs_c].long()].long()

@@ -7,7 +7,13 @@ runs one program per bucket, so same-DRA queries never pay for the
 overlay combine and cross-fragment queries never touch the piece
 tables.  Each bucket is padded to a power of two with (0, 0) filler
 queries, exactly as the reference pads, so a bucket runs at one of
-O(log batch) shapes.
+O(log batch) shapes.  ``query_witness`` runs the witness programs of
+the same buckets (distances plus the witnesses ``paths.PathUnwinder``
+expands).  The planner also fronts the hub-label tier: ``hub_mask``
+gates the pairs both of whose agents carry labels (and whose route must
+touch the top boundary), ``query_hub`` answers them with one label
+merge; it is not a planner case, and ``query`` stays the reference the
+merge must equal.
 
 Owned invariant: ``plan()``'s buckets cover every query exactly once.
 """
@@ -20,7 +26,8 @@ import torch
 
 from . import padding
 from .device_engine import (DeviceIndex, serve_cross, serve_cross_res,
-                            serve_same_dra)
+                            serve_cross_w, serve_hub, serve_same_dra,
+                            serve_same_dra_w)
 
 _pad_pow2 = padding.pad_pow2
 
@@ -28,12 +35,14 @@ _pad_pow2 = padding.pad_pow2
 class QueryPlanner:
     """Bucket a query batch by case and dispatch per-case programs on
     the index's device.  ``force`` and ``layout`` pass through to the
-    cross-fragment programs (``device_engine._combine_mid``) and the
-    resident program (``serve_cross_res``)."""
+    cross-fragment programs (``device_engine._combine_mid``), the
+    resident program (``serve_cross_res``) and their witness versions;
+    ``paths`` makes ``warmup`` run the witness programs too."""
 
     CASES = ("same_dra", "same_frag", "cross_frag", "cross_res")
 
-    def __init__(self, dix: DeviceIndex, *, force=None, layout=None):
+    def __init__(self, dix: DeviceIndex, *, force=None, layout=None,
+                 paths: bool = False):
         self._fns = {
             "same_dra": serve_same_dra,
             "same_frag": functools.partial(
@@ -46,17 +55,35 @@ class QueryPlanner:
             "cross_res": functools.partial(
                 serve_cross_res, force=force, layout=layout),
         }
+        # witness programs; cross_res maps to the full-lift witness
+        # program, as in the reference: the resident rows re-associate
+        # the (min,+) sums, so an argmin over them may disagree with the
+        # unwinder's exact re-find (distances are equal anyway)
+        cross_w = functools.partial(serve_cross_w, with_local=False,
+                                    force=force, layout=layout)
+        self._wfns = {
+            "same_dra": serve_same_dra_w,
+            "same_frag": functools.partial(
+                serve_cross_w, with_local=True, force=force, layout=layout),
+            "cross_frag": cross_w,
+            "cross_res": cross_w,
+        }
+        # the hub-label tier's program (not a planner case)
+        self._hub_fn = functools.partial(serve_hub, force=force)
+        self.paths = paths
         self.last_counts: dict = {}
         self.set_index(dix)
 
     def set_index(self, dix: DeviceIndex) -> None:
-        """Serve from ``dix``; ``plan`` buckets with host copies of its
-        membership maps and its cross_res sidecars, taken once here."""
+        """Serve from ``dix``; ``plan`` and ``hub_mask`` bucket with host
+        copies of its membership maps and its cross_res and hub
+        sidecars, taken once here."""
         self.dix = dix
         self._agent_of = dix.agent_of.cpu().numpy()
         self._frag_of = dix.frag_of.cpu().numpy()
         self._res_frag = dix.host_res_frag
         self._topgrp = dix.host_topgrp_frag
+        self._hub_agent = dix.host_hub_agent
 
     @staticmethod
     def bucket_sizes(batch_size: int) -> list[int]:
@@ -82,6 +109,13 @@ class QueryPlanner:
         has_res = self.dix.res_rows.shape[0] > 1
         fns = [fn for case, fn in self._fns.items()
                if has_res or case != "cross_res"]
+        if self.paths:
+            fns += [fn for case, fn in self._wfns.items()
+                    if has_res or case != "cross_res"]
+        # the hub program runs only on indices with real label rows (the
+        # dummy is (1, 1))
+        if self.dix.hub_rows.shape[0] > 1:
+            fns.append(self._hub_fn)
         for fn in fns:
             for size in self.bucket_sizes(batch_size):
                 fn(self.dix, z[:size], z[:size])
@@ -115,10 +149,56 @@ class QueryPlanner:
             "cross_res": np.nonzero(hot)[0],
         }
 
-    def _dispatch(self, s, t, out) -> None:
+    def hub_mask(self, s, t) -> np.ndarray:
+        """Host-side gate of the hub-label tier: True where both
+        endpoints' agents are labeled and the exactness gate holds:
+        s != t, different fragments, and on hierarchical indices
+        different TOP groups (only then must every route touch the top
+        boundary the labels enumerate).  Everything else goes to the
+        planner."""
+        s = np.asarray(s, np.int64)
+        t = np.asarray(t, np.int64)
+        hub_agent = self._hub_agent
+        if hub_agent is None:
+            return np.zeros(s.shape, bool)
+        us, ut = self._agent_of[s], self._agent_of[t]
+        fs, ft = self._frag_of[us], self._frag_of[ut]
+        ok = ((s != t) & (fs >= 0) & (ft >= 0) & (fs != ft)
+              & (hub_agent[us] >= 0) & (hub_agent[ut] >= 0))
+        if len(self.dix.sf_of) > 0:
+            # same-top-group routes may never touch the top boundary
+            topgrp = self._topgrp
+            if topgrp is None:
+                return np.zeros(s.shape, bool)
+            ok &= (topgrp[np.where(ok, fs, 0)]
+                   != topgrp[np.where(ok, ft, 0)])
+        return ok
+
+    def query_hub(self, s, t) -> np.ndarray:
+        """The label merge for hub_mask-gated pairs: one pow2-padded
+        program (two label gathers and ``ops.label_merge``), no planner
+        buckets.  A mis-gated pair gets +inf, never a wrong distance;
+        on gated pairs the answers equal ``query``'s.  An index without
+        labels answers +inf, as the reference's sentinel row does."""
+        s = np.asarray(s, np.int64)
+        t = np.asarray(t, np.int64)
+        if s.size == 0 or self.dix.hub_rows.shape[0] == 1:
+            return np.full(s.shape, np.inf, np.float32)
+        m = _pad_pow2(s.size)
+        sp = np.zeros(m, np.int64)
+        tp = np.zeros(m, np.int64)
+        sp[:s.size] = s
+        tp[:t.size] = t
+        dev = self.dix.device
+        res = self._hub_fn(self.dix, torch.from_numpy(sp).to(dev),
+                           torch.from_numpy(tp).to(dev))
+        return res.cpu().numpy()[:s.size]
+
+    def _dispatch(self, fns, s, t, outs) -> None:
         """Partition (s, t), pad each bucket to a power of two with
-        (0, 0) filler queries, run its sub-program on the index's
-        device and scatter the answers into ``out``."""
+        (0, 0) filler queries, run its sub-program from ``fns`` on the
+        index's device and scatter every output into the matching array
+        of ``outs``."""
         dix = self.dix
         plan = self.plan(s, t)
         self.last_counts = {c: int(ix.size) for c, ix in plan.items()}
@@ -130,9 +210,12 @@ class QueryPlanner:
             tp = np.zeros(m, np.int64)
             sp[:idx.size] = s[idx]
             tp[:idx.size] = t[idx]
-            res = self._fns[case](dix, torch.from_numpy(sp).to(dix.device),
-                                  torch.from_numpy(tp).to(dix.device))
-            out[idx] = res.cpu().numpy()[:idx.size]
+            res = fns[case](dix, torch.from_numpy(sp).to(dix.device),
+                            torch.from_numpy(tp).to(dix.device))
+            if len(outs) == 1:
+                res = (res,)
+            for out, r in zip(outs, res):
+                out[idx] = r.cpu().numpy()[:idx.size]
 
     def __call__(self, s, t) -> np.ndarray:
         return self.query(s, t)
@@ -142,5 +225,20 @@ class QueryPlanner:
         s = np.asarray(s, np.int64)
         t = np.asarray(t, np.int64)
         out = np.full(s.shape, np.inf, np.float32)
-        self._dispatch(s, t, out)
+        self._dispatch(self._fns, s, t, (out,))
         return out
+
+    def query_witness(self, s, t) -> tuple[np.ndarray, np.ndarray]:
+        """Planner-bucketed witness serving -> (dist, wit) on the host,
+        float32 and int32 (the WIT_* / packed-pair encoding of
+        ``device_engine``).  Self-queries get distance 0 and WIT_NONE
+        (the unwinder answers s == t before it reads the witness)."""
+        s = np.asarray(s, np.int64)
+        t = np.asarray(t, np.int64)
+        out = np.full(s.shape, np.inf, np.float32)
+        wit = np.full(s.shape, -1, np.int32)
+        self._dispatch(self._wfns, s, t, (out, wit))
+        same = s == t
+        out[same] = 0.0
+        wit[same] = -1
+        return out, wit

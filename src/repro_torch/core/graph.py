@@ -5,7 +5,8 @@ CSR adjacency on the host (numpy) for the one-shot preprocessing passes
 (BCC, BC-SKETCH, partitioning) plus a flat edge-list view the index build
 consumes directly.  The port keeps the subset its main path runs: the
 shared-memory views (parallel host build) and the live-traffic weight
-updates stay in the reference package until those slices are ported.
+updates stay in the reference package until those slices are ported;
+``edge_ids`` is here for path validation (``paths.path_weight``).
 
 All graphs are simple, undirected, positive-weighted, as in the paper
 (Section II-A). Node ids are dense ints [0, n).
@@ -146,6 +147,26 @@ class Graph:
                                   local[ev[es:ee]], ew[es:ee])
             out.append((fg, nodes))
         return out
+
+    # copied from src/repro/core/graph.py:149
+    def edge_ids(self, u, v) -> np.ndarray:
+        """Indices into ``edge_u/edge_v/edge_w`` for each (u, v) pair.
+
+        Orientation-insensitive; returns -1 where no such edge exists.
+        Vectorized (sorted-key binary search), so update batches stay
+        O(b log m) on the host.
+        """
+        u = np.asarray(u, dtype=np.int64)
+        v = np.asarray(v, dtype=np.int64)
+        lo, hi = np.minimum(u, v), np.maximum(u, v)
+        key = lo * self.n + hi
+        # from_edges lexsorts by (lo, hi) and hi < n, so the edge keys
+        # are already strictly ascending — searchsorted directly
+        ekey = self.edge_u.astype(np.int64) * self.n + self.edge_v
+        if ekey.size == 0:
+            return np.full(key.shape, -1, dtype=np.int64)
+        idx = np.clip(np.searchsorted(ekey, key), 0, ekey.size - 1)
+        return np.where(ekey[idx] == key, idx, -1).astype(np.int64)
 
     def connected_components(self) -> np.ndarray:
         """Label array [n] via iterative BFS (host, linear time)."""

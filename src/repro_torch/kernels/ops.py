@@ -20,8 +20,9 @@ import torch
 
 from . import ref as _ref
 from .floyd_warshall import fw_batch_cuda, fw_batch_next_cuda, fw_blocked
+from .label_merge import label_merge_cuda
 from .minplus import minplus_accum_cuda, minplus_cuda
-from .minplus_twoside import minplus_twoside_cuda
+from .minplus_twoside import minplus_twoside_argmin_cuda, minplus_twoside_cuda
 
 Force = Optional[Literal["kernel", "ref"]]
 
@@ -66,6 +67,26 @@ def minplus_twoside(rows: torch.Tensor, d: torch.Tensor,
     if use_kernel(rows.device, force):
         return minplus_twoside_cuda(rows, d, rowt)
     return _ref.minplus_twoside_ref(rows, d, rowt)
+
+
+def minplus_twoside_argmin(rows: torch.Tensor, d: torch.Tensor,
+                           rowt: torch.Tensor, *, force: Force = None
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Witness-returning twoside contraction -> (out, wx, wy): the
+    winning (x, y) pair beside each minimum (the smallest y, then the
+    smallest x), -1 where out is +inf."""
+    if use_kernel(rows.device, force):
+        return minplus_twoside_argmin_cuda(rows, d, rowt)
+    return _ref.minplus_twoside_argmin_ref(rows, d, rowt)
+
+
+def label_merge(labs: torch.Tensor, labt: torch.Tensor, *,
+                force: Force = None) -> torch.Tensor:
+    """Hub-label merge: out[q] = min_j labs[q, j] + labt[q, j]."""
+    if use_kernel(labs.device, force):
+        return label_merge_cuda(labs, labt)
+    return _ref.label_merge_ref(labs, labt)
 
 
 def minplus(a: torch.Tensor, b: torch.Tensor, *, force: Force = None

@@ -71,6 +71,49 @@ def minplus_twoside_ref(rows: torch.Tensor, d: torch.Tensor,
     return (acc + rowt).amin(dim=1)
 
 
+def minplus_twoside_argmin_ref(rows: torch.Tensor, d: torch.Tensor,
+                               rowt: torch.Tensor, *, chunk: int = 16
+                               ) -> tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Witness-tracking twoside contraction -> (out, wx, wy), int32
+    witnesses with out[q] = rows[q, wx] + d[wx, wy] + rowt[q, wy] where
+    out[q] is finite and wx = wy = -1 where it is +inf.
+
+    The same x-chunked schedule as ``minplus_twoside_ref``, carrying
+    the winning x per (q, y) cell.  Tie rule, which the CUDA kernel
+    reproduces: the smallest y among the cells at the minimum, then the
+    smallest x for that y (the smallest chunk-local x inside a chunk; a
+    later chunk replaces the carried x only on a strict improvement)."""
+    q, k1 = rows.shape
+    k2 = d.shape[1]
+    dev = rows.device
+    acc = torch.full((q, k2), float("inf"), dtype=rows.dtype, device=dev)
+    accx = torch.full((q, k2), -1, dtype=torch.int32, device=dev)
+    iota = torch.arange(chunk, dtype=torch.int32, device=dev)[None, :, None]
+    for i in range(0, k1, chunk):
+        cube = rows[:, i:i + chunk, None] + d[None, i:i + chunk, :]
+        cand = cube.amin(dim=1)
+        hit = cube == cand[:, None, :]
+        loc = torch.where(hit, iota[:, :cube.shape[1]], k1).amin(dim=1)
+        better = cand < acc
+        acc = torch.where(better, cand, acc)
+        accx = torch.where(better, i + loc, accx)
+    tmp = acc + rowt                                   # [q, k2]
+    out = tmp.amin(dim=1)
+    ycol = torch.arange(k2, dtype=torch.int32, device=dev)[None, :]
+    wy = torch.where(tmp == out[:, None], ycol, k2).amin(dim=1)
+    fin = torch.isfinite(out)
+    wy = torch.where(fin, wy, -1)
+    wx = torch.where(fin, accx.gather(1, wy.clamp(min=0).long()[:, None])[:, 0],
+                     -1)
+    return out, wx.to(torch.int32), wy.to(torch.int32)
+
+
+def label_merge_ref(labs: torch.Tensor, labt: torch.Tensor) -> torch.Tensor:
+    """out[q] = min_j labs[q, j] + labt[q, j] (hub-label merge)."""
+    return (labs + labt).amin(dim=1)
+
+
 def minplus_ref(a: torch.Tensor, b: torch.Tensor, *, chunk: int = 16
                 ) -> torch.Tensor:
     """C[i, j] = min_k A[i, k] + B[k, j] (tropical GEMM).

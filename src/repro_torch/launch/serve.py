@@ -11,7 +11,16 @@ buckets, and validates a sample of the last batch against host Dijkstra
     PYTHONPATH=src python -m repro_torch.launch.serve --graph road64k \\
         --validate 32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
-        --nodes 900 --batches 1 --batch-size 64 --validate 16
+        --nodes 900 --batches 1 --batch-size 64 --validate 16 --paths
+
+``--paths`` then serves ``--path-batches`` batches of
+``--path-batch-size`` random pairs (default: ``--batches`` and
+``--batch-size``) in witness mode, unwinds every answer to a node
+sequence on the host with one ``PathUnwinder`` per index, prints the
+median batch ms, µs/path, paths/s and mean hops, and validates
+``--validate`` paths of the last batch: each must be edge-valid with
+``path_weight == served distance == Dijkstra`` (any mismatch exits
+non-zero).
 
 ``--hierarchy-levels`` picks the overlay closure (1 dense, 2..5 the
 N-level hierarchy, auto; default the preset's, else auto) and
@@ -35,6 +44,7 @@ from ..core.device_engine import (build_device_index_with_plan,
 from ..core.hierarchy import hier_overlay_stats
 from ..core.dist_engine import QueryPlanner
 from ..core.graph import road_like
+from ..core.paths import PathUnwinder, path_weight
 from ..core.supergraph import build_index
 from ..data.roads import road_preset
 
@@ -57,6 +67,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--validate", type=int, default=64,
                     help="check this many answers of the last batch "
                          "against host Dijkstra (0 mismatches or exit 1)")
+    ap.add_argument("--paths", action="store_true",
+                    help="after the distance batches, serve random pairs "
+                         "in witness mode, unwind them to paths and "
+                         "validate --validate of them")
+    ap.add_argument("--path-batches", type=int, default=None,
+                    help="batches of the --paths loop (default --batches)")
+    ap.add_argument("--path-batch-size", type=int, default=None,
+                    help="pairs per --paths batch (default --batch-size)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return ap.parse_args(argv)
@@ -78,9 +96,11 @@ def _overlay_record(dix, plan) -> dict:
             "overlay_bytes": dense, "overlay_dense_bytes": dense}
 
 
-def build(args: argparse.Namespace) -> tuple:
+def build(args: argparse.Namespace, hub_nodes=None) -> tuple:
     """Graph, host index and device index of the run ->
-    (graph, DeviceIndex, BuildPlan, summary of the build)."""
+    (graph, DeviceIndex, BuildPlan, summary of the build).
+    ``hub_nodes`` pins the hub-label tier's node set (the CLI builds
+    without one)."""
     device = resolve_device(args.device)
     levels = "auto"
     if args.graph:
@@ -103,7 +123,7 @@ def build(args: argparse.Namespace) -> tuple:
     t0 = time.perf_counter()
     dix, plan = build_device_index_with_plan(
         ix, device=device, hierarchy_levels=levels,
-        resident_mb=resident_mb)
+        resident_mb=resident_mb, hub_nodes=hub_nodes)
     device_s = time.perf_counter() - t0
     stages = {k: round(v, 3) for k, v in plan.build_timings.items()}
     print(f"device index on {device}: k={plan.k} maxf={plan.maxf} "
@@ -117,23 +137,38 @@ def build(args: argparse.Namespace) -> tuple:
               f"{overlay['overlay_bytes'] / 2**20:.1f} MiB (dense would be "
               f"{overlay['overlay_dense_bytes'] / 2**20:.1f} MiB), "
               f"{overlay['resident_groups']} resident groups")
+    hub_labels = int(dix.hub_rows.shape[0]) - 1
+    if hub_labels:
+        print(f"hub labels: {hub_labels} agents x {dix.hub_rows.shape[1]} "
+              f"columns")
     return g, dix, plan, {
         "graph": args.graph or f"road{args.nodes}", "n": g.n,
         "device": str(device), "S": plan.S, "k": plan.k,
         "maxf": plan.maxf, "mb": plan.mb, "overlay": overlay,
+        "hub_labels": hub_labels,
         "host_build_s": host_s, "device_build_s": device_s,
         "stages_s": dict(plan.build_timings)}
 
 
-def serve(args: argparse.Namespace, g, dix, summary: dict) -> dict:
+def _path_shape(args: argparse.Namespace) -> tuple[int, int]:
+    """(batches, batch size) of the --paths loop."""
+    return (args.batches if args.path_batches is None else args.path_batches,
+            args.batch_size if args.path_batch_size is None
+            else args.path_batch_size)
+
+
+def serve(args: argparse.Namespace, g, dix, summary: dict,
+          plan=None) -> dict:
     """Warm the planner up, serve the batches and validate against
-    Dijkstra; returns ``summary`` completed with the median batch ms,
-    µs/query, planner buckets, peak device memory and the validation
-    mismatch count."""
+    Dijkstra (then, with ``--paths``, the path loop, which needs the
+    build's ``plan``); returns ``summary`` completed with the median
+    batch ms, µs/query, planner buckets, peak device memory, the
+    validation mismatch count and the path loop's record."""
     device = dix.device
-    planner = QueryPlanner(dix)
+    planner = QueryPlanner(dix, paths=args.paths)
     t0 = time.perf_counter()
-    planner.warmup(args.batch_size)
+    planner.warmup(max(args.batch_size, _path_shape(args)[1]) if args.paths
+                   else args.batch_size)
     warmup_s = time.perf_counter() - t0
     rng = np.random.default_rng(args.seed + 1)
     times = []
@@ -168,25 +203,92 @@ def serve(args: argparse.Namespace, g, dix, summary: dict) -> dict:
             want = dijkstra.pair(g, int(s[i]), int(t[i]))
             bad += dijkstra.mismatches_oracle(want, float(got[i]))
         print(f"validation: {bad} mismatches of {n_check}")
-    return dict(
+    res = dict(
         summary, warmup_s=warmup_s, median_batch_ms=med * 1e3,
         us_per_query=per_q * 1e6, buckets=totals, peak_device_mb=peak_mb,
         mismatches=bad,
         answers_finite=bool(last is not None
                             and np.isfinite(last[2]).all()))
+    if args.paths:
+        res["paths"] = serve_paths(args, g, dix, plan, planner)
+    return res
+
+
+def _path_ok(g, s: int, t: int, dist: float, path) -> bool:
+    """A served path is right: None exactly when t is unreachable, else
+    it runs s -> t over real edges with weight == dist == Dijkstra."""
+    want = dijkstra.pair(g, s, t)
+    if path is None:
+        return bool(np.isinf(want))
+    if path[0] != s or path[-1] != t:
+        return False
+    try:
+        weight = path_weight(g, path)
+    except ValueError:                   # a hop that is not an edge
+        return False
+    return weight == float(dist) == want
+
+
+def serve_paths(args: argparse.Namespace, g, dix, plan,
+                planner: QueryPlanner) -> dict:
+    """The path loop: random pairs through ``planner.query_witness``,
+    unwound on the host by one ``PathUnwinder(dix, plan)``; validates
+    ``--validate`` paths of the last batch.  Returns the loop's record
+    (median batch ms with and without the unwind, µs/path, paths/s,
+    mean hops, the validation mismatch count)."""
+    batches, size = _path_shape(args)
+    t0 = time.perf_counter()
+    uw = PathUnwinder(dix, plan)
+    unwinder_s = time.perf_counter() - t0
+    rng = np.random.default_rng(args.seed + 3)
+    times, wit_times = [], []
+    last = None
+    for _ in range(batches):
+        s = rng.integers(0, g.n, size)
+        t = rng.integers(0, g.n, size)
+        t0 = time.perf_counter()
+        dist, wit = planner.query_witness(s, t)
+        t1 = time.perf_counter()
+        paths = uw.unwind_many(s, t, dist, wit)
+        times.append(time.perf_counter() - t0)
+        wit_times.append(t1 - t0)
+        last = (s, t, dist, paths)
+    med = float(np.median(times)) if times else float("nan")
+    med_wit = float(np.median(wit_times)) if times else float("nan")
+    hops = [len(p) - 1 for p in last[3] if p is not None] if last else []
+    mean_hops = float(np.mean(hops)) if hops else 0.0
+    print(f"paths: {batches * size} unwound (unwinder {unwinder_s:.2f}s); "
+          f"median batch {med * 1e3:.3f}ms (witness serving "
+          f"{med_wit * 1e3:.3f}ms) -> {med / size * 1e6:.3f}us/path "
+          f"({size / med:,.0f} paths/s, mean {mean_hops:.1f} hops)")
+    bad = n_check = 0
+    if args.validate and last is not None:
+        s, t, dist, paths = last
+        n_check = min(args.validate, len(s))
+        bad = sum(not _path_ok(g, int(s[i]), int(t[i]), dist[i], paths[i])
+                  for i in range(n_check))
+        print(f"path validation: {bad} mismatches of {n_check} "
+              f"(edge-valid, weight == served distance == Dijkstra)")
+    return {"batches": batches, "batch_size": size,
+            "unwinder_s": unwinder_s, "median_batch_ms": med * 1e3,
+            "median_witness_ms": med_wit * 1e3,
+            "us_per_path": med / size * 1e6, "paths_per_s": size / med,
+            "mean_hops": mean_hops, "mismatches": bad, "validated": n_check}
 
 
 def run(args: argparse.Namespace) -> dict:
-    """Build, warm up, serve and validate; returns the run's summary
-    (stage seconds, overlay shapes, median batch ms, µs/query, planner
-    buckets, the validation mismatch count)."""
-    g, dix, _plan, summary = build(args)
-    return serve(args, g, dix, summary)
+    """Build, warm up, serve and validate (and the path loop with
+    ``--paths``); returns the run's summary (stage seconds, overlay
+    shapes, median batch ms, µs/query, planner buckets, the validation
+    mismatch counts)."""
+    g, dix, plan, summary = build(args)
+    return serve(args, g, dix, summary, plan)
 
 
 def main(argv=None) -> int:
     res = run(parse_args(argv))
-    return 1 if res["mismatches"] else 0
+    bad = res["mismatches"] + res.get("paths", {}).get("mismatches", 0)
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":

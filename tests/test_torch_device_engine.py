@@ -237,7 +237,9 @@ def test_same_piece_index_masked_before_gather(world):
 
 def test_build_refuses_hierarchy_and_hub_tier():
     """The build refuses hierarchy_levels outside 1..5 (and non-ints
-    other than "auto") and the hub-label tier, which is not ported."""
+    other than "auto"); the hub-label tier, refused until it was ported,
+    builds its labels (tests/test_torch_hublabels.py holds them against
+    the reference)."""
     ix = build_index(road_like(400, seed=1))
     for bad in (0, 6, -1, "deep"):
         with pytest.raises(ValueError, match="hierarchy_levels"):
@@ -246,9 +248,11 @@ def test_build_refuses_hierarchy_and_hub_tier():
     assert tde.resolve_hierarchy_levels(0, 3) == 1
     assert tde.resolve_hierarchy_levels(1025, "auto") == 2
     assert tde.resolve_hierarchy_levels(1024, "auto") == 1
-    with pytest.raises(NotImplementedError, match="hub"):
-        tde.build_device_index_with_plan(ix, device="cpu",
-                                         hub_nodes=np.arange(4))
+    hdix, hplan = tde.build_device_index_with_plan(ix, device="cpu",
+                                                   hub_nodes=np.arange(4))
+    np.testing.assert_array_equal(hplan.hub_nodes, np.arange(4))
+    assert hdix.hub_rows.shape[0] > 1 and hdix.host_hub_agent is not None
+    assert "hub_stage" in hplan.build_timings
     with pytest.raises(ValueError, match="layout"):
         dix = tde.build_device_index(ix, device="cpu")
         z = torch.zeros(16, dtype=torch.int64)

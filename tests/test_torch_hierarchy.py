@@ -221,7 +221,8 @@ def test_port_serves_from_reference_built_hier_index(layout):
               for name in tde.FIELD_DTYPES}
     fields.update({name: [np.asarray(a) for a in getattr(jdix, name)]
                    for name in tde.TUPLE_FIELD_DTYPES})
-    fields.update({name: getattr(jdix, name) for name in convert.SIDECARS})
+    fields.update({name: getattr(jdix, name, None)
+                   for name in convert.SIDECARS})
     cdix = convert.device_index_from_numpy(fields, "cpu")
     assert cdix.hierarchy_levels == 3
     s, t = _pairs(g, dix, seed=3)

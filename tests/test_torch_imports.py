@@ -54,7 +54,8 @@ def test_port_modules_import_no_jax_and_no_reference_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for m in ("repro_torch.core.device_engine", "repro_torch.core.dist_engine",
-              "repro_torch.kernels.ops", "repro_torch.kernels._build",
+              "repro_torch.core.paths", "repro_torch.kernels.ops",
+              "repro_torch.kernels.label_merge", "repro_torch.kernels._build",
               "repro_torch.launch.serve", "repro_torch.convert"):
         assert m in res["modules"]
 
@@ -86,6 +87,20 @@ def test_serve_cli_runs_on_cpu():
     assert out.returncode == 0, out.stdout + out.stderr
     assert "validation: 0 mismatches of 16" in out.stdout
     assert "us/query" in out.stdout
+
+
+def test_serve_cli_paths_on_cpu():
+    """--paths unwinds witness-mode answers and validates them (exit 0
+    only with 0 mismatches)."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--nodes", "900", "--batches", "1", "--batch-size", "64",
+         "--validate", "16", "--paths", "--path-batch-size", "48"],
+        env=_env(), capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "paths: 48 unwound" in out.stdout
+    assert "path validation: 0 mismatches of 16" in out.stdout
+    assert "us/path" in out.stdout
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import _build, floyd_warshall, minplus
+from repro_torch.kernels import _build, floyd_warshall, label_merge, minplus
 from repro_torch.kernels import minplus_twoside, ops, ref
 
 # tiny tensors: one thread each, so the suite's parallel workers do not
@@ -111,6 +111,86 @@ def test_minplus_twoside_all_inf(J):
     assert np.isinf(got.numpy()).all()
 
 
+def _argmin_input(q, k1, k2, kind):
+    """(rows, d, rowt) for the witness twoside: "ragged" integers with
+    ~20% +inf, "ties" values from {0, 1, 2} (many cells at the minimum,
+    so the tie rule decides), "inf" all-+inf query rows."""
+    rng = np.random.default_rng(q * 7919 + k1 * 31 + k2)
+    if kind == "ties":
+        return tuple(rng.integers(0, 3, s).astype(np.float32)
+                     for s in ((q, k1), (k1, k2), (q, k2)))
+    rows, d, rowt = (_int_inf(s, rng) for s in ((q, k1), (k1, k2), (q, k2)))
+    if kind == "inf":
+        rows[::2] = np.inf
+    return rows, d, rowt
+
+
+ARGMIN_CASES = [(1, 1, 1, "ragged"), (5, 7, 3, "ragged"),
+                (37, 130, 201, "ragged"), (16, 48, 480, "ragged"),
+                (9, 70, 53, "inf"), (33, 40, 90, "ties"),
+                (4, 17, 5, "ties")]
+
+
+@pytest.mark.parametrize("q,k1,k2,kind", ARGMIN_CASES)
+def test_minplus_twoside_argmin_ref_matches_reference(J, q, k1, k2, kind):
+    """out, wx and wy array-equal to the reference's plain version (the
+    smallest y at the minimum, then its smallest x)."""
+    rows, d, rowt = _argmin_input(q, k1, k2, kind)
+    got = ops.minplus_twoside_argmin(*(torch.from_numpy(x)
+                                       for x in (rows, d, rowt)))
+    want = J.ref.minplus_twoside_argmin_ref(
+        *(J.jnp.asarray(x) for x in (rows, d, rowt)))
+    for g, w, dtype in zip(got, want, (torch.float32, torch.int32,
+                                       torch.int32)):
+        assert g.dtype == dtype
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    np.testing.assert_array_equal(got[0].numpy(), ops.minplus_twoside(
+        *(torch.from_numpy(x) for x in (rows, d, rowt))).numpy())
+
+
+@pytest.mark.parametrize("q,k1,k2,kind", ARGMIN_CASES)
+def test_minplus_twoside_argmin_witness_achieves_min(J, q, k1, k2, kind):
+    """Values equal to the Pallas kernel (interpret mode), whose tie rule
+    differs (smallest packed x * k2p + y); both witnesses achieve the
+    minimum, and are -1 exactly where it is +inf."""
+    rows, d, rowt = _argmin_input(q, k1, k2, kind)
+    out, wx, wy = (x.numpy() for x in ref.minplus_twoside_argmin_ref(
+        *(torch.from_numpy(x) for x in (rows, d, rowt))))
+    pal = [np.asarray(x) for x in J.ops.minplus_twoside_argmin(
+        *(J.jnp.asarray(x) for x in (rows, d, rowt)), force="pallas")]
+    np.testing.assert_array_equal(out, pal[0])
+    fin = np.isfinite(out)
+    for x, y in ((wx, wy), (pal[1], pal[2])):
+        assert (x[~fin] == -1).all() and (y[~fin] == -1).all()
+        qi = np.nonzero(fin)[0]
+        np.testing.assert_array_equal(
+            rows[qi, x[qi]] + d[x[qi], y[qi]] + rowt[qi, y[qi]], out[qi])
+    if kind == "inf":
+        assert not fin[::2].any()
+
+
+@pytest.mark.parametrize("q,w,inf_row", [(37, 300, 5), (16, 480, None),
+                                         (3, 1, 0), (9, 130, None)])
+def test_label_merge_ref_matches_reference(J, q, w, inf_row):
+    """label_merge_ref == the reference's plain version and its Pallas
+    kernel (interpret mode), +inf labels and an all-+inf row included."""
+    rng = np.random.default_rng(q * 31 + w)
+    labs = rng.integers(1, 2 ** 20, (q, w)).astype(np.float32)
+    labt = rng.integers(1, 2 ** 20, (q, w)).astype(np.float32)
+    labs[rng.random(labs.shape) < 0.1] = np.inf
+    labt[rng.random(labt.shape) < 0.1] = np.inf
+    if inf_row is not None:
+        labs[inf_row] = np.inf
+    got = ops.label_merge(torch.from_numpy(labs), torch.from_numpy(labt))
+    np.testing.assert_array_equal(got.numpy(), np.min(labs + labt, axis=1))
+    for jforce in ("ref", "pallas"):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(
+            J.ops.label_merge(J.jnp.asarray(labs), J.jnp.asarray(labt),
+                              force=jforce)))
+    if inf_row is not None:
+        assert np.isinf(got[inf_row].item())
+
+
 MP_SHAPES = [(1, 1, 1), (1, 37, 53), (5, 7, 3), (33, 77, 129),
              (40, 130, 9)]
 
@@ -193,6 +273,11 @@ def test_ops_force_kernel_on_cpu_raises():
         ops.minplus(rows, rows.T, force="kernel")
     with pytest.raises(ValueError, match="CUDA"):
         ops.minplus_accum(rows, rows, torch.zeros((3, 3)), force="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.minplus_twoside_argmin(rows, torch.zeros((3, 5)),
+                                   torch.zeros((2, 5)), force="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.label_merge(rows, rows, force="kernel")
     with pytest.raises(ValueError, match="force"):
         ops.use_kernel("cpu", "pallas")
 
@@ -206,7 +291,9 @@ def test_cpu_dispatch_runs_plain_versions_and_counts_nothing():
                 minplus_twoside.minplus_twoside_cuda.launches,
                 floyd_warshall.fw_batch_cuda.launches,
                 minplus.minplus_cuda.launches,
-                minplus.minplus_accum_cuda.launches)
+                minplus.minplus_accum_cuda.launches,
+                minplus_twoside.minplus_twoside_argmin_cuda.launches,
+                label_merge.label_merge_cuda.launches)
     before = counts()
     rng = np.random.default_rng(3)
     d = torch.from_numpy(_fw_input(2, 9, rng))
@@ -215,6 +302,11 @@ def test_cpu_dispatch_runs_plain_versions_and_counts_nothing():
     assert torch.equal(ops.fw_batch(d), ref.fw_batch_ref(d))
     assert torch.equal(ops.fw_apsp(d[0], block=4), ref.fw_ref(d[0]))
     assert torch.equal(ops.minplus(d[0], d[1]), ref.minplus_ref(d[0], d[1]))
+    for g, w in zip(ops.minplus_twoside_argmin(d[0], d[1], d[0]),
+                    ref.minplus_twoside_argmin_ref(d[0], d[1], d[0])):
+        assert torch.equal(g, w)
+    assert torch.equal(ops.label_merge(d[0], d[1]),
+                       ref.label_merge_ref(d[0], d[1]))
     assert not ops.use_kernel("cpu") and not ops.use_kernel("cpu", "ref")
     with pytest.raises(ValueError, match="CUDA"):
         floyd_warshall.fw_batch_next_cuda(d)
@@ -226,6 +318,10 @@ def test_cpu_dispatch_runs_plain_versions_and_counts_nothing():
         minplus.minplus_cuda(d[0], d[1])
     with pytest.raises(ValueError, match="CUDA"):
         minplus.minplus_accum_cuda(d[0], d[0], d[1])
+    with pytest.raises(ValueError, match="CUDA"):
+        minplus_twoside.minplus_twoside_argmin_cuda(d[0], d[0], d[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        label_merge.label_merge_cuda(d[0], d[1])
     assert counts() == before
 
 
@@ -301,3 +397,26 @@ def test_fw_apsp_kernels_match_plain_on_card(cuda_device, n, block):
                                   inf_frac=0.9)).to(cuda_device)
     assert torch.equal(ops.fw_apsp(d, block=block),
                        ops.fw_apsp(d, force="ref"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,k1,k2,kind", ARGMIN_CASES + [
+    (1024, 480, 480, "ragged"), (64, 1712, 1712, "ties")])
+def test_twoside_argmin_kernel_matches_plain_on_card(cuda_device, q, k1, k2,
+                                                     kind):
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in _argmin_input(q, k1, k2, kind)]
+    for g, w in zip(ops.minplus_twoside_argmin(*args),
+                    ops.minplus_twoside_argmin(*args, force="ref")):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,w", [(37, 300), (1024, 1712), (5, 3), (8, 7)])
+def test_label_merge_kernel_matches_plain_on_card(cuda_device, q, w):
+    rng = np.random.default_rng(q + w)
+    labs, labt = (torch.from_numpy(_int_inf((q, w), rng)).to(cuda_device)
+                  for _ in range(2))
+    labs[0] = float("inf")
+    assert torch.equal(ops.label_merge(labs, labt),
+                       ops.label_merge(labs, labt, force="ref"))
