@@ -12,13 +12,19 @@ prints no result.  Phases, each of which must pass:
   2. hold each kernel against its plain PyTorch version on the card,
      array-equal, on integer-valued float32 inputs with ~20% +inf at
      shapes that are not tile multiples (and all-+inf blocks), timing
-     kernel and plain version with CUDA events: the witness FW and the
-     twoside combine at the dense path's shapes and at the hierarchy's
-     (group closures [6, 1024, 1024], top closure S_top+1 = 1712), the
-     distance-only FW, the (min,+) products with and without
-     accumulation, the whole blocked APSP (``ops.fw_apsp``), the
-     witness twoside argmin (out, wx and wy array-equal, a tie-heavy
-     case with values from {0, 1, 2} included) and the hub-label merge;
+     kernel and plain version with CUDA events: the witness FW at the
+     dense path's shapes, road64k's fragments ([130, 496, 496], out of
+     L2) and the hierarchy's group closures ([6 and 3, 1024, 1024]),
+     ragged n, tie-heavy values and all-+inf blocks, each shape timed
+     for the blocked kernel beside the shared-memory one (n <= 160) or
+     the per-pivot one it replaced (above); the twoside combine at the
+     dense and top-closure shapes (S_top+1 = 1712), the distance-only
+     FW, the (min,+) products with and without accumulation, the whole
+     blocked APSP (``ops.fw_apsp``), the witness twoside argmin (out, wx
+     and wy array-equal; tie-heavy values from {0, 1, 2}, and
+     road4000's serve-shaped scattered boundary rows at q = 16 and
+     1,024, sorted and tie-heavy variants included, with the share of
+     rows tiles the kernel cannot skip) and the hub-label merge;
   3. small end-to-end references: road_like(900) with 96 seeded hub
      nodes, built and served on the card, equals the same run on the
      CPU (plain versions), table for table (hub tables and sidecars
@@ -43,7 +49,8 @@ prints no result.  Phases, each of which must pass:
      ``query_hub`` (== ``query``, 32 == Dijkstra); counters zeroed just
      before and read just after;
   7. the ``kernels`` JSON line (launches summed over the main paths of
-     phases 4 and 6, times and bounds from phase 2), the card's name
+     phases 4 and 6, which must launch the blocked witness FW and never
+     the per-pivot one; times and bounds from phase 2), the card's name
      and power limit from nvidia-smi, and the ``{"ok": true, ...}``
      line last.
 
@@ -120,37 +127,53 @@ def _max_abs_err(a, b) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def _check_fw(cases, out):
+def _fw_input(b, n, kind, all_inf):
+    """[b, n, n] on the card: integers with ~20% +inf, or ("ties")
+    values from {0, 1, 2} with 60% +inf, so that many paths tie and the
+    first hops depend on the pivot order; batch entries ``all_inf`` all
+    +inf."""
     import numpy as np
+    import torch
+    rng = np.random.default_rng(b * 7919 + n)
+    if kind == "ties":
+        d_np = rng.integers(0, 3, (b, n, n)).astype(np.float32)
+        d_np[rng.random(d_np.shape) < 0.6] = np.inf
+    else:
+        d_np = _int_inf((b, n, n), rng)
+    d_np[list(all_inf)] = np.inf
+    return torch.from_numpy(d_np).cuda()
+
+
+def _check_fw(cases, out):
+    """(label, b, n, kind, all_inf): the witness FW variants against the
+    plain version, dist and nxt array-equal, each timed in this call:
+    n <= SMEM_MAX_N the shared-memory kernel and the blocked one, above
+    it the blocked kernel (the main path's) and the per-pivot one it
+    replaced."""
     import torch
     from repro_torch.kernels import floyd_warshall as fw
     from repro_torch.kernels import ops
-    for label, b, n, all_inf in cases:
-        rng = np.random.default_rng(b * 7919 + n)
-        d_np = _int_inf((b, n, n), rng)
-        d_np[list(all_inf)] = np.inf
-        d = torch.from_numpy(d_np).cuda()
-        kernel = (fw.fw_next_smem_cuda if n <= fw.SMEM_MAX_N
-                  else fw.fw_next_global_cuda)
-        got = kernel(d)
+    for label, b, n, kind, all_inf in cases:
+        d = _fw_input(b, n, kind, all_inf)
         want = ops.fw_batch_next(d, force="ref")
-        torch.cuda.synchronize()
-        dist_ok = torch.equal(got[0], want[0])
-        nxt_ok = torch.equal(got[1], want[1])
-        err = _max_abs_err(got[0], want[0])
         big = b * n * n > 4_000_000
-        ms = _time_ms(lambda: kernel(d), 2 if big else 10)
         plain_ms = _time_ms(lambda: ops.fw_batch_next(d, force="ref"),
                             1 if big else 3)
         bound, by = _bound_ms(12.0 * b * n * n, 2.0 * b * n ** 3)
-        rec = {"case": label, "kernel": kernel.__name__, "b": b, "n": n,
-               "dist_equal": dist_ok, "nxt_equal": nxt_ok,
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound, "bound_by": by}
-        print(f"  {label}: {rec}")
-        out.append(rec)
-        if not (dist_ok and nxt_ok):
-            raise AssertionError(f"{label}: kernel != plain version")
+        other = (fw.fw_next_smem_cuda if n <= fw.SMEM_MAX_N
+                 else fw.fw_next_global_cuda)
+        for kernel in (fw.fw_next_blocked_cuda, other):
+            got = kernel(d)
+            torch.cuda.synchronize()
+            dist_ok = torch.equal(got[0], want[0])
+            nxt_ok = torch.equal(got[1], want[1])
+            _record(out, {
+                "case": label, "kernel": kernel.__name__, "b": b, "n": n,
+                "kind": kind, "dist_equal": dist_ok, "nxt_equal": nxt_ok,
+                "max_abs_err": _max_abs_err(got[0], want[0]),
+                "ms": _time_ms(lambda: kernel(d), 2 if big else 10),
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by},
+                dist_ok and nxt_ok)
 
 
 def _check_twoside(cases, out):
@@ -187,12 +210,56 @@ def _check_twoside(cases, out):
             raise AssertionError(f"{label}: kernel != plain version")
 
 
+_ROAD4000: dict = {}
+
+
+def _serve_rows(q, kind, rng):
+    """(rows, d, rowt) as road4000's witness combine gets them: each
+    row is one endpoint's boundary-row entries scattered over the S+1
+    super ids (``device_engine._scatter_rows`` of ``brow[frag, pos]`` at
+    ``bnd_super[frag]``, at most mb = 32 finite entries a row), d the
+    dense overlay, for q random pairs.  "serve sorted" orders the pairs
+    by the first finite x of their rows; "serve ties" keeps the finite
+    pattern and draws the finite values (d's too) from {0, 1, 2}."""
+    import torch
+    from repro_torch.core import device_engine as de
+    if not _ROAD4000:
+        from repro_torch.core.graph import road_like
+        from repro_torch.core.supergraph import build_index
+        _ROAD4000["dix"] = de.build_device_index(
+            build_index(road_like(4000, seed=0)), device="cuda",
+            hierarchy_levels=1)
+    dix = _ROAD4000["dix"]
+    n = dix.agent_of.shape[0]
+    s, t = (torch.from_numpy(rng.integers(0, n, q)).cuda() for _ in "st")
+    _ds, _dt, fs, ft, ps, pt, _valid = de._ends(dix, s, t)
+    s1 = dix.d_super.shape[0]
+    rows = de._scatter_rows(dix.brow[fs, ps], dix.bnd_super[fs].long(), s1)
+    rowt = de._scatter_rows(dix.brow[ft, pt], dix.bnd_super[ft].long(), s1)
+    d = dix.d_super.clone()
+    if kind == "serve sorted":
+        x = torch.arange(s1, device=rows.device)
+        first = torch.where(torch.isfinite(rows), x, s1).amin(dim=1)
+        order = torch.argsort(first, stable=True)
+        rows, rowt = rows[order].contiguous(), rowt[order].contiguous()
+    if kind == "serve ties":
+        gen = torch.Generator(device="cuda").manual_seed(q)
+        for x in (rows, d, rowt):
+            small = torch.randint(0, 3, x.shape, generator=gen,
+                                  device=x.device).float()
+            x.copy_(torch.where(torch.isfinite(x), small, x))
+    return rows, d, rowt
+
+
 def _argmin_inputs(q, k, kind, rng):
     """(rows, d, rowt) on the card: integers with ~20% +inf ("ragged"),
-    all-+inf query rows ("inf"), or values from {0, 1, 2} so that many
-    cells tie at the minimum ("ties")."""
+    all-+inf query rows ("inf"), values from {0, 1, 2} so that many
+    cells tie at the minimum ("ties"), or road4000's serve-shaped rows
+    (kinds "serve...", ``_serve_rows``; k is its S+1 = 480)."""
     import numpy as np
     import torch
+    if kind.startswith("serve"):
+        return _serve_rows(q, kind, rng)
     shapes = ((q, k), (k, k), (q, k))
     if kind == "ties":
         arrs = [rng.integers(0, 3, s).astype(np.float32) for s in shapes]
@@ -200,6 +267,18 @@ def _argmin_inputs(q, k, kind, rng):
         arrs = [_int_inf(s, rng, 1.0 if (kind == "inf" and i == 0) else 0.2)
                 for i, s in enumerate(shapes)]
     return [torch.from_numpy(x).cuda() for x in arrs]
+
+
+def _live_tiles(rows) -> float:
+    """Share of the witness kernel's 64 x 32 rows tiles that hold a
+    finite entry (the others skip their d load and inner loop)."""
+    import torch
+    q, k = rows.shape
+    qp, kp = -(-q // 64) * 64, -(-k // 32) * 32
+    f = torch.zeros((qp, kp), dtype=torch.bool, device=rows.device)
+    f[:q, :k] = torch.isfinite(rows)
+    return float(f.reshape(qp // 64, 64, kp // 32, 32).any(dim=3)
+                 .any(dim=1).double().mean())
 
 
 def _check_twoside_argmin(cases, out):
@@ -227,6 +306,10 @@ def _check_twoside_argmin(cases, out):
         _record(out, {
             "case": label, "kernel": "minplus_twoside_argmin_cuda", "q": q,
             "k": k, "kind": kind, "equal": ok,
+            "splits": ts.x_splits(q, k, k),
+            "finite_per_row": float(torch.isfinite(rows).sum(dim=1).double()
+                                    .mean()),
+            "live_rows_tiles": _live_tiles(rows),
             "max_abs_err": _max_abs_err(got[0], want[0]),
             "ms": _time_ms(kern, 10), "device_ms": _device_ms(kern, 10),
             "plain_ms": _time_ms(lambda: ops.minplus_twoside_argmin(
@@ -373,6 +456,7 @@ def _check_fw_apsp(cases, out):
 
 #: every kernel entry: (name, wrapper module, wrapper attribute)
 KERNELS = (("fw_next_smem", "floyd_warshall", "fw_next_smem_cuda"),
+           ("fw_next_blocked", "floyd_warshall", "fw_next_blocked_cuda"),
            ("fw_next_global", "floyd_warshall", "fw_next_global_cuda"),
            ("minplus_twoside", "minplus_twoside", "minplus_twoside_cuda"),
            ("fw_batch", "floyd_warshall", "fw_batch_cuda"),
@@ -662,7 +746,7 @@ def main() -> int:
             log = _build.lib_path(name).with_suffix(".log")
             if log.exists():
                 for line in log.read_text().splitlines():
-                    if "registers" in line or "smem" in line:
+                    if any(w in line for w in ("registers", "smem", "spill")):
                         print(f"  ptxas {name}: {line.strip()}")
         print(f"  kernel build seconds: {took}")
         return took
@@ -671,10 +755,16 @@ def main() -> int:
     print("kernel checks: tolerance exact (torch.equal on dist, nxt and "
           "out); integer-valued inputs keep every sum below 2**24")
     phase("fw_kernel", lambda: _check_fw([
-        ("smem b=36 n=128", 36, 128, ()),
-        ("smem b=8 n=8 all-inf blocks", 8, 8, (1, 5)),
-        ("global b=1 n=4613", 1, 4613, ()),
-        ("global b=4 n=496 all-inf block", 4, 496, (2,)),
+        ("smem b=36 n=128", 36, 128, "ragged", ()),
+        ("smem b=8 n=8 all-inf blocks", 8, 8, "ragged", (1, 5)),
+        ("smem b=256 n=32 (piece bucket)", 256, 32, "ragged", ()),
+        ("smem b=64 n=64 ties", 64, 64, "ties", ()),
+        ("smem b=36 n=96", 36, 96, "ragged", ()),
+        ("smem b=36 n=160", 36, 160, "ragged", ()),
+        ("b=1 n=4613", 1, 4613, "ragged", ()),
+        ("b=4 n=496 all-inf block", 4, 496, "ragged", (2,)),
+        ("b=130 n=496 (frag_stage)", 130, 496, "ragged", ()),
+        ("b=3 n=1000 ties all-inf block", 3, 1000, "ties", (1,)),
     ], fw_cases))
     phase("twoside_kernel", lambda: _check_twoside([
         ("q=16 S+1=480", 16, 480, 0.2),
@@ -684,7 +774,8 @@ def main() -> int:
         ("q=64 S+1=480 all-inf rows", 64, 480, 1.0),
     ], ts_cases))
     phase("hier_kernel_shapes", lambda: (
-        _check_fw([("global b=6 n=1024 (sf_stage)", 6, 1024, ())],
+        _check_fw([("b=6 n=1024 (sf_stage)", 6, 1024, "ragged", ()),
+                   ("b=3 n=1024 (sf_stage)", 3, 1024, "ragged", ())],
                   fw_cases),
         _check_twoside([("q=1024 S_top+1=1712", 1024, 1712, 0.2)],
                        ts_cases)))
@@ -718,6 +809,11 @@ def main() -> int:
         ("argmin q=64 S+1=480 all-inf rows", 64, 480, "inf"),
         ("argmin q=1024 S+1=480 ties {0,1,2}", 1024, 480, "ties"),
         ("argmin q=100 k=1712 ties {0,1,2}", 100, 1712, "ties"),
+        ("argmin serve q=16 S+1=480", 16, 480, "serve"),
+        ("argmin serve q=1024 S+1=480", 1024, 480, "serve"),
+        ("argmin serve sorted q=1024 S+1=480", 1024, 480, "serve sorted"),
+        ("argmin serve ties q=16 S+1=480", 16, 480, "serve ties"),
+        ("argmin serve ties q=1024 S+1=480", 1024, 480, "serve ties"),
     ], slice3_cases))
     phase("label_merge_kernel", lambda: _check_label_merge([
         ("merge q=1024 W=1712", 1024, 1712, None),
@@ -754,22 +850,27 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    def pick(cases, label):
-        return next(c for c in cases if c["case"] == label)
+    def pick(cases, label, kernel=None):
+        return next(c for c in cases if c["case"] == label
+                    and kernel in (None, c["kernel"]))
 
     try:
         _require_launched(report["road4000"], "road4000",
-                          ("fw_next_smem", "fw_next_global",
+                          ("fw_next_smem", "fw_next_blocked",
                            "minplus_twoside", "minplus_twoside_argmin"))
         _require_launched(report["road64k"], "road64k",
                           ("fw_batch", "minplus_accum", "minplus",
-                           "fw_next_global", "minplus_twoside",
+                           "fw_next_blocked", "minplus_twoside",
                            "minplus_twoside_argmin", "label_merge"))
         launches = {name: report["road4000"]["launches"][name]
                     + report["road64k"]["launches"][name]
                     for name, _m, _a in KERNELS}
+        # the per-pivot FW left the main path: timed beside, never run
+        if launches.pop("fw_next_global"):
+            raise AssertionError("main paths launched fw_next_global")
         _require_launched({"launches": launches}, "main paths",
                           launches)
+        launches["fw_next_global"] = 0
     except AssertionError:
         traceback.print_exc()
         print("chip_smoke: FAILED launch counts", file=sys.stderr)
@@ -778,10 +879,16 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(
         json.dumps(report, indent=1, default=str))
     rows = [
-        ("fw_next_smem", pick(fw_cases, "smem b=36 n=128"),
+        ("fw_next_smem", pick(fw_cases, "smem b=256 n=32 (piece bucket)",
+                              "fw_next_smem_cuda"),
          "src/repro_torch/csrc/fw_next.cu",
          "src/repro/kernels/floyd_warshall.py:97"),
-        ("fw_next_global", pick(fw_cases, "global b=1 n=4613"),
+        ("fw_next_blocked", pick(fw_cases, "b=130 n=496 (frag_stage)",
+                                 "fw_next_blocked_cuda"),
+         "src/repro_torch/csrc/fw_next.cu",
+         "src/repro/kernels/floyd_warshall.py:97"),
+        ("fw_next_global", pick(fw_cases, "b=130 n=496 (frag_stage)",
+                                "fw_next_global_cuda"),
          "src/repro_torch/csrc/fw_next.cu",
          "src/repro/kernels/floyd_warshall.py:97"),
         ("minplus_twoside", pick(ts_cases, "q=1024 S+1=4614"),

@@ -12,25 +12,45 @@
 // x for that y.  The Pallas kernel takes the smallest packed x*K2p + y
 // instead; both witnesses achieve the same minimum.
 //
-// Tiling as minplus_twoside.cu: each block owns a (64-query, 64-y) tile,
-// walks x through 32-deep shared-memory tiles of rows and d, and keeps a
-// 4 x 4 register micro-tile of acc[q, y] = min_x rows + d per thread.
-// Beside each acc sits accx, the x that set it; x ascends and only a
-// strict < replaces, so accx is the smallest x at the minimum.  After
-// adding rowt the block reduces its y-tile on (value, y): per thread
-// over its columns (ascending y, strict <), then across the 16 lanes
-// that share a q lane with a shuffle that carries (value, y, x) and
-// prefers the smaller y on equal values.  It writes one partial value
-// and one packed witness y * K1 + x (int64) per (q, y-tile).  The
-// caller takes out = min over the partials and, among the partials
-// equal to out, the smallest packed witness: y-tiles are disjoint y
-// ranges, so that is the smallest y, then its x.
+// Two launches, no host-side finish:
+//  * twoside_argmin_kernel: grid (y-tiles of 64, q-tiles of 64,
+//    x-splits).  Each block walks its contiguous x range through
+//    32-deep tiles twice.  Pass 1 keeps an 8 x 4 register micro-tile
+//    per thread of acc[q, y] = min_x rows + d: an add and a min a cell,
+//    half the instructions of carrying the winning x beside every cell.
+//    After adding rowt the block reduces its y-tile on (value, y): per
+//    query the smallest y* at its minimum, and acc[q, y*].  Pass 2 walks
+//    the same tiles again and finds, per query, the smallest x of the
+//    range with rows[q, x] + d[x, y*] == acc[q, y*] (the same add, so
+//    the same bits), stopping once every query has its x.  That is the
+//    x a strict-< ascending scan would have kept, so the block writes
+//    one partial value and one packed witness y * K1 + x (int64) per
+//    (q, y-tile, x-split).
+//  * twoside_argmin_finish: one warp per query takes the minimum over
+//    the partials and, among those at it, the smallest packed witness:
+//    y-tiles are disjoint y ranges and x-splits disjoint x ranges, so
+//    that is the smallest y, then its smallest x.  It writes out f32 and
+//    wx, wy int32 (-1 where out is +inf).
+// ref.minplus_twoside_argmin_split_ref models the partials and finish.
+//
+// What the design does about the serve path's shapes:
+//  * small grids: the caller splits x when q-tiles x y-tiles is under
+//    two waves (264 blocks on 132 SMs), so a 16-query bucket still
+//    fills the card;
+//  * mostly-+inf rows (scattered boundary rows, a few finite entries a
+//    row): each staged 64 x 32 rows tile is voted on with
+//    __syncthreads_or; a tile with no finite entry skips its d tile load
+//    and its loop (uniform across the block), in both passes;
+//  * the loop: d tiles double-buffered with cp.async so the next tile's
+//    load overlaps this tile's loop; rows tiles are stored transposed,
+//    so a thread's 8 queries and 4 y columns are three float4 shared
+//    loads per x.
 //
 // Bound on this card: as minplus_twoside.cu, 2 float32 operations per
 // finite (q, x, y) triple outside the tensor cores, bound by operations
-// at the serve path's shapes.  The witness costs one compare-select of
-// an int per cell next to the min; 16 int witnesses beside the 16 float
-// accumulators raise the register count (-Xptxas=-v reports it).
+// at the serve path's shapes; pass 1 issues exactly those 2 a cell,
+// pass 2 a compare per (query, x) up to the witness and a second read
+// of the d tiles.
 //
 // Exact: integer-valued inputs keep every sum below 2**24, so the
 // values and the equalities the tie rule compares are the plain
@@ -38,125 +58,307 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #define TA_BQ 64      // queries per block
 #define TA_BY 64      // y columns per block
 #define TA_BX 32      // x depth per shared-memory tile
-#define TA_TQ 16      // threads along q
-#define TA_TY 16      // threads along y
-#define TA_MQ (TA_BQ / TA_TQ)
-#define TA_MY (TA_BY / TA_TY)
+#define TA_MQ 8       // queries per thread
+#define TA_MY 4       // y columns per thread
+#define TA_TQ (TA_BQ / TA_MQ)
+#define TA_TY (TA_BY / TA_MY)
+#define TA_THREADS (TA_TQ * TA_TY)
 
-__global__ void __launch_bounds__(TA_TQ * TA_TY)
+struct TaTiles {
+  float rs[2][TA_BX][TA_BQ];   // rows tiles, transposed: [x][q]
+  float ds[2][TA_BX][TA_BY];   // d tiles: [x][y]
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Stage rows[q0 + 0..63, x0 + 0..31] into rs (plain loads, consecutive
+// threads on consecutive queries so the transposed stores are
+// conflict-free); returns whether this thread saw a finite entry.
+__device__ __forceinline__ int stage_rows(float (*rs)[TA_BQ],
+                                          const float* __restrict__ rows,
+                                          int Q, int K1, int q0, int x0,
+                                          int xb) {
+  const float inf = __int_as_float(0x7f800000);
+  int fin = 0;
+#pragma unroll
+  for (int m = 0; m < TA_BQ * TA_BX / TA_THREADS; ++m) {
+    const int c = threadIdx.x + m * TA_THREADS;
+    const int qq = c % TA_BQ, xx = c / TA_BQ;
+    const int q = q0 + qq, x = x0 + xx;
+    const float v = (q < Q && x < xb) ? rows[(size_t)q * K1 + x] : inf;
+    rs[xx][qq] = v;
+    fin |= v != inf;
+  }
+  return fin;
+}
+
+// Start the copy of d[x0 + 0..31, y0 + 0..63] into ds (cp.async; the
+// ragged edge is stored as +inf directly).
+__device__ __forceinline__ void stage_d(float (*ds)[TA_BY],
+                                        const float* __restrict__ d, int K2,
+                                        int x0, int xb, int y0) {
+  const float inf = __int_as_float(0x7f800000);
+#pragma unroll
+  for (int m = 0; m < TA_BX * TA_BY / TA_THREADS; ++m) {
+    const int c = threadIdx.x + m * TA_THREADS;
+    const int xx = c / TA_BY, yy = c % TA_BY;
+    const int x = x0 + xx, y = y0 + yy;
+    if (x < xb && y < K2) {
+      cp_async4(&ds[xx][yy], d + (size_t)x * K2 + y);
+    } else {
+      ds[xx][yy] = inf;
+    }
+  }
+}
+
+// Walk the x-tiles of [xa, xb) in order, double-buffered: the rows tile
+// of t + 1 is staged and voted on, and its d tile's cp.async started,
+// before tile t is handed to body(rs, ds, x0).  A tile whose rows are
+// all +inf is neither loaded nor handed over.  body returns a
+// block-uniform "stop".
+template <class Body>
+__device__ __forceinline__ void walk_x(TaTiles& sm,
+                                       const float* __restrict__ rows,
+                                       const float* __restrict__ d, int Q,
+                                       int K1, int K2, int q0, int y0, int xa,
+                                       int xb, Body&& body) {
+  const int ntiles = xb > xa ? (xb - xa + TA_BX - 1) / TA_BX : 0;
+  int live = 0;
+  if (ntiles > 0) {
+    live = __syncthreads_or(stage_rows(sm.rs[0], rows, Q, K1, q0, xa, xb));
+    if (live) stage_d(sm.ds[0], d, K2, xa, xb, y0);
+  }
+  cp_async_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    const int cur = t & 1;
+    const int x0 = xa + t * TA_BX;
+    int next = 0;
+    if (t + 1 < ntiles) {
+      next = __syncthreads_or(stage_rows(sm.rs[cur ^ 1], rows, Q, K1, q0,
+                                         x0 + TA_BX, xb));
+      if (next) stage_d(sm.ds[cur ^ 1], d, K2, x0 + TA_BX, xb, y0);
+    }
+    cp_async_commit();
+    if (live) {
+      cp_async_wait_prev();   // tile t landed (t + 1 may be in flight)
+      __syncthreads();
+      const bool stop = body(sm.rs[cur], sm.ds[cur], x0);
+      __syncthreads();        // buffers free for the prefetch after next
+      if (stop) break;
+    }
+    live = next;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(TA_THREADS)
 twoside_argmin_kernel(const float* __restrict__ rows,
                       const float* __restrict__ d,
                       const float* __restrict__ rowt,
                       float* __restrict__ part,
-                      long long* __restrict__ pwit,
-                      int Q, int K1, int K2) {
-  __shared__ float rs[TA_BX][TA_BQ + 1];   // rows tile, transposed
-  __shared__ float dsm[TA_BX][TA_BY];      // d tile
+                      long long* __restrict__ pwit, int Q, int K1, int K2,
+                      int xper) {
+  __shared__ __align__(16) TaTiles sm;
+  __shared__ float s_m[TA_BQ], s_t[TA_BQ];
+  __shared__ int s_y[TA_BQ];
   const int ty = threadIdx.x % TA_TY;      // y lane
   const int tq = threadIdx.x / TA_TY;      // q lane
   const int q0 = blockIdx.y * TA_BQ;
   const int y0 = blockIdx.x * TA_BY;
+  const int xa = blockIdx.z * xper;
+  const int xb = min(K1, xa + xper);
   const float inf = __int_as_float(0x7f800000);
 
+  // pass 1: acc[q, y] = min over the x range of rows + d (add, min)
   float acc[TA_MQ][TA_MY];
-  int accx[TA_MQ][TA_MY];
 #pragma unroll
   for (int a = 0; a < TA_MQ; ++a)
 #pragma unroll
-    for (int b = 0; b < TA_MY; ++b) {
-      acc[a][b] = inf;
-      accx[a][b] = -1;
-    }
-
-  for (int x0 = 0; x0 < K1; x0 += TA_BX) {
-    for (int c = threadIdx.x; c < TA_BQ * TA_BX; c += blockDim.x) {
-      const int qq = c / TA_BX, xx = c % TA_BX;
-      const int q = q0 + qq, x = x0 + xx;
-      rs[xx][qq] = (q < Q && x < K1) ? rows[(size_t)q * K1 + x] : inf;
-    }
-    for (int c = threadIdx.x; c < TA_BX * TA_BY; c += blockDim.x) {
-      const int xx = c / TA_BY, yy = c % TA_BY;
-      const int x = x0 + xx, y = y0 + yy;
-      dsm[xx][yy] = (x < K1 && y < K2) ? d[(size_t)x * K2 + y] : inf;
-    }
-    __syncthreads();
+    for (int b = 0; b < TA_MY; ++b) acc[a][b] = inf;
+  walk_x(sm, rows, d, Q, K1, K2, q0, y0, xa, xb,
+         [&](const float (*rs)[TA_BQ], const float (*ds)[TA_BY], int) {
 #pragma unroll 4
-    for (int xx = 0; xx < TA_BX; ++xx) {
-      float rv[TA_MQ], dv[TA_MY];
+           for (int xx = 0; xx < TA_BX; ++xx) {
+             const float4 r0 =
+                 *reinterpret_cast<const float4*>(&rs[xx][tq * TA_MQ]);
+             const float4 r1 =
+                 *reinterpret_cast<const float4*>(&rs[xx][tq * TA_MQ + 4]);
+             const float4 dq =
+                 *reinterpret_cast<const float4*>(&ds[xx][ty * TA_MY]);
+             const float rv[TA_MQ] = {r0.x, r0.y, r0.z, r0.w,
+                                      r1.x, r1.y, r1.z, r1.w};
+             const float dv[TA_MY] = {dq.x, dq.y, dq.z, dq.w};
 #pragma unroll
-      for (int a = 0; a < TA_MQ; ++a) rv[a] = rs[xx][tq + a * TA_TQ];
+             for (int a = 0; a < TA_MQ; ++a)
 #pragma unroll
-      for (int b = 0; b < TA_MY; ++b) dv[b] = dsm[xx][ty + b * TA_TY];
-      const int x = x0 + xx;
-#pragma unroll
-      for (int a = 0; a < TA_MQ; ++a)
-#pragma unroll
-        for (int b = 0; b < TA_MY; ++b) {
-          const float v = rv[a] + dv[b];
-          const bool better = v < acc[a][b];    // strict: smallest x
-          acc[a][b] = better ? v : acc[a][b];
-          accx[a][b] = better ? x : accx[a][b];
-        }
-    }
-    __syncthreads();
-  }
+               for (int b = 0; b < TA_MY; ++b)
+                 acc[a][b] = fminf(acc[a][b], rv[a] + dv[b]);
+           }
+           return false;
+         });
 
+  // add rowt; per query the smallest y at the block's minimum, with the
+  // acc value there (what pass 2 looks for)
 #pragma unroll
   for (int a = 0; a < TA_MQ; ++a) {
-    const int q = q0 + tq + a * TA_TQ;
-    float m = inf;
-    int my = 0x7fffffff, mx = -1;
-    // this thread's columns, ascending y: strict < keeps the smallest y
+    const int q = q0 + tq * TA_MQ + a;
+    float m = inf, mt = inf;
+    int my = 0x7fffffff;
 #pragma unroll
-    for (int b = 0; b < TA_MY; ++b) {
-      const int y = y0 + ty + b * TA_TY;
+    for (int b = 0; b < TA_MY; ++b) {       // ascending y, strict <
+      const int y = y0 + ty * TA_MY + b;
       if (q < Q && y < K2) {
         const float v = acc[a][b] + rowt[(size_t)q * K2 + y];
-        if (v < m || (v == m && y < my)) {
+        if (v < m) {
           m = v;
           my = y;
-          mx = accx[a][b];
+          mt = acc[a][b];
         }
       }
     }
-    // across the TA_TY lanes sharing this q lane: (value, y) order
 #pragma unroll
     for (int off = TA_TY / 2; off > 0; off >>= 1) {
       const float om = __shfl_xor_sync(0xffffffffu, m, off);
       const int oy = __shfl_xor_sync(0xffffffffu, my, off);
-      const int ox = __shfl_xor_sync(0xffffffffu, mx, off);
+      const float ot = __shfl_xor_sync(0xffffffffu, mt, off);
       if (om < m || (om == m && oy < my)) {
         m = om;
         my = oy;
-        mx = ox;
+        mt = ot;
       }
     }
-    if (ty == 0 && q < Q) {
-      const size_t o = (size_t)q * gridDim.x + blockIdx.x;
-      part[o] = m;
-      pwit[o] = (long long)my * (long long)K1 + (long long)mx;
+    if (ty == 0) {
+      s_m[tq * TA_MQ + a] = m;
+      s_y[tq * TA_MQ + a] = my;
+      s_t[tq * TA_MQ + a] = mt;
     }
+  }
+  __syncthreads();
+
+  // pass 2: per query, the smallest x of the range with
+  // rows[q, x] + d[x, y*] == acc[q, y*] (the same add, so the same bits),
+  // walking the tiles again until every query has its x
+  const int qq = threadIdx.x;
+  bool found = true;
+  int fx = -1, ys = 0;
+  float tgt = inf;
+  if (qq < TA_BQ) {
+    found = q0 + qq >= Q || s_m[qq] == inf;
+    ys = s_y[qq] - y0;
+    tgt = s_t[qq];
+  }
+  if (!__syncthreads_and(found)) {
+    walk_x(sm, rows, d, Q, K1, K2, q0, y0, xa, xb,
+           [&](const float (*rs)[TA_BQ], const float (*ds)[TA_BY],
+               int x0) {
+             if (!found) {
+               for (int xx = 0; xx < TA_BX; ++xx) {
+                 if (rs[xx][qq] + ds[xx][ys] == tgt) {
+                   fx = x0 + xx;
+                   found = true;
+                   break;
+                 }
+               }
+             }
+             return __syncthreads_and(found) != 0;
+           });
+  }
+  if (qq < TA_BQ && q0 + qq < Q) {
+    const size_t o = (size_t)(q0 + qq) * (gridDim.x * gridDim.z) +
+                     (size_t)blockIdx.x * gridDim.z + blockIdx.z;
+    part[o] = s_m[qq];
+    pwit[o] = (long long)s_y[qq] * (long long)K1 + (long long)fx;
+  }
+}
+
+#define TF_WARPS 4
+
+__global__ void __launch_bounds__(TF_WARPS * 32)
+twoside_argmin_finish(const float* __restrict__ part,
+                      const long long* __restrict__ pwit,
+                      float* __restrict__ out, int* __restrict__ wx,
+                      int* __restrict__ wy, int Q, int P, int K1) {
+  const int q = blockIdx.x * TF_WARPS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (q >= Q) return;                      // uniform across the warp
+  float m = __int_as_float(0x7f800000);
+  long long w = 0x7fffffffffffffffLL;
+  for (int p = lane; p < P; p += 32) {
+    const float v = part[(size_t)q * P + p];
+    const long long pw = pwit[(size_t)q * P + p];
+    if (v < m || (v == m && pw < w)) {
+      m = v;
+      w = pw;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float om = __shfl_xor_sync(0xffffffffu, m, off);
+    const long long ow = __shfl_xor_sync(0xffffffffu, w, off);
+    if (om < m || (om == m && ow < w)) {
+      m = om;
+      w = ow;
+    }
+  }
+  if (lane == 0) {
+    const bool fin = m != __int_as_float(0x7f800000);
+    out[q] = m;
+    wx[q] = fin ? (int)(w % K1) : -1;
+    wy[q] = fin ? (int)(w / K1) : -1;
   }
 }
 
 extern "C" {
 
-// rows f32 [Q, K1], d f32 [K1, K2], rowt f32 [Q, K2] ->
-// part f32 [Q, ceil(K2 / TA_BY)], pwit int64 [same]: per y-tile the
-// minimum and its packed witness y * K1 + x (meaningless where the
-// partial is +inf).
+// rows f32 [Q, K1], d f32 [K1, K2], rowt f32 [Q, K2] -> out f32 [Q],
+// wx, wy int32 [Q].  part f32 and pwit int64, each
+// [Q, ceil(K2 / TA_BY) * splits], are scratch.  splits >= 1 cuts the x
+// range into contiguous runs of whole 32-deep tiles.
 int minplus_twoside_argmin(const void* rows, const void* d,
-                           const void* rowt, void* part, void* pwit, int Q,
-                           int K1, int K2, void* stream) {
-  if (Q <= 0 || K2 <= 0) return (int)cudaSuccess;
-  const dim3 grid((K2 + TA_BY - 1) / TA_BY, (Q + TA_BQ - 1) / TA_BQ);
-  twoside_argmin_kernel<<<grid, TA_TQ * TA_TY, 0, (cudaStream_t)stream>>>(
-      (const float*)rows, (const float*)d, (const float*)rowt,
-      (float*)part, (long long*)pwit, Q, K1, K2);
+                           const void* rowt, void* part, void* pwit,
+                           void* out, void* wx, void* wy, int Q, int K1,
+                           int K2, int splits, void* stream) {
+  if (Q <= 0) return (int)cudaSuccess;
+  if (splits < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int ytiles = (K2 + TA_BY - 1) / TA_BY;
+  const int xtiles = (K1 + TA_BX - 1) / TA_BX;
+  const int xper = ((xtiles + splits - 1) / splits) * TA_BX;
+  if (ytiles > 0) {
+    const dim3 grid(ytiles, (Q + TA_BQ - 1) / TA_BQ, splits);
+    twoside_argmin_kernel<<<grid, TA_THREADS, 0, st>>>(
+        (const float*)rows, (const float*)d, (const float*)rowt,
+        (float*)part, (long long*)pwit, Q, K1, K2, xper);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  twoside_argmin_finish<<<(Q + TF_WARPS - 1) / TF_WARPS, TF_WARPS * 32, 0,
+                          st>>>((const float*)part, (const long long*)pwit,
+                                (float*)out, (int*)wx, (int*)wy, Q,
+                                ytiles * splits, K1 > 0 ? K1 : 1);
   return (int)cudaGetLastError();
 }
 

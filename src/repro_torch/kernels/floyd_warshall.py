@@ -5,11 +5,15 @@ Witness FW, port of ``repro/kernels/floyd_warshall.py:
 fw_batch_next_pallas``: the kernel is ``csrc/fw_next.cu`` and its plain
 version ``ref.fw_batch_next_ref``.  ``d[b, n, n]`` (float32, +inf = no
 edge) -> ``(dist, nxt)``, array-equal to the plain version in both
-outputs.  Two launch shapes, chosen by n: ``fw_next_smem`` keeps a whole
-matrix in shared memory (one block per matrix, n <= 160: fragments and
-piece buckets at road4000), ``fw_next_global`` runs one launch per pivot
-over the batch in device memory (larger fragments, the SUPER overlay,
-the hierarchy's group closures, the large piece buckets).
+outputs.  Two launch shapes on the main path, chosen by n:
+``fw_next_smem`` keeps a whole matrix in shared memory (one block per
+matrix, taken up to n = SMEM_DISPATCH_N: the small piece buckets),
+``fw_next_blocked`` runs the exact blocked schedule (two launches per
+k-block of 32 pivots over the batch, ``ref.fw_batch_next_blocked_ref``
+models it) for the fragments, the SUPER overlay, the hierarchy's
+group closures and the large piece buckets.  ``fw_next_global``, one
+launch per pivot, left the main path with the blocked variant and stays
+callable so the two can be timed side by side.
 
 Distance-only FW, port of ``fw_batch_pallas``: the kernel is
 ``csrc/fw_dist.cu`` (shared memory up to n = 240, one launch per pivot
@@ -34,6 +38,10 @@ _SIG_DIST = [_VP, _VP, ctypes.c_int, ctypes.c_int, _VP]
 #: largest n the shared-memory variant takes (FW_SMEM_MAX_N in the .cu):
 #: 160 * 160 cells * 8 bytes = 200 KB of the 227 KB a block may use
 SMEM_MAX_N = 160
+#: largest n dispatched to the shared-memory variant: on the H100 it beat
+#: the blocked one at n = 64 and below and lost at n = 128 and 160
+#: (``chip_smoke.py`` times both at each of those shapes)
+SMEM_DISPATCH_N = 64
 #: the same for distance-only FW (FWD_SMEM_MAX_N in fw_dist.cu):
 #: 240 * 240 cells * 4 bytes = 225 KB
 DIST_SMEM_MAX_N = 240
@@ -45,6 +53,11 @@ def _lib() -> ctypes.CDLL:
         for fn in (lib.fw_next_smem, lib.fw_next_global):
             fn.argtypes = _SIG
             fn.restype = ctypes.c_int
+        lib.fw_next_blocked.argtypes = [_VP, _VP, _VP, _VP, ctypes.c_int,
+                                        ctypes.c_int, _VP]
+        lib.fw_next_blocked.restype = ctypes.c_int
+        lib.fw_next_blocked_scratch.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.fw_next_blocked_scratch.restype = ctypes.c_size_t
     return lib
 
 
@@ -104,16 +117,39 @@ def fw_next_global_cuda(d: torch.Tensor) -> tuple[torch.Tensor,
     return out
 
 
+def fw_next_blocked_cuda(d: torch.Tensor) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """Blocked variant: 1 + 2 * ceil(n / 32) launches, any n; scratch
+    from ``torch.empty`` (the kernel allocates nothing)."""
+    b, n = _check(d)
+    lib = _lib()
+    dist = torch.empty_like(d)
+    nxt = torch.empty(d.shape, dtype=torch.int32, device=d.device)
+    scratch = torch.empty(lib.fw_next_blocked_scratch(b, n),
+                          dtype=torch.uint8, device=d.device)
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fw_next_blocked(d.data_ptr(), dist.data_ptr(),
+                                  nxt.data_ptr(), scratch.data_ptr(), b, n,
+                                  stream)
+    if err != 0:
+        raise RuntimeError(f"fw_next_blocked launch failed: CUDA error "
+                           f"{err}")
+    fw_next_blocked_cuda.launches += 1
+    return dist, nxt
+
+
 fw_next_smem_cuda.launches = 0
 fw_next_global_cuda.launches = 0
+fw_next_blocked_cuda.launches = 0
 
 
 def fw_batch_next_cuda(d: torch.Tensor) -> tuple[torch.Tensor,
                                                   torch.Tensor]:
     """Batched witness APSP on the card, variant chosen by n."""
-    if d.shape[-1] <= SMEM_MAX_N:
+    if d.shape[-1] <= SMEM_DISPATCH_N:
         return fw_next_smem_cuda(d)
-    return fw_next_global_cuda(d)
+    return fw_next_blocked_cuda(d)
 
 
 def fw_batch_cuda(d: torch.Tensor) -> torch.Tensor:

@@ -288,6 +288,7 @@ def test_cpu_dispatch_runs_plain_versions_and_counts_nothing():
     def counts():
         return (floyd_warshall.fw_next_smem_cuda.launches,
                 floyd_warshall.fw_next_global_cuda.launches,
+                floyd_warshall.fw_next_blocked_cuda.launches,
                 minplus_twoside.minplus_twoside_cuda.launches,
                 floyd_warshall.fw_batch_cuda.launches,
                 minplus.minplus_cuda.launches,
@@ -310,6 +311,8 @@ def test_cpu_dispatch_runs_plain_versions_and_counts_nothing():
     assert not ops.use_kernel("cpu") and not ops.use_kernel("cpu", "ref")
     with pytest.raises(ValueError, match="CUDA"):
         floyd_warshall.fw_batch_next_cuda(d)
+    with pytest.raises(ValueError, match="CUDA"):
+        floyd_warshall.fw_next_blocked_cuda(d)
     with pytest.raises(ValueError, match="CUDA"):
         minplus_twoside.minplus_twoside_cuda(d[0], d[0], d[0])
     with pytest.raises(ValueError, match="CUDA"):
@@ -352,6 +355,29 @@ def test_fw_kernel_matches_plain_on_card(cuda_device, b, n):
     got = ops.fw_batch_next(d)
     want = ops.fw_batch_next(d, force="ref")
     for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,kind", [(1, 1, "ragged"), (2, 64, "ties"),
+                                      (3, 65, "ragged"), (2, 161, "ties"),
+                                      (4, 200, "ragged"), (1, 517, "ties"),
+                                      (130, 96, "ties")])
+def test_fw_blocked_kernel_matches_plain_on_card(cuda_device, b, n, kind):
+    """The blocked witness FW, dist and nxt array-equal to the serial
+    plain version: ragged n, tie-heavy values from {0, 1, 2} with 60%
+    +inf, an all-+inf batch entry."""
+    rng = np.random.default_rng(b * 7 + n)
+    if kind == "ties":
+        d = _int_inf((b, n, n), rng, inf_frac=0.6, hi=3)
+    else:
+        d = _int_inf((b, n, n), rng)
+    d[b - 1] = np.inf
+    d = torch.from_numpy(d).to(cuda_device)
+    before = floyd_warshall.fw_next_blocked_cuda.launches
+    got = floyd_warshall.fw_next_blocked_cuda(d)
+    assert floyd_warshall.fw_next_blocked_cuda.launches == before + 1
+    for g, w in zip(got, ops.fw_batch_next(d, force="ref")):
         assert torch.equal(g, w)
 
 
@@ -401,13 +427,16 @@ def test_fw_apsp_kernels_match_plain_on_card(cuda_device, n, block):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("q,k1,k2,kind", ARGMIN_CASES + [
-    (1024, 480, 480, "ragged"), (64, 1712, 1712, "ties")])
+    (1024, 480, 480, "ragged"), (64, 1712, 1712, "ties"),
+    (16, 1000, 1000, "ties"), (3, 2000, 50, "inf"), (1, 300, 4614, "ties")])
 def test_twoside_argmin_kernel_matches_plain_on_card(cuda_device, q, k1, k2,
                                                      kind):
     args = [torch.from_numpy(x).to(cuda_device)
             for x in _argmin_input(q, k1, k2, kind)]
-    for g, w in zip(ops.minplus_twoside_argmin(*args),
-                    ops.minplus_twoside_argmin(*args, force="ref")):
+    got = ops.minplus_twoside_argmin(*args)
+    assert [g.dtype for g in got] == [torch.float32, torch.int32,
+                                      torch.int32]
+    for g, w in zip(got, ops.minplus_twoside_argmin(*args, force="ref")):
         assert torch.equal(g, w)
 
 
