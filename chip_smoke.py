@@ -12,19 +12,22 @@ prints no result.  Phases, each of which must pass:
   2. hold each kernel against its plain PyTorch version on the card,
      array-equal, on integer-valued float32 inputs with ~20% +inf at
      shapes that are not tile multiples (and all-+inf blocks), timing
-     kernel and plain version with CUDA events: the witness FW at the
+     kernel and plain version with CUDA events and, but for the
+     per-pivot FW, the profiler's device time: the witness FW at the
      dense path's shapes, road64k's fragments ([130, 496, 496], out of
      L2) and the hierarchy's group closures ([6 and 3, 1024, 1024]),
      ragged n, tie-heavy values and all-+inf blocks, each shape timed
      for the blocked kernel beside the shared-memory one (n <= 160) or
-     the per-pivot one it replaced (above); the twoside combine at the
-     dense and top-closure shapes (S_top+1 = 1712), the distance-only
-     FW, the (min,+) products with and without accumulation, the whole
-     blocked APSP (``ops.fw_apsp``), the witness twoside argmin (out, wx
-     and wy array-equal; tie-heavy values from {0, 1, 2}, and
-     road4000's serve-shaped scattered boundary rows at q = 16 and
-     1,024, sorted and tie-heavy variants included, with the share of
-     rows tiles the kernel cannot skip) and the hub-label merge;
+     the per-pivot one it replaced (above); the dense twoside
+     contraction at the dense and top-closure shapes (S_top+1 = 1712)
+     through the grouped kernel's identity tables; the distance-only FW, the
+     (min,+) products with and without accumulation, the whole blocked
+     APSP (``ops.fw_apsp``), the witness twoside argmin (out, wx and wy
+     array-equal; tie-heavy values from {0, 1, 2}, and road4000's
+     serve-shaped scattered boundary rows at q = 16 and 1,024, sorted
+     and tie-heavy variants included, with the share of rows tiles the
+     kernel cannot skip) and the hub-label merge (timed over input
+     copies larger than the L2);
   3. small end-to-end references: road_like(900) with 96 seeded hub
      nodes, built and served on the card, equals the same run on the
      CPU (plain versions), table for table (hub tables and sidecars
@@ -48,13 +51,24 @@ prints no result.  Phases, each of which must pass:
      4,096 random pairs of hub nodes, the hub-gated pairs through
      ``query_hub`` (== ``query``, 32 == Dijkstra); counters zeroed just
      before and read just after;
-  7. the ``kernels`` JSON line (launches summed over the main paths of
-     phases 4 and 6, which must launch the blocked witness FW and never
-     the per-pivot one; times and bounds from phase 2), the card's name
-     and power limit from nvidia-smi, and the ``{"ok": true, ...}``
-     line last.
+  7. the grouped twoside kernel (compact rows through id tables)
+     array-equal to its plain version: random operands in both regimes
+     (ragged, all-+inf rows, ties, duplicate and sentinel ids, one
+     query's table row each, 32 or 100 entries wide, or a few shared
+     ones) and the operands the road4000 and road64k planners hand it
+     for a batch of 1,024 (cross_frag at both, road64k's cross_res),
+     bounds counted from each input's own finite cells;
+  8. the ``kernels`` JSON line (launches summed over the main paths of
+     phases 4 and 6, which must launch the blocked witness FW and the
+     grouped twoside and never the per-pivot FW; times and bounds from
+     phases 2 and 7), the card's name and power limit from nvidia-smi,
+     and the ``{"ok": true, ...}`` line last.
 
-Details of every case go to ``chiprun_out/chip_smoke.json``.
+Details of every case go to ``chiprun_out/chip_smoke.json``, with the
+tally of the profiler windows behind every device time.  The old
+twoside path (rows scattered at their ids, then the first dense kernel)
+is timed against the grouped kernel by ``scripts/kernel_ab.py
+--twoside`` on a parent checkout.
 """
 from __future__ import annotations
 
@@ -93,22 +107,55 @@ def _time_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+#: profiler windows behind every ``_device_ms`` reading: all, those that
+#: saw no kernel, those that saw fewer kernels than another window of
+#: the same reading (left out of it), and, for each reading with such a
+#: window, its ordinal and the kernels each window saw
+WINDOWS = {"readings": 0, "windows": 0, "empty": 0, "partial": 0,
+           "drops_at": []}
+#: seconds a profiler window waits before its first launch and after its
+#: last kernel
+_SETTLE_S = 0.005
+
+
 def _device_ms(fn, reps: int) -> float | None:
     """Device time per call of ``fn``: the summed time of every kernel it
     launches, from torch.profiler's CUDA activity (host enqueue gaps
-    excluded, unlike ``_time_ms``); None if the profiler saw none."""
+    excluded, unlike ``_time_ms``).  Each window waits ``_SETTLE_S``
+    after the profiler starts and after its last kernel ends, so that no
+    launch races the profiler's start or stop.  A window can still see
+    fewer kernels than the others (cause not found): of three windows,
+    the median of those that saw the most kernels (tallied in
+    ``WINDOWS``); None if none saw any."""
+    import statistics
+
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(float(getattr(e, "self_device_time_total", 0.0) or 0.0)
-             for e in prof.key_averages()
-             if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    return us / reps / 1e3 if us > 0 else None
+    seen = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(_SETTLE_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(_SETTLE_S)
+        ev = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        us = sum(float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+                 for e in ev)
+        seen.append((sum(e.count for e in ev), us / reps / 1e3))
+    most = max(n for n, _ in seen)
+    WINDOWS["readings"] += 1
+    WINDOWS["windows"] += 3
+    WINDOWS["empty"] += sum(n == 0 for n, _ in seen)
+    WINDOWS["partial"] += sum(0 < n < most for n, _ in seen)
+    if any(n < most for n, _ in seen):
+        WINDOWS["drops_at"].append([WINDOWS["readings"]]
+                                   + [n for n, _ in seen])
+    return (statistics.median(ms for n, ms in seen if n == most)
+            if most else None)
 
 
 def _int_inf(shape, rng, inf_frac=0.2):
@@ -149,7 +196,8 @@ def _check_fw(cases, out):
     plain version, dist and nxt array-equal, each timed in this call:
     n <= SMEM_MAX_N the shared-memory kernel and the blocked one, above
     it the blocked kernel (the main path's) and the per-pivot one it
-    replaced."""
+    replaced (CUDA events; device time too, but for the per-pivot
+    kernel, off the main path)."""
     import torch
     from repro_torch.kernels import floyd_warshall as fw
     from repro_torch.kernels import ops
@@ -172,11 +220,19 @@ def _check_fw(cases, out):
                 "kind": kind, "dist_equal": dist_ok, "nxt_equal": nxt_ok,
                 "max_abs_err": _max_abs_err(got[0], want[0]),
                 "ms": _time_ms(lambda: kernel(d), 2 if big else 10),
+                "device_ms": (None if kernel is fw.fw_next_global_cuda
+                              else _device_ms(lambda: kernel(d),
+                                              2 if big else 10)),
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by},
                 dist_ok and nxt_ok)
 
 
 def _check_twoside(cases, out):
+    """(label, q, k, inf_frac): the dense contraction on the card, the
+    grouped kernel with identity tables (``minplus_twoside_cuda``),
+    array-equal to the plain version."""
+    import functools
+
     import numpy as np
     import torch
     from repro_torch.kernels import minplus_twoside as ts
@@ -190,24 +246,21 @@ def _check_twoside(cases, out):
         want = ops.minplus_twoside(rows, d, rowt, force="ref")
         torch.cuda.synchronize()
         ok = torch.equal(got, want)
-        err = _max_abs_err(got, want)
-        ms = _time_ms(lambda: ts.minplus_twoside_cuda(rows, d, rowt), 10)
-        plain_ms = _time_ms(
-            lambda: ops.minplus_twoside(rows, d, rowt, force="ref"), 2)
+        kern = functools.partial(ts.minplus_twoside_cuda, rows, d, rowt)
         # work this data needs: (q, x, y) triples whose three terms are
         # all finite (the +inf ones cannot move a min), 2 ops each
         fin = [torch.isfinite(x).double() for x in (rows, d, rowt)]
         triples = float(((fin[0] @ fin[1]) * fin[2]).sum())
         nbytes = 4.0 * (rows.numel() + d.numel() + rowt.numel() + q)
         bound, by = _bound_ms(nbytes, 2.0 * triples)
-        rec = {"case": label, "kernel": "minplus_twoside_cuda", "q": q,
-               "k": k, "equal": ok, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-               "finite_triples": triples}
-        print(f"  {label}: {rec}")
-        out.append(rec)
-        if not ok:
-            raise AssertionError(f"{label}: kernel != plain version")
+        _record(out, {
+            "case": label, "kernel": "minplus_twoside_cuda", "q": q, "k": k,
+            "equal": ok, "max_abs_err": _max_abs_err(got, want),
+            "ms": _time_ms(kern, 10), "device_ms": _device_ms(kern, 10),
+            "plain_ms": _time_ms(lambda: ops.minplus_twoside(
+                rows, d, rowt, force="ref"), 2),
+            "bound_ms": bound, "bound_by": by, "finite_triples": triples},
+            ok)
 
 
 _ROAD4000: dict = {}
@@ -318,9 +371,16 @@ def _check_twoside_argmin(cases, out):
             ok)
 
 
+#: bytes of inputs a timed call cycles through, so each call finds its
+#: own inputs out of the card's 50 MB L2 (as a serve batch finds them)
+_COLD_BYTES = 128 << 20
+
+
 def _check_label_merge(cases, out):
     """(label, q, w, inf_row): the label-merge kernel against its plain
-    version, array-equal."""
+    version, array-equal.  Timed over copies of the inputs larger than
+    the L2 together, one copy a call, so no call re-reads the last one's
+    inputs from L2."""
     import numpy as np
     import torch
     from repro_torch.kernels import label_merge as lm
@@ -338,15 +398,176 @@ def _check_label_merge(cases, out):
         torch.cuda.synchronize()
         ok = torch.equal(got, want)
         bound, by = _bound_ms(8.0 * q * w + 4.0 * q, 2.0 * q * w)
+        n = min(64, max(2, -(-_COLD_BYTES // (8 * q * w))))
+        copies = [(labs.clone(), labt.clone()) for _ in range(n)]
+        turn = iter(range(1 << 30))
+
+        def cold():
+            a, b = copies[next(turn) % n]
+            return lm.label_merge_cuda(a, b)
         _record(out, {
             "case": label, "kernel": "label_merge_cuda", "q": q, "w": w,
             "equal": ok, "max_abs_err": _max_abs_err(got, want),
-            "ms": _time_ms(lambda: lm.label_merge_cuda(labs, labt), 50),
-            "device_ms": _device_ms(lambda: lm.label_merge_cuda(labs, labt),
-                                    50),
+            "copies": n, "ms": _time_ms(cold, 50),
+            "device_ms": _device_ms(cold, 50),
+            "hot_device_ms": _device_ms(
+                lambda: lm.label_merge_cuda(labs, labt), 50),
             "plain_ms": _time_ms(lambda: ops.label_merge(labs, labt,
                                                          force="ref"), 10),
             "bound_ms": bound, "bound_by": by}, ok)
+
+
+#: (graph, index) of each main path, for the serve-shaped grouped cases
+_BUILT: dict = {}
+
+
+def _grouped_random(kind, q, m, k, groups, rng):
+    """Grouped operands on the card: rows [q, m] and id tables into a
+    [k, k] closure whose last row and column are +inf (the sentinel
+    id), integers with ~20% +inf.  ``groups`` table rows per side (0: one
+    per query, as the dense call site passes them); kinds "all-inf"
+    (every other row_s and every fourth row_t all +inf), "ties" (values
+    from {0, 1, 2}, no +inf), "dup" (ids from a range of 9, a third of
+    each table row the sentinel, row_t 40 entries wide)."""
+    import numpy as np
+    import torch
+    hi, frac = (3, 0.0) if kind == "ties" else (100, 0.2)
+
+    def ints(shape):
+        x = rng.integers(0, hi, size=shape).astype(np.float32)
+        x[rng.random(shape) < frac] = np.inf
+        return x
+    mt = 40 if kind == "dup" else m
+    d = ints((k, k))
+    d[k - 1], d[:, k - 1] = np.inf, np.inf
+    ns = nt = groups or q
+    top = 9 if kind == "dup" else k - 1
+    tab_s = rng.integers(0, top, (ns, m)).astype(np.int32)
+    tab_t = rng.integers(0, top, (nt, mt)).astype(np.int32)
+    if kind == "dup":
+        tab_s[:, : m // 3], tab_t[:, : mt // 3] = k - 1, k - 1
+    row_s, row_t = ints((q, m)), ints((q, mt))
+    if kind == "all-inf":
+        row_s[::2], row_t[::4] = np.inf, np.inf
+    gs = (rng.integers(0, ns, q) if groups else np.arange(q)).astype(np.int64)
+    gt = (rng.integers(0, nt, q) if groups else np.arange(q)).astype(np.int64)
+    return tuple(torch.from_numpy(x).cuda() for x in (
+        row_s, gs, tab_s, d, row_t, gt, tab_t))
+
+
+def _capture_grouped(dix, n: int, seed: int) -> dict:
+    """The operands the planner (the card's default "scatter" layout)
+    hands ``ops.minplus_twoside_grouped`` for one batch of 1,024 random
+    pairs: the widest call of each call site, by site name."""
+    import numpy as np
+    from repro_torch.core.dist_engine import QueryPlanner
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(seed)
+    s, t = rng.integers(0, n, 1024), rng.integers(0, n, 1024)
+    calls: dict = {}
+    real = ops.minplus_twoside_grouped
+
+    def record(*args, force=None):
+        site = sys._getframe(1).f_code.co_name
+        if site not in calls or args[0].shape[0] > calls[site][0].shape[0]:
+            calls[site] = tuple(a.clone() for a in args)
+        return real(*args, force=force)
+    ops.minplus_twoside_grouped = record
+    try:
+        QueryPlanner(dix).query(s, t)
+    finally:
+        ops.minplus_twoside_grouped = real
+    return calls
+
+
+def _grouped_work(args) -> tuple[float, float]:
+    """(bytes, finite cells) the grouped contraction of ``args`` needs:
+    rows, tables, groups and the answer once, and each closure cell some
+    query's table pair reaches once; the (q, i, j) cells whose three
+    terms are all finite (an +inf term cannot move a min)."""
+    import torch
+    row_s, gs, tab_s, d, row_t, gt, tab_t = args
+    q = row_s.shape[0]
+    fs, ft = torch.isfinite(row_s).double(), torch.isfinite(row_t).double()
+    ids_s, ids_t = tab_s[gs].long(), tab_t[gt].long()
+    cells = 0.0
+    for i in range(0, q, 64):
+        blk = torch.isfinite(d[ids_s[i:i + 64, :, None],
+                               ids_t[i:i + 64, None, :]]).double()
+        cells += float(torch.einsum("qi,qij,qj->", fs[i:i + 64], blk,
+                                    ft[i:i + 64]))
+    reach = torch.zeros(d.shape, dtype=torch.bool, device=d.device)
+    for a, b in torch.unique(torch.stack([gs, gt]), dim=1).T.tolist():
+        reach[tab_s[a].long()[:, None], tab_t[b].long()[None, :]] = True
+    nbytes = (4.0 * (row_s.numel() + row_t.numel() + tab_s.numel()
+                     + tab_t.numel() + q) + 16.0 * q
+              + 4.0 * float(reach.sum()))
+    return nbytes, cells
+
+
+def _check_twoside_grouped(cases, out):
+    """(label, operands): the grouped kernel against its plain version,
+    array-equal, timed by CUDA events and device time."""
+    import functools
+
+    import torch
+    from repro_torch.kernels import minplus_twoside as ts
+    from repro_torch.kernels import ops
+    for label, args in cases:
+        row_s, gs, tab_s, d, row_t, gt, tab_t = args
+        got = ts.minplus_twoside_grouped_cuda(*args)
+        want = ops.minplus_twoside_grouped(*args, force="ref")
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want)
+        kern = functools.partial(ts.minplus_twoside_grouped_cuda, *args)
+        nbytes, cells = _grouped_work(args)
+        bound, by = _bound_ms(nbytes, 2.0 * cells)
+        regime, sort, splits = ts.grouped_plan(
+            row_s.shape[0], row_s.shape[1], row_t.shape[1], tab_s.shape[0],
+            tab_t.shape[0])
+        _record(out, {
+            "case": label, "kernel": "minplus_twoside_grouped_cuda",
+            "q": row_s.shape[0], "width_s": row_s.shape[1],
+            "width_t": row_t.shape[1],
+            "k": d.shape[0], "table_rows": [tab_s.shape[0], tab_t.shape[0]],
+            "live_pairs": int(torch.unique(torch.stack([gs, gt]),
+                                           dim=1).shape[1]),
+            "regime": regime, "sorted": sort, "splits": splits,
+            "equal": ok, "max_abs_err": _max_abs_err(got, want),
+            "ms": _time_ms(kern, 20), "device_ms": _device_ms(kern, 20),
+            "plain_ms": _time_ms(lambda: ops.minplus_twoside_grouped(
+                *args, force="ref"), 2),
+            "bound_ms": bound, "bound_by": by, "finite_cells": cells,
+            "cells": float(row_s.shape[0] * row_s.shape[1] * row_t.shape[1]),
+            "bytes": nbytes}, ok)
+
+
+def _grouped_cases() -> list:
+    """Random operands in both regimes, then the serve-shaped ones
+    captured from the road4000 and road64k main paths' indexes (the
+    cross_frag bucket's dense or hierarchical combine, and road64k's
+    cross_res bucket)."""
+    import numpy as np
+    rng = np.random.default_rng(15)
+    cases = [(f"grouped {kind} q={q} m={m} G={g or 'q'} K={k}",
+              _grouped_random(kind, q, m, k, g, rng))
+             for kind, q, m, k, g in (
+                 ("ragged", 1024, 32, 480, 0), ("ties", 1024, 48, 480, 0),
+                 ("all-inf", 256, 64, 480, 0), ("ragged", 1024, 100, 1712, 0),
+                 ("ragged", 1024, 592, 1712, 4), ("ties", 512, 300, 1712, 6),
+                 ("all-inf", 256, 592, 1712, 4), ("dup", 300, 100, 1712, 5),
+                 ("ragged", 16, 592, 1712, 4))]
+    g4, dix4 = _BUILT["road4000"]
+    calls = _capture_grouped(dix4, g4.n, 21)
+    cases.append(("serve road4000 cross_frag (_combine_mid)",
+                  calls["_combine_mid"]))
+    g64, dix64 = _BUILT["road64k"]
+    calls = _capture_grouped(dix64, g64.n, 21)
+    cases.append(("serve road64k cross_frag (_combine_mid_h)",
+                  calls["_combine_mid_h"]))
+    cases.append(("serve road64k cross_res (serve_cross_res)",
+                  calls["serve_cross_res"]))
+    return cases
 
 
 def _finite_triples(a, b) -> float:
@@ -385,6 +606,7 @@ def _check_fw_batch(cases, out):
             "equal": torch.equal(got, want),
             "max_abs_err": _max_abs_err(got, want),
             "ms": _time_ms(lambda: fw.fw_batch_cuda(d), 10),
+            "device_ms": _device_ms(lambda: fw.fw_batch_cuda(d), 10),
             "plain_ms": _time_ms(lambda: ops.fw_batch(d, force="ref"), 2),
             "bound_ms": bound, "bound_by": by}, torch.equal(got, want))
 
@@ -426,7 +648,8 @@ def _check_minplus(cases, out):
             "kernel": "minplus_accum_cuda" if accum else "minplus_cuda",
             "m": m, "k": k, "n": n, "equal": ok,
             "max_abs_err": _max_abs_err(got, want),
-            "ms": _time_ms(kern, 20), "plain_ms": _time_ms(plain, 2),
+            "ms": _time_ms(kern, 20), "device_ms": _device_ms(kern, 20),
+            "plain_ms": _time_ms(plain, 2),
             "bound_ms": bound, "bound_by": by,
             "finite_triples": triples}, ok)
 
@@ -458,7 +681,8 @@ def _check_fw_apsp(cases, out):
 KERNELS = (("fw_next_smem", "floyd_warshall", "fw_next_smem_cuda"),
            ("fw_next_blocked", "floyd_warshall", "fw_next_blocked_cuda"),
            ("fw_next_global", "floyd_warshall", "fw_next_global_cuda"),
-           ("minplus_twoside", "minplus_twoside", "minplus_twoside_cuda"),
+           ("minplus_twoside_grouped", "minplus_twoside",
+            "minplus_twoside_grouped_cuda"),
            ("fw_batch", "floyd_warshall", "fw_batch_cuda"),
            ("minplus_accum", "minplus", "minplus_accum_cuda"),
            ("minplus", "minplus", "minplus_cuda"),
@@ -651,6 +875,7 @@ def _main_path(graph: str, validate: int, sources=(), path_args=(),
         hubs = np.random.default_rng(11).choice(n, n_hubs, replace=False)
     _reset_counts()
     g, dix, plan, summary = serve.build(args, hub_nodes=hubs)
+    _BUILT[graph] = (g, dix)
     res = serve.serve(args, g, dix, summary, plan)
     if n_hubs:
         res["hub"] = _hub_check(g, dix, hubs)
@@ -725,6 +950,7 @@ def main() -> int:
     ts_cases: list = []
     new_cases: list = []
     slice3_cases: list = []
+    grouped_cases: list = []
 
     def phase(name, fn):
         print(f"== {name}", flush=True)
@@ -830,9 +1056,14 @@ def main() -> int:
         "road64k", 32, sources=(0, 31_000, 61_000),
         path_args=("--path-batches", "1", "--path-batch-size", "16"),
         n_hubs=2048))
+    phase("twoside_grouped", lambda: _check_twoside_grouped(
+        _grouped_cases(), grouped_cases))
 
     report["fw_cases"], report["ts_cases"] = fw_cases, ts_cases
     report["new_cases"], report["slice3_cases"] = new_cases, slice3_cases
+    report["grouped_cases"] = grouped_cases
+    report["profiler_windows"] = WINDOWS
+    print(f"profiler windows: {WINDOWS}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -857,15 +1088,17 @@ def main() -> int:
     try:
         _require_launched(report["road4000"], "road4000",
                           ("fw_next_smem", "fw_next_blocked",
-                           "minplus_twoside", "minplus_twoside_argmin"))
+                           "minplus_twoside_grouped",
+                           "minplus_twoside_argmin"))
         _require_launched(report["road64k"], "road64k",
                           ("fw_batch", "minplus_accum", "minplus",
-                           "fw_next_blocked", "minplus_twoside",
+                           "fw_next_blocked", "minplus_twoside_grouped",
                            "minplus_twoside_argmin", "label_merge"))
         launches = {name: report["road4000"]["launches"][name]
                     + report["road64k"]["launches"][name]
                     for name, _m, _a in KERNELS}
-        # the per-pivot FW left the main path: timed beside, never run
+        # the per-pivot FW left the main path: timed beside its
+        # replacement, never run there
         if launches.pop("fw_next_global"):
             raise AssertionError("main paths launched fw_next_global")
         _require_launched({"launches": launches}, "main paths",
@@ -891,7 +1124,8 @@ def main() -> int:
                                 "fw_next_global_cuda"),
          "src/repro_torch/csrc/fw_next.cu",
          "src/repro/kernels/floyd_warshall.py:97"),
-        ("minplus_twoside", pick(ts_cases, "q=1024 S+1=4614"),
+        ("minplus_twoside_grouped",
+         pick(grouped_cases, "serve road64k cross_res (serve_cross_res)"),
          "src/repro_torch/csrc/minplus_twoside.cu",
          "src/repro/kernels/minplus_twoside.py:89"),
         ("fw_batch", pick(new_cases, "fw_batch b=1 n=128"),

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the witness kernels of one checkout, for before/after pairs.
+"""Time the kernels of one checkout, for before/after pairs.
 
     python3 scripts/kernel_ab.py --src SRC_DIR --tag NAME [--road64k]
+                                 [--serve] [--twoside FILE]
 
 Needs one NVIDIA card and ``nvcc``.  Imports ``repro_torch`` from
 ``SRC_DIR`` (the ``src`` directory of this checkout, or of an unpacked
@@ -15,7 +16,22 @@ profiler's device time:
   * ``ops.fw_batch_next`` (whichever variant the checkout dispatches)
     at [6, 1024, 1024], [130, 496, 496] and [1, 4613, 4613];
   * with ``--road64k``, the road64k device build at its preset's 3
-    levels: ``plan.build_timings`` (frag_stage, sf_stage_l1/l2, ...).
+    levels: ``plan.build_timings`` (frag_stage, sf_stage_l1/l2, ...);
+  * with ``--serve``, the distance serving of road4000 (dense) and
+    road64k (its preset's 3 levels) through the checkout's
+    ``launch.serve`` entry points: the median of 20 batches of 1,024
+    random pairs (host clock, each batch ending in its host copy) and
+    the planner's buckets;
+  * with ``--twoside FILE``, the twoside distance combine (CUDA events
+    and device time, answers against the plain version): on dense rows
+    (``ops.minplus_twoside``) at q = 16 and 1,024 against 480, 1,712
+    and 4,614, and on the operands the road4000 and road64k planners
+    hand ``ops.minplus_twoside_grouped`` for a batch of 1,024 (the
+    widest call of each call site), kept in FILE.  A checkout that has
+    the grouped op runs it, and captures FILE from its own builds of
+    both graphs when FILE is missing (so time it first); an older one
+    scatters each row at its ids (the ids gathered beforehand) and runs
+    its dense ``ops.minplus_twoside``.
 
 Prints one JSON line tagged NAME and the card's name and power limit.
 """
@@ -32,6 +48,8 @@ sys.path.insert(0, str(_HERE.parent))
 
 ARGMIN = ((16, 480), (1024, 480), (16, 4614), (1024, 4614), (1024, 1712))
 FW = ((6, 1024), (130, 496), (1, 4613))
+TWOSIDE_DENSE = ((16, 480), (1024, 480), (1024, 1712), (16, 4614),
+                 (1024, 4614))
 
 
 def main() -> int:
@@ -39,6 +57,8 @@ def main() -> int:
     ap.add_argument("--src", required=True)
     ap.add_argument("--tag", required=True)
     ap.add_argument("--road64k", action="store_true")
+    ap.add_argument("--serve", action="store_true")
+    ap.add_argument("--twoside")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -47,7 +67,8 @@ def main() -> int:
         return 2
     # chip_smoke puts this checkout's src first on import: the checkout
     # timed goes in front of it after
-    from chip_smoke import _device_ms, _int_inf, _time_ms
+    from chip_smoke import (WINDOWS, _capture_grouped, _device_ms, _int_inf,
+                            _time_ms)
     sys.path.insert(0, str(Path(args.src).resolve()))
     from repro_torch.kernels import _build, ops
     _build.build()
@@ -76,12 +97,85 @@ def main() -> int:
         _dix, plan = build_device_index_with_plan(
             ix, device="cuda", hierarchy_levels=preset.hierarchy)
         rec["road64k_build_timings"] = dict(plan.build_timings)
+    grouped = hasattr(ops, "minplus_twoside_grouped")
+    capture = bool(args.twoside and grouped
+                   and not Path(args.twoside).exists())
+    if args.serve or capture:
+        from repro_torch.launch import serve
+        rec["serve"], captured = {}, {}
+        for graph in ("road4000", "road64k"):
+            sargs = serve.parse_args(["--graph", graph, "--batches", "20",
+                                      "--batch-size", "1024", "--validate",
+                                      "0", "--device", "cuda"])
+            g, dix, plan, summary = serve.build(sargs)
+            if args.serve:
+                res = serve.serve(sargs, g, dix, summary, plan)
+                rec["serve"][graph] = {k: res[k] for k in (
+                    "median_batch_ms", "us_per_query", "buckets",
+                    "peak_device_mb")}
+            if capture:
+                for site, ops_args in _capture_grouped(dix, g.n, 21).items():
+                    captured[f"{graph} {site}"] = tuple(a.cpu()
+                                                        for a in ops_args)
+            del dix
+            torch.cuda.empty_cache()
+        if capture:
+            torch.save(captured, args.twoside)
+    if args.twoside:
+        rec["twoside"] = _twoside(args.twoside, grouped, ops)
+        rec["profiler_windows"] = WINDOWS
     print(json.dumps(rec), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip())
     return 0
+
+
+def _scatter_combine(ops, de, row_s, ids_s, d, row_t, ids_t):
+    """The combine before the grouped op: each row scattered at its ids,
+    then the dense ``ops.minplus_twoside``."""
+    return ops.minplus_twoside(de._scatter_rows(row_s, ids_s, d.shape[0]), d,
+                               de._scatter_rows(row_t, ids_t, d.shape[1]))
+
+
+def _twoside(path: str, grouped: bool, ops) -> dict:
+    """The twoside distance combine of this checkout, timed on dense rows
+    and on the captured serve operands in ``path`` (see the module
+    note)."""
+    import functools
+
+    import numpy as np
+    import torch
+    from chip_smoke import _device_ms, _int_inf, _time_ms
+    from repro_torch.core import device_engine as de
+    out = {}
+    cases = []
+    for q, k in TWOSIDE_DENSE:
+        rng = np.random.default_rng(q * 31 + k)
+        dense = tuple(torch.from_numpy(_int_inf(s, rng)).cuda()
+                      for s in ((q, k), (k, k), (q, k)))
+        cases.append((f"dense q={q} k={k}",
+                      functools.partial(ops.minplus_twoside, *dense), dense))
+    for label, cpu_args in torch.load(path).items():
+        args = tuple(a.cuda() for a in cpu_args)
+        row_s, gs, tab_s, d, row_t, gt, tab_t = args
+        ids_s, ids_t = tab_s[gs].long(), tab_t[gt].long()
+        scattered = (de._scatter_rows(row_s, ids_s, d.shape[0]), d,
+                     de._scatter_rows(row_t, ids_t, d.shape[1]))
+        if grouped:
+            fn = functools.partial(ops.minplus_twoside_grouped, *args)
+        else:
+            fn = functools.partial(_scatter_combine, ops, de, row_s, ids_s,
+                                   d, row_t, ids_t)
+        cases.append((label, fn, scattered))
+    for label, fn, dense in cases:
+        got = fn()
+        want = ops.minplus_twoside(*dense, force="ref")
+        out[label] = {"equal": bool(torch.equal(got, want)),
+                      "q": dense[0].shape[0],
+                      "ms": _time_ms(fn, 20), "device_ms": _device_ms(fn, 20)}
+    return out
 
 
 if __name__ == "__main__":

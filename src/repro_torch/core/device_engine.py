@@ -24,10 +24,12 @@ Online (``serve_step``, or the planner's per-case programs):
   dist(s,t) = same-DRA answer                                (case 1)
             | d(s,u_s) + min(local, combine) + d(u_t,t)      (case 2)
   combine = min_{b1,b2} row_s[b1] + D_overlay[b1,b2] + row_t[b2],
-computed without a [q, mb, mb] block.  On the card the (top-level)
-boundary rows are scattered into closure coordinates and contracted by
-the fused ``minplus_twoside`` CUDA kernel; elsewhere chunked gathers
-keep the peak intermediate at [q, c, width] (``_chunk``).
+computed without a [q, mb, mb] block.  On the card the compact
+(top-level) boundary rows are contracted through their id tables by the
+grouped ``minplus_twoside`` CUDA kernel (``ops.minplus_twoside_grouped``:
+only the closure cells the rows can reach, where the reference scatters
+them over the whole closure for its TPU kernel); elsewhere chunked
+gathers keep the peak intermediate at [q, c, width] (``_chunk``).
 ``serve_one_to_all`` answers one source against every node through the
 ``minplus`` kernel.  The ``*_w`` programs return a witness beside each
 distance (the winning overlay pair from the ``minplus_twoside_argmin``
@@ -60,6 +62,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..kernels.ref import scatter_rows as _scatter_rows
 from ..obs import trace
 from . import hierarchy, padding
 from .supergraph import DislandIndex
@@ -995,10 +998,13 @@ def _carry_min(best, besti, block, offset: int):
 
 
 def _layout(device: torch.device, force, layout) -> str:
-    """The combine layout: "scatter" (dense rows contracted by the fused
-    twoside kernel) or "gather" (chunked gathers of the closure).  None
-    picks "scatter" where ``ops`` would run the kernel and "gather"
-    elsewhere, as the reference picks by its ``force``."""
+    """The combine layout: "scatter" (the reference's name for its fused
+    twoside kernel path; the distance programs run
+    ``ops.minplus_twoside_grouped`` on the compact rows there, the
+    witness programs the argmin kernel on scattered rows) or "gather"
+    (chunked gathers of the closure).  None picks "scatter" where
+    ``ops`` would run the kernel and "gather" elsewhere, as the
+    reference picks by its ``force``."""
     if layout is None:
         return "scatter" if ops.use_kernel(device, force) else "gather"
     if layout not in ("scatter", "gather"):
@@ -1071,14 +1077,6 @@ def _lift_compact(dix: DeviceIndex, li: int, row, grp, pos):
     return acc
 
 
-def _scatter_rows(row, ids, width: int):
-    """Scatter-min compact rows [q, mb] at column ids [q, mb] into dense
-    [q, width] rows (+inf elsewhere)."""
-    out = torch.full((row.shape[0], width), _INF, dtype=row.dtype,
-                     device=row.device)
-    return out.scatter_reduce_(1, ids, row, "amin")
-
-
 def _scatter_top(dix: DeviceIndex, row, ids):
     """Scatter a compact top-level row into dense d2 coordinates."""
     return _scatter_rows(row, ids, dix.d2.shape[0])
@@ -1115,9 +1113,10 @@ def _combine_mid_h(dix: DeviceIndex, row_s, bs, row_t, bt, *,
     level-l group (its closure answers exactly: the va legs), or the
     route crosses every level's boundary and the TOP closure answers
     against both rows lifted level by level (the vb leg).  The scatter
-    layout scatters both top rows dense and runs the fused
-    minplus_twoside (the kernel on the card); the gather layout stays
-    compact and gathers only each side's own top-group columns of d2
+    layout contracts both compact top rows through their TOP group's
+    ``bnd2_sid`` row (``ops.minplus_twoside_grouped``: the grouped kernel
+    on the card, scatter + dense contraction as its plain version); the
+    gather layout gathers only each side's own top-group columns of d2
     (``_top_mid_gather``).  Both give the same bits."""
     layout = _layout(row_s.device, force, layout)
     q = row_s.shape[0]
@@ -1135,13 +1134,14 @@ def _combine_mid_h(dix: DeviceIndex, row_s, bs, row_t, bt, *,
         # slot 0 is valid-first by construction, so its group IS the
         # side's group (sentinel-only rows land on the sentinel group,
         # whose bnd2_sid row is all-sentinel and whose rows are +inf)
-        ids_s = dix.bnd2_sid[li][grp_s[:, 0]].long()
-        ids_t = dix.bnd2_sid[li][grp_t[:, 0]].long()
+        top_s, top_t = grp_s[:, 0].contiguous(), grp_t[:, 0].contiguous()
+        ids_s = dix.bnd2_sid[li][top_s].long()
+        ids_t = dix.bnd2_sid[li][top_t].long()
         row_s, row_t = new_s, new_t
     if layout == "scatter":
-        vb = ops.minplus_twoside(_scatter_top(dix, row_s, ids_s), dix.d2,
-                                 _scatter_top(dix, row_t, ids_t),
-                                 force=force)
+        vb = ops.minplus_twoside_grouped(row_s, top_s, dix.bnd2_sid[-1],
+                                         dix.d2, row_t, top_t,
+                                         dix.bnd2_sid[-1], force=force)
     else:
         vb = _top_mid_gather(dix, row_s, ids_s, row_t, ids_t)
     return torch.minimum(va, vb)
@@ -1154,22 +1154,20 @@ def _combine_mid(dix: DeviceIndex, row_s, bs, row_t, bt, *, force=None,
 
     Hierarchical indices (non-empty ``sf_of``) route to
     ``_combine_mid_h``.  ``layout`` picks one of the reference's two
-    layouts (``_layout``): "scatter" scatter-mins the boundary rows into
-    SUPER coordinates (one O(q*mb) scatter each) and runs the fused
-    two-sided contraction against D_super (``ops.minplus_twoside``: the
-    CUDA kernel on the card, its plain version on the CPU); "gather"
-    chunks the b1 axis (``_chunk``) so the gathered block stays
-    [q, c, mb].
+    layouts (``_layout``): "scatter" contracts the compact boundary rows
+    against D_super through their super ids, each query its own table
+    row (``ops.minplus_twoside_grouped``: the grouped CUDA kernel on the
+    card; on the CPU its plain version, which scatter-mins the rows into
+    SUPER coordinates and runs the dense contraction); "gather" chunks
+    the b1 axis (``_chunk``) so the gathered block stays [q, c, mb].
     """
     if len(dix.sf_of):
         return _combine_mid_h(dix, row_s, bs, row_t, bt, force=force,
                               layout=layout)
     if _layout(row_s.device, force, layout) == "scatter":
-        s1 = dix.d_super.shape[0]
-        return ops.minplus_twoside(_scatter_rows(row_s, bs.long(), s1),
-                                   dix.d_super,
-                                   _scatter_rows(row_t, bt.long(), s1),
-                                   force=force)
+        qi = torch.arange(row_s.shape[0], device=row_s.device)
+        return ops.minplus_twoside_grouped(row_s, qi, bs, dix.d_super,
+                                           row_t, qi, bt, force=force)
     q, mb = row_s.shape
     c = _chunk(row_s, mb)
     bs, bt = bs.long(), bt.long()
@@ -1442,23 +1440,19 @@ def serve_hub(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
     return torch.where(valid, d, _INF)
 
 
-def _lift_res(dix: DeviceIndex, row, pos, ridx, cols=None):
-    """Resident lift: rs[q, c] = min_b row[q, b] +
-    res_rows[ridx, pos_b, c], the whole per-level lift ladder collapsed
-    into one chunked gather against the pre-composed rows.  With
-    ``cols`` ([q, w] d2 column ids) the output is restricted to those
-    columns per query instead of the full S_top+1 width."""
+def _lift_res(dix: DeviceIndex, row, pos, ridx, cols):
+    """Resident lift, restricted to d2 column ids ``cols`` [q, w] (an
+    endpoint's own top-group boundary columns, outside which the lifted
+    row is +inf): rs[q, c] = min_b row[q, b] +
+    res_rows[ridx, pos_b, cols[q, c]], the whole per-level lift ladder
+    collapsed into one chunked gather against the pre-composed rows."""
     q, mb = row.shape
-    width = dix.res_rows.shape[2] if cols is None else cols.shape[1]
+    width = cols.shape[1]
     c = _chunk(row, width)
     acc = torch.full((q, width), _INF, dtype=row.dtype, device=row.device)
     for i in range(0, mb, c):
-        p_c = pos[:, i:i + c]
-        if cols is None:
-            blk = dix.res_rows[ridx[:, None], p_c]       # [q, c, S_top+1]
-        else:
-            blk = dix.res_rows[ridx[:, None, None], p_c[:, :, None],
-                               cols[:, None, :]]         # [q, c, w]
+        blk = dix.res_rows[ridx[:, None, None], pos[:, i:i + c, None],
+                           cols[:, None, :]]             # [q, c, w]
         acc = torch.minimum(acc, (row[:, i:i + c, None] + blk).amin(dim=1))
     return acc
 
@@ -1470,11 +1464,12 @@ def serve_cross_res(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
     groups and in DIFFERENT top-level groups (the planner guarantees
     both): then the route must touch the top boundary, every confined
     prefix is pre-composed in res_rows, and the whole combine is one
-    contraction against d2, a fused minplus_twoside in the scatter
-    layout, or a gather restricted to each endpoint's own top-group
-    boundary columns in the gather layout.  A fragment id of -1 is
-    clamped before the gathers and its answer masked to +inf, as in
-    ``serve_cross``."""
+    contraction against d2 of rows lifted only to each endpoint's own
+    top-group boundary columns (the lifted row is +inf elsewhere):
+    ``ops.minplus_twoside_grouped`` through the TOP groups' ``bnd2_sid``
+    rows in the scatter layout, ``_top_mid_gather`` in the gather
+    layout.  A fragment id of -1 is clamped before the gathers and its
+    answer masked to +inf, as in ``serve_cross``."""
     s, t = s.long(), t.long()
     ds, dt, fs_c, ft_c, ps, pt, valid = _ends(dix, s, t)
     row_s = dix.brow[fs_c, ps]                   # [q, mb]
@@ -1483,15 +1478,16 @@ def serve_cross_res(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
     pos_t = dix.pos_in_sf[0][dix.bnd_super[ft_c].long()].long()
     rid_s = dix.res_of_frag[fs_c].long()
     rid_t = dix.res_of_frag[ft_c].long()
+    top = dix.bnd2_sid[-1]
+    grp_s = dix.topgrp_of_frag[fs_c].long()
+    grp_t = dix.topgrp_of_frag[ft_c].long()
+    ids_s, ids_t = top[grp_s].long(), top[grp_t].long()
+    rs = _lift_res(dix, row_s, pos_s, rid_s, cols=ids_s)
+    rt = _lift_res(dix, row_t, pos_t, rid_t, cols=ids_t)
     if _layout(row_s.device, force, layout) == "scatter":
-        rs = _lift_res(dix, row_s, pos_s, rid_s)
-        rt = _lift_res(dix, row_t, pos_t, rid_t)
-        mid = ops.minplus_twoside(rs, dix.d2, rt, force=force)
+        mid = ops.minplus_twoside_grouped(rs, grp_s, top, dix.d2, rt, grp_t,
+                                          top, force=force)
     else:
-        ids_s = dix.bnd2_sid[-1][dix.topgrp_of_frag[fs_c].long()].long()
-        ids_t = dix.bnd2_sid[-1][dix.topgrp_of_frag[ft_c].long()].long()
-        rs = _lift_res(dix, row_s, pos_s, rid_s, cols=ids_s)
-        rt = _lift_res(dix, row_t, pos_t, rid_t, cols=ids_t)
         mid = _top_mid_gather(dix, rs, ids_s, rt, ids_t)
     d = ds + mid + dt
     return torch.where(valid, d, _INF)

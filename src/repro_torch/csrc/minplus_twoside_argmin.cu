@@ -46,6 +46,10 @@
 //    so a thread's 8 queries and 4 y columns are three float4 shared
 //    loads per x.
 //
+// The walk, its staging schedule and the pass-1 loop are the ones of
+// twoside_tiles.cuh, shared with the distance kernel
+// (minplus_twoside.cu); this file stages dense rows and d tiles.
+//
 // Bound on this card: as minplus_twoside.cu, 2 float32 operations per
 // finite (q, x, y) triple outside the tensor cores, bound by operations
 // at the serve path's shapes; pass 1 issues exactly those 2 a cell,
@@ -60,38 +64,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#define TA_BQ 64      // queries per block
-#define TA_BY 64      // y columns per block
-#define TA_BX 32      // x depth per shared-memory tile
-#define TA_MQ 8       // queries per thread
-#define TA_MY 4       // y columns per thread
-#define TA_TQ (TA_BQ / TA_MQ)
-#define TA_TY (TA_BY / TA_MY)
-#define TA_THREADS (TA_TQ * TA_TY)
-
-struct TaTiles {
-  float rs[2][TA_BX][TA_BQ];   // rows tiles, transposed: [x][q]
-  float ds[2][TA_BX][TA_BY];   // d tiles: [x][y]
-};
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
+#include "twoside_tiles.cuh"
 
 // Stage rows[q0 + 0..63, x0 + 0..31] into rs (plain loads, consecutive
 // threads on consecutive queries so the transposed stores are
@@ -133,47 +106,6 @@ __device__ __forceinline__ void stage_d(float (*ds)[TA_BY],
   }
 }
 
-// Walk the x-tiles of [xa, xb) in order, double-buffered: the rows tile
-// of t + 1 is staged and voted on, and its d tile's cp.async started,
-// before tile t is handed to body(rs, ds, x0).  A tile whose rows are
-// all +inf is neither loaded nor handed over.  body returns a
-// block-uniform "stop".
-template <class Body>
-__device__ __forceinline__ void walk_x(TaTiles& sm,
-                                       const float* __restrict__ rows,
-                                       const float* __restrict__ d, int Q,
-                                       int K1, int K2, int q0, int y0, int xa,
-                                       int xb, Body&& body) {
-  const int ntiles = xb > xa ? (xb - xa + TA_BX - 1) / TA_BX : 0;
-  int live = 0;
-  if (ntiles > 0) {
-    live = __syncthreads_or(stage_rows(sm.rs[0], rows, Q, K1, q0, xa, xb));
-    if (live) stage_d(sm.ds[0], d, K2, xa, xb, y0);
-  }
-  cp_async_commit();
-  for (int t = 0; t < ntiles; ++t) {
-    const int cur = t & 1;
-    const int x0 = xa + t * TA_BX;
-    int next = 0;
-    if (t + 1 < ntiles) {
-      next = __syncthreads_or(stage_rows(sm.rs[cur ^ 1], rows, Q, K1, q0,
-                                         x0 + TA_BX, xb));
-      if (next) stage_d(sm.ds[cur ^ 1], d, K2, x0 + TA_BX, xb, y0);
-    }
-    cp_async_commit();
-    if (live) {
-      cp_async_wait_prev();   // tile t landed (t + 1 may be in flight)
-      __syncthreads();
-      const bool stop = body(sm.rs[cur], sm.ds[cur], x0);
-      __syncthreads();        // buffers free for the prefetch after next
-      if (stop) break;
-    }
-    live = next;
-  }
-  cp_async_wait_all();
-  __syncthreads();
-}
-
 __global__ void __launch_bounds__(TA_THREADS)
 twoside_argmin_kernel(const float* __restrict__ rows,
                       const float* __restrict__ d,
@@ -198,27 +130,17 @@ twoside_argmin_kernel(const float* __restrict__ rows,
   for (int a = 0; a < TA_MQ; ++a)
 #pragma unroll
     for (int b = 0; b < TA_MY; ++b) acc[a][b] = inf;
-  walk_x(sm, rows, d, Q, K1, K2, q0, y0, xa, xb,
-         [&](const float (*rs)[TA_BQ], const float (*ds)[TA_BY], int) {
-#pragma unroll 4
-           for (int xx = 0; xx < TA_BX; ++xx) {
-             const float4 r0 =
-                 *reinterpret_cast<const float4*>(&rs[xx][tq * TA_MQ]);
-             const float4 r1 =
-                 *reinterpret_cast<const float4*>(&rs[xx][tq * TA_MQ + 4]);
-             const float4 dq =
-                 *reinterpret_cast<const float4*>(&ds[xx][ty * TA_MY]);
-             const float rv[TA_MQ] = {r0.x, r0.y, r0.z, r0.w,
-                                      r1.x, r1.y, r1.z, r1.w};
-             const float dv[TA_MY] = {dq.x, dq.y, dq.z, dq.w};
-#pragma unroll
-             for (int a = 0; a < TA_MQ; ++a)
-#pragma unroll
-               for (int b = 0; b < TA_MY; ++b)
-                 acc[a][b] = fminf(acc[a][b], rv[a] + dv[b]);
-           }
-           return false;
-         });
+  const auto rows_at = [&](int buf, int x0) {
+    return stage_rows(sm.rs[buf], rows, Q, K1, q0, x0, xb);
+  };
+  const auto d_at = [&](int buf, int x0) {
+    stage_d(sm.ds[buf], d, K2, x0, xb, y0);
+  };
+  ta_walk_x(sm, xa, xb, rows_at, d_at,
+            [&](const float (*rs)[TA_BQ], const float (*ds)[TA_BY], int) {
+              ta_minplus_tile(acc, rs, ds, tq, ty);
+              return false;
+            });
 
   // add rowt; per query the smallest y at the block's minimum, with the
   // acc value there (what pass 2 looks for)
@@ -271,20 +193,20 @@ twoside_argmin_kernel(const float* __restrict__ rows,
     tgt = s_t[qq];
   }
   if (!__syncthreads_and(found)) {
-    walk_x(sm, rows, d, Q, K1, K2, q0, y0, xa, xb,
-           [&](const float (*rs)[TA_BQ], const float (*ds)[TA_BY],
-               int x0) {
-             if (!found) {
-               for (int xx = 0; xx < TA_BX; ++xx) {
-                 if (rs[xx][qq] + ds[xx][ys] == tgt) {
-                   fx = x0 + xx;
-                   found = true;
-                   break;
-                 }
-               }
-             }
-             return __syncthreads_and(found) != 0;
-           });
+    ta_walk_x(sm, xa, xb, rows_at, d_at,
+              [&](const float (*rs)[TA_BQ], const float (*ds)[TA_BY],
+                  int x0) {
+                if (!found) {
+                  for (int xx = 0; xx < TA_BX; ++xx) {
+                    if (rs[xx][qq] + ds[xx][ys] == tgt) {
+                      fx = x0 + xx;
+                      found = true;
+                      break;
+                    }
+                  }
+                }
+                return __syncthreads_and(found) != 0;
+              });
   }
   if (qq < TA_BQ && q0 + qq < Q) {
     const size_t o = (size_t)(q0 + qq) * (gridDim.x * gridDim.z) +

@@ -2,11 +2,12 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``csrc/build/<name>-<hash>.so`` (the directory is git-ignored) the
-first time a kernel of it is used; the hash covers the source and the
-flags, so an edited source rebuilds and a stale library is never
-loaded.  ``build`` starts one ``nvcc`` per missing library, all at once,
-and waits for them.  Nothing here runs at import time: the CPU path and
-the tests never touch ``nvcc``.
+first time a kernel of it is used; the hash covers the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header rebuilds and a stale library is never loaded.  ``build`` starts
+one ``nvcc`` per missing library, all at once, and waits for them.
+Nothing here runs at import time: the CPU path and the tests never
+touch ``nvcc``.
 
 The flags hold the exactness contract: no ``--use_fast_math``, so adds
 stay plain IEEE adds and ``inf`` stays ``inf``.
@@ -42,8 +43,11 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    """Where ``name``'s library lands for the current source and flags."""
+    """Where ``name``'s library lands for the current source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
     h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 

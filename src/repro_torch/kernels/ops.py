@@ -22,7 +22,9 @@ from . import ref as _ref
 from .floyd_warshall import fw_batch_cuda, fw_batch_next_cuda, fw_blocked
 from .label_merge import label_merge_cuda
 from .minplus import minplus_accum_cuda, minplus_cuda
-from .minplus_twoside import minplus_twoside_argmin_cuda, minplus_twoside_cuda
+from .minplus_twoside import (minplus_twoside_argmin_cuda,
+                              minplus_twoside_cuda,
+                              minplus_twoside_grouped_cuda)
 
 Force = Optional[Literal["kernel", "ref"]]
 
@@ -67,6 +69,22 @@ def minplus_twoside(rows: torch.Tensor, d: torch.Tensor,
     if use_kernel(rows.device, force):
         return minplus_twoside_cuda(rows, d, rowt)
     return _ref.minplus_twoside_ref(rows, d, rowt)
+
+
+def minplus_twoside_grouped(row_s: torch.Tensor, gs: torch.Tensor,
+                            tab_s: torch.Tensor, d: torch.Tensor,
+                            row_t: torch.Tensor, gt: torch.Tensor,
+                            tab_t: torch.Tensor, *, force: Force = None
+                            ) -> torch.Tensor:
+    """The twoside contraction of compact rows through their id tables:
+    out[q] = min_{i,j} row_s[q,i] + d[tab_s[gs[q],i], tab_t[gt[q],j]]
+    + row_t[q,j], equal to scattering each row at its ids and running
+    ``minplus_twoside`` on the dense rows."""
+    if use_kernel(row_s.device, force):
+        return minplus_twoside_grouped_cuda(row_s, gs, tab_s, d, row_t, gt,
+                                            tab_t)
+    return _ref.minplus_twoside_grouped_ref(row_s, gs, tab_s, d, row_t, gt,
+                                            tab_t)
 
 
 def minplus_twoside_argmin(rows: torch.Tensor, d: torch.Tensor,

@@ -124,6 +124,93 @@ def minplus_twoside_ref(rows: torch.Tensor, d: torch.Tensor,
     return (acc + rowt).amin(dim=1)
 
 
+def scatter_rows(row: torch.Tensor, ids: torch.Tensor, width: int
+                 ) -> torch.Tensor:
+    """Scatter-min compact rows [q, m] at column ids [q, m] into dense
+    [q, width] rows (+inf elsewhere)."""
+    out = torch.full((row.shape[0], width), float("inf"), dtype=row.dtype,
+                     device=row.device)
+    return out.scatter_reduce_(1, ids.long(), row, "amin")
+
+
+def minplus_twoside_grouped_ref(row_s: torch.Tensor, gs: torch.Tensor,
+                                tab_s: torch.Tensor, d: torch.Tensor,
+                                row_t: torch.Tensor, gt: torch.Tensor,
+                                tab_t: torch.Tensor) -> torch.Tensor:
+    """out[q] = min_{i,j} row_s[q,i] + d[tab_s[gs[q],i], tab_t[gt[q],j]]
+    + row_t[q,j]: each compact row scattered at its ids (scatter-min, so
+    duplicate ids keep their smaller entry), then the dense
+    ``minplus_twoside_ref``, which is what the serve path computed
+    before it contracted compact rows."""
+    gs, gt = gs.long(), gt.long()
+    return minplus_twoside_ref(scatter_rows(row_s, tab_s[gs], d.shape[0]),
+                               d,
+                               scatter_rows(row_t, tab_t[gt], d.shape[1]))
+
+
+def minplus_twoside_grouped_warp_ref(row_s: torch.Tensor, gs: torch.Tensor,
+                                     tab_s: torch.Tensor, d: torch.Tensor,
+                                     row_t: torch.Tensor, gt: torch.Tensor,
+                                     tab_t: torch.Tensor) -> torch.Tensor:
+    """The grouped kernel's warp regime in plain torch, for the CPU
+    tests: per query, acc[j] = min_i row_s[i] + d[ids_s[i], ids_t[j]]
+    over its own gathered ms x mt block of d, then min_j acc + row_t."""
+    ids_s, ids_t = tab_s[gs.long()].long(), tab_t[gt.long()].long()
+    blk = d[ids_s[:, :, None], ids_t[:, None, :]]          # [q, ms, mt]
+    return ((row_s[:, :, None] + blk).amin(dim=1) + row_t).amin(dim=1)
+
+
+def minplus_twoside_grouped_split_ref(row_s: torch.Tensor, gs: torch.Tensor,
+                                      tab_s: torch.Tensor, d: torch.Tensor,
+                                      row_t: torch.Tensor, gt: torch.Tensor,
+                                      tab_t: torch.Tensor, *, splits: int,
+                                      order: bool = True, q_tile: int = 64,
+                                      y_tile: int = 64, x_tile: int = 32
+                                      ) -> torch.Tensor:
+    """The grouped kernel's tiles regime in plain torch, for the CPU
+    tests: array-equal to ``minplus_twoside_grouped_ref``.
+
+    With ``order`` the queries are grouped by the key gs * Gt + gt (the
+    kernel's counting order leaves the order within a key free; this
+    model keeps it), else they keep theirs; each tile of ``q_tile``
+    queries is cut into segments (runs) of equal (gs, gt),
+    and for each x split (contiguous runs of whole x tiles) every
+    segment contracts the whole tile's rows, the other segments' queries
+    as +inf, against its pair's gathered d block into one accumulator.
+    Each (y tile, split) then writes one partial per query at its
+    original index, and the finish takes the min over the partials."""
+    q, ms = row_s.shape
+    mt = row_t.shape[1]
+    gs, gt = gs.long(), gt.long()
+    perm = (torch.argsort(gt + tab_t.shape[0] * gs, stable=True) if order
+            else torch.arange(q))
+    per = max(1, -(-(-(-ms // x_tile)) // splits)) * x_tile
+    ytiles = -(-mt // y_tile)
+    inf = float("inf")
+    part = torch.full((q, ytiles * splits), inf, dtype=row_s.dtype)
+    for q0 in range(0, q, q_tile):
+        idx = perm[q0:q0 + q_tile]
+        pair = torch.stack([gs[idx], gt[idx]], 1)
+        starts = [0] + [i for i in range(1, idx.numel())
+                        if not torch.equal(pair[i], pair[i - 1])]
+        bounds = list(zip(starts, starts[1:] + [idx.numel()]))
+        for s, x0 in enumerate(range(0, max(ms, 1), per)):
+            acc = torch.full((idx.numel(), mt), inf, dtype=row_s.dtype)
+            for a, b in bounds:
+                xs = tab_s[gs[idx[a]], x0:x0 + per].long()
+                blk = d[xs[:, None], tab_t[gt[idx[a]]].long()[None, :]]
+                rows = torch.full((idx.numel(), xs.numel()), inf,
+                                  dtype=row_s.dtype)
+                rows[a:b] = row_s[idx[a:b], x0:x0 + per]
+                acc = torch.minimum(acc, (rows[:, :, None]
+                                          + blk[None]).amin(dim=1))
+            v = acc + row_t[idx]
+            for yt in range(ytiles):
+                part[idx, yt * splits + s] = v[:, yt * y_tile:
+                                               (yt + 1) * y_tile].amin(dim=1)
+    return part.amin(dim=1)
+
+
 def _argmin_acc(rows: torch.Tensor, d: torch.Tensor, chunk: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(acc, accx) [q, k2]: acc = min_x rows[q, x] + d[x, y] and accx the

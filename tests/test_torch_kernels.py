@@ -277,6 +277,12 @@ def test_ops_force_kernel_on_cpu_raises():
         ops.minplus_twoside_argmin(rows, torch.zeros((3, 5)),
                                    torch.zeros((2, 5)), force="kernel")
     with pytest.raises(ValueError, match="CUDA"):
+        ops.minplus_twoside_grouped(
+            rows, torch.zeros(2, dtype=torch.int64),
+            torch.zeros((1, 3), dtype=torch.int32), torch.zeros((3, 5)),
+            rows, torch.zeros(2, dtype=torch.int64),
+            torch.zeros((1, 3), dtype=torch.int32), force="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
         ops.label_merge(rows, rows, force="kernel")
     with pytest.raises(ValueError, match="force"):
         ops.use_kernel("cpu", "pallas")
@@ -290,6 +296,7 @@ def test_cpu_dispatch_runs_plain_versions_and_counts_nothing():
                 floyd_warshall.fw_next_global_cuda.launches,
                 floyd_warshall.fw_next_blocked_cuda.launches,
                 minplus_twoside.minplus_twoside_cuda.launches,
+                minplus_twoside.minplus_twoside_grouped_cuda.launches,
                 floyd_warshall.fw_batch_cuda.launches,
                 minplus.minplus_cuda.launches,
                 minplus.minplus_accum_cuda.launches,
@@ -303,6 +310,11 @@ def test_cpu_dispatch_runs_plain_versions_and_counts_nothing():
     assert torch.equal(ops.fw_batch(d), ref.fw_batch_ref(d))
     assert torch.equal(ops.fw_apsp(d[0], block=4), ref.fw_ref(d[0]))
     assert torch.equal(ops.minplus(d[0], d[1]), ref.minplus_ref(d[0], d[1]))
+    eye = torch.arange(9, dtype=torch.int32)[None]
+    zero = torch.zeros(9, dtype=torch.int64)
+    assert torch.equal(
+        ops.minplus_twoside_grouped(d[0], zero, eye, d[1], d[0], zero, eye),
+        ref.minplus_twoside_ref(d[0], d[1], d[0]))
     for g, w in zip(ops.minplus_twoside_argmin(d[0], d[1], d[0]),
                     ref.minplus_twoside_argmin_ref(d[0], d[1], d[0])):
         assert torch.equal(g, w)
@@ -315,6 +327,11 @@ def test_cpu_dispatch_runs_plain_versions_and_counts_nothing():
         floyd_warshall.fw_next_blocked_cuda(d)
     with pytest.raises(ValueError, match="CUDA"):
         minplus_twoside.minplus_twoside_cuda(d[0], d[0], d[0])
+    ids = torch.zeros((1, 9), dtype=torch.int32)
+    qi = torch.zeros(9, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        minplus_twoside.minplus_twoside_grouped_cuda(d[0], qi, ids, d[1],
+                                                     d[0], qi, ids)
     with pytest.raises(ValueError, match="CUDA"):
         floyd_warshall.fw_batch_cuda(d)
     with pytest.raises(ValueError, match="CUDA"):
