@@ -20,9 +20,14 @@ prints no result.  Phases, each of which must pass:
      for the blocked kernel beside the shared-memory one (n <= 160) or
      the per-pivot one it replaced (above); the dense twoside
      contraction at the dense and top-closure shapes (S_top+1 = 1712)
-     through the grouped kernel's identity tables; the distance-only FW, the
-     (min,+) products with and without accumulation, the whole blocked
-     APSP (``ops.fw_apsp``), the witness twoside argmin (out, wx and wy
+     through the grouped kernel's identity tables; the distance-only FW
+     (the register variant at each of its block sizes, fresh and in
+     place on strided tiles, the shared-memory and per-pivot ones
+     above), the (min,+) products with and without accumulation, the
+     in-place accumulate on views of a padded matrix as the blocked
+     schedule's phases 2 (aliased panels) and 3 (band skipped) call it,
+     the whole blocked APSP (``ops.fw_apsp`` at n = 1,711 and 4,661,
+     events and device time), the witness twoside argmin (out, wx and wy
      array-equal; tie-heavy values from {0, 1, 2}, and road4000's
      serve-shaped scattered boundary rows at q = 16 and 1,024, sorted
      and tie-heavy variants included, with the share of rows tiles the
@@ -59,8 +64,9 @@ prints no result.  Phases, each of which must pass:
      for a batch of 1,024 (cross_frag at both, road64k's cross_res),
      bounds counted from each input's own finite cells;
   8. the ``kernels`` JSON line (launches summed over the main paths of
-     phases 4 and 6, which must launch the blocked witness FW and the
-     grouped twoside and never the per-pivot FW; times and bounds from
+     phases 4 and 6, which must launch the blocked witness FW, the
+     grouped twoside and the in-place accumulate, and never the
+     per-pivot FW or the fresh-output accumulate; times and bounds from
      phases 2 and 7), the card's name and power limit from nvidia-smi,
      and the ``{"ok": true, ...}`` line last.
 
@@ -587,6 +593,12 @@ def _record(out, rec, ok):
 
 
 def _check_fw_batch(cases, out):
+    """(label, b, n, all_inf): kernel 3 (``fw_batch_cuda``) against the
+    plain version.  At n <= DIST_REG_MAX_N the kernel also runs in
+    place on the matrices as strided tiles of a larger tensor, as the
+    blocked schedule calls it."""
+    import functools
+
     import numpy as np
     import torch
     from repro_torch.kernels import floyd_warshall as fw
@@ -596,19 +608,30 @@ def _check_fw_batch(cases, out):
         d_np = _int_inf((b, n, n), rng)
         d_np[list(all_inf)] = np.inf
         d = torch.from_numpy(d_np).cuda()
-        got = fw.fw_batch_cuda(d)
+        kern = functools.partial(fw.fw_batch_cuda, d)
+        got = kern()
         want = ops.fw_batch(d, force="ref")
+        ok = torch.equal(got, want)
+        if n <= fw.DIST_REG_MAX_N:
+            big = torch.full((b, n + 5, n + 7), 7.0, device="cuda")
+            tile = big[:, 2:2 + n, 3:3 + n]
+            tile.copy_(d)
+            fw.fw_batch_cuda(tile, tile)
+            rest = torch.ones_like(big, dtype=torch.bool)
+            rest[:, 2:2 + n, 3:3 + n] = False
+            ok = ok and torch.equal(tile, want) and bool(
+                (big[rest] == 7.0).all())
         torch.cuda.synchronize()
         bound, by = _bound_ms(8.0 * b * n * n, 2.0 * b * n ** 3)
+        variant = ("reg" if n <= fw.DIST_REG_MAX_N else
+                   "smem" if n <= fw.DIST_SMEM_MAX_N else "global")
         _record(out, {
             "case": label, "kernel": "fw_batch_cuda", "b": b, "n": n,
-            "variant": ("smem" if n <= fw.DIST_SMEM_MAX_N else "global"),
-            "equal": torch.equal(got, want),
+            "variant": variant, "equal": ok,
             "max_abs_err": _max_abs_err(got, want),
-            "ms": _time_ms(lambda: fw.fw_batch_cuda(d), 10),
-            "device_ms": _device_ms(lambda: fw.fw_batch_cuda(d), 10),
+            "ms": _time_ms(kern, 10), "device_ms": _device_ms(kern, 10),
             "plain_ms": _time_ms(lambda: ops.fw_batch(d, force="ref"), 2),
-            "bound_ms": bound, "bound_by": by}, torch.equal(got, want))
+            "bound_ms": bound, "bound_by": by}, ok)
 
 
 def _check_minplus(cases, out):
@@ -654,25 +677,116 @@ def _check_minplus(cases, out):
             "finite_triples": triples}, ok)
 
 
+def _check_minplus_into(cases, out):
+    """(label, np_, block, s, phase): the in-place entries on views of a
+    padded [np_, np_] matrix (integers, ~20% +inf, its pivot tile
+    [s, s + block) closed) as the blocked schedule calls them: "panels"
+    (phase 2's row panel, C = B = D[K, :] with the pivot columns
+    skipped, and column panel, C = A = D[:, K] with the pivot rows
+    skipped, in one launch) through ``minplus_accum_panels_cuda``;
+    "cross" (phase 3 on all of D, the band skipped), "row" and "col"
+    (one panel each, its aliased operand a copy of it, as the in-place
+    entry takes no panel alias) through ``minplus_accum_into_cuda``;
+    against the plain versions on a copy
+    of the same matrix.  The bound counts the written cells (C_in read,
+    C written), the rows of A and columns of B they need, and their
+    finite triples."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import minplus as mp
+    from repro_torch.kernels import ops
+    for label, np_, block, s, phase in cases:
+        rng = np.random.default_rng(np_ + block + s)
+        x = torch.from_numpy(_int_inf((np_, np_), rng)).cuda()
+        e = s + block
+        x[s:e, s:e] = ops.fw_batch(x[None, s:e, s:e], force="ref")[0]
+
+        rows0, cols0 = x[s:e].clone(), x[:, s:e].clone()
+
+        def jobs(p):
+            dkk, row, col = p[s:e, s:e], p[s:e], p[:, s:e]
+            return {"row": [(row, dkk, rows0, (0, 0), (s, e))],
+                    "col": [(col, cols0, dkk, (s, e), (0, 0))],
+                    "cross": [(p, col, row, (s, e), (s, e))],
+                    "panels": [(row, dkk, row, (0, 0), (s, e)),
+                               (col, col, dkk, (s, e), (0, 0))]}[phase]
+
+        def run(p, force=None):
+            js = jobs(p)
+            if phase == "panels":
+                (rc, ra, rb, _, skip_c), (qc, qa, qb, skip_r, _) = js
+                if force:
+                    ops.minplus_accum_panels((rc, ra, rb), (qc, qa, qb),
+                                             skip_cols=skip_c,
+                                             skip_rows=skip_r, force=force)
+                else:
+                    mp.minplus_accum_panels_cuda((rc, ra, rb), (qc, qa, qb),
+                                                 skip_cols=skip_c,
+                                                 skip_rows=skip_r)
+                return
+            c, a, b, skip_r, skip_c = js[0]
+            if force:
+                ops.minplus_accum_into(c, a, b, skip_rows=skip_r,
+                                       skip_cols=skip_c, force=force)
+            else:
+                mp.minplus_accum_into_cuda(c, a, b, skip_rows=skip_r,
+                                           skip_cols=skip_c)
+        got, want = x.clone(), x.clone()
+        run(got)
+        run(want, "ref")
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want)
+        nbytes = triples = 0.0
+        for c, a, b, skip_r, skip_c in jobs(x):
+            m, n = c.shape
+            live_r = torch.ones(m, dtype=torch.bool, device="cuda")
+            live_r[skip_r[0]:skip_r[1]] = False
+            live_c = torch.ones(n, dtype=torch.bool, device="cuda")
+            live_c[skip_c[0]:skip_c[1]] = False
+            a_w, b_w = a[live_r], b[:, live_c]
+            nbytes += 4.0 * (2 * a_w.shape[0] * b_w.shape[1] + a_w.numel()
+                             + b_w.numel())
+            triples += _finite_triples(a_w, b_w)
+        bound, by = _bound_ms(nbytes, 2.0 * triples)
+        kernel = ("minplus_accum_panels_cuda" if phase == "panels"
+                  else "minplus_accum_into_cuda")
+        _record(out, {
+            "case": label, "kernel": kernel, "np": np_, "block": block,
+            "s": s, "phase": phase, "equal": ok,
+            "max_abs_err": _max_abs_err(got, want),
+            "ms": _time_ms(lambda: run(got), 20),
+            "device_ms": _device_ms(lambda: run(got), 20),
+            "plain_ms": _time_ms(lambda: run(want, "ref"), 2),
+            "bound_ms": bound, "bound_by": by, "finite_triples": triples},
+            ok)
+
+
 def _check_fw_apsp(cases, out):
     """The whole blocked schedule (ops.fw_apsp on the card: kernels
-    fw_batch and minplus_accum) against the plain fw_ref."""
+    fw_batch and minplus_accum_into) against the plain fw_ref, timed by
+    CUDA events and by the profiler's device time."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels.floyd_warshall import apsp_block
     for label, n, block, inf_frac in cases:
-        rng = np.random.default_rng(n + block)
+        rng = np.random.default_rng(n)
         d = torch.from_numpy(_int_inf((n, n), rng, inf_frac)).cuda()
+        block = block or apsp_block(n)
         got = ops.fw_apsp(d, block=block)
         want = ops.fw_apsp(d, force="ref")
         torch.cuda.synchronize()
         ok = torch.equal(got, want)
         bound, by = _bound_ms(8.0 * n * n, 2.0 * n ** 3)
+        big = n > 2000
         _record(out, {
             "case": label, "kernel": "ops.fw_apsp (fw_blocked)", "n": n,
             "block": block, "equal": ok,
             "max_abs_err": _max_abs_err(got, want),
-            "ms": _time_ms(lambda: ops.fw_apsp(d, block=block), 3),
+            "ms": _time_ms(lambda: ops.fw_apsp(d, block=block),
+                           2 if big else 5),
+            "device_ms": _device_ms(lambda: ops.fw_apsp(d, block=block),
+                                    1 if big else 3),
             "plain_ms": _time_ms(lambda: ops.fw_apsp(d, force="ref"), 1),
             "bound_ms": bound, "bound_by": by}, ok)
 
@@ -685,10 +799,16 @@ KERNELS = (("fw_next_smem", "floyd_warshall", "fw_next_smem_cuda"),
             "minplus_twoside_grouped_cuda"),
            ("fw_batch", "floyd_warshall", "fw_batch_cuda"),
            ("minplus_accum", "minplus", "minplus_accum_cuda"),
+           ("minplus_accum_into", "minplus", "minplus_accum_into_cuda"),
+           ("minplus_accum_panels", "minplus", "minplus_accum_panels_cuda"),
            ("minplus", "minplus", "minplus_cuda"),
            ("minplus_twoside_argmin", "minplus_twoside",
             "minplus_twoside_argmin_cuda"),
            ("label_merge", "label_merge", "label_merge_cuda"))
+
+
+#: kernel entries the main paths must not launch
+OFF_MAIN_PATH = ("fw_next_global", "minplus_accum")
 
 
 def _wrapper(module: str, attr: str):
@@ -1007,7 +1127,9 @@ def main() -> int:
                        ts_cases)))
     phase("fw_batch_kernel", lambda: _check_fw_batch([
         ("fw_batch b=1 n=128", 1, 128, ()),
+        ("fw_batch b=1 n=64", 1, 64, ()),
         ("fw_batch b=3 n=100", 3, 100, ()),
+        ("fw_batch b=2 n=240 (smem)", 2, 240, (1,)),
         ("fw_batch b=4 n=496 all-inf block", 4, 496, (1,)),
     ], new_cases))
     phase("minplus_kernels", lambda: _check_minplus([
@@ -1022,8 +1144,25 @@ def main() -> int:
         ("minplus [1,480]x[480,480]", 1, 480, 480, False),
         ("minplus [33,77]x[77,129]", 33, 77, 129, False),
     ], new_cases))
+    phase("minplus_into_kernel", lambda: _check_minplus_into([
+        ("into phase3 D[1728,1728] K=[576,640)", 1728, 64, 576, "cross"),
+        ("panels D[1728,1728] K=[576,640)", 1728, 64, 576, "panels"),
+        ("into phase2 row D[1728,1728] K=[576,640)", 1728, 64, 576, "row"),
+        ("into phase2 col D[1728,1728] K=[576,640)", 1728, 64, 576, "col"),
+        ("into phase3 D[1792,1792] K=[512,640)", 1792, 128, 512, "cross"),
+        ("panels D[1792,1792] K=[512,640)", 1792, 128, 512, "panels"),
+        ("panels D[1728,1728] K=[1664,1728) (last)", 1728, 64, 1664,
+         "panels"),
+        ("into phase3 D[4736,4736] K=[2304,2432)", 4736, 128, 2304,
+         "cross"),
+        ("panels D[4736,4736] K=[2304,2432)", 4736, 128, 2304, "panels"),
+        ("into phase2 col D[300,300] K=[128,256)", 300, 128, 128, "col"),
+    ], new_cases))
     phase("fw_apsp", lambda: _check_fw_apsp([
+        ("fw_apsp n=1711", 1711, None, 0.995),
         ("fw_apsp n=1711 block=128", 1711, 128, 0.995),
+        ("fw_apsp n=4661", 4661, None, 0.995),
+        ("fw_apsp n=4661 block=64", 4661, 64, 0.995),
         ("fw_apsp n=100 block=32", 100, 32, 0.9),
     ], new_cases))
     phase("twoside_argmin_kernel", lambda: _check_twoside_argmin([
@@ -1091,19 +1230,22 @@ def main() -> int:
                            "minplus_twoside_grouped",
                            "minplus_twoside_argmin"))
         _require_launched(report["road64k"], "road64k",
-                          ("fw_batch", "minplus_accum", "minplus",
+                          ("fw_batch", "minplus_accum_panels",
+                           "minplus_accum_into", "minplus",
                            "fw_next_blocked", "minplus_twoside_grouped",
                            "minplus_twoside_argmin", "label_merge"))
         launches = {name: report["road4000"]["launches"][name]
                     + report["road64k"]["launches"][name]
                     for name, _m, _a in KERNELS}
-        # the per-pivot FW left the main path: timed beside its
-        # replacement, never run there
-        if launches.pop("fw_next_global"):
-            raise AssertionError("main paths launched fw_next_global")
+        # the per-pivot FW and the fresh-output accumulate left the main
+        # paths (for the blocked FW and the in-place accumulate): timed
+        # beside their replacements, never run there
+        for name in OFF_MAIN_PATH:
+            if launches.pop(name):
+                raise AssertionError(f"main paths launched {name}")
         _require_launched({"launches": launches}, "main paths",
                           launches)
-        launches["fw_next_global"] = 0
+        launches.update(dict.fromkeys(OFF_MAIN_PATH, 0))
     except AssertionError:
         traceback.print_exc()
         print("chip_smoke: FAILED launch counts", file=sys.stderr)
@@ -1128,11 +1270,19 @@ def main() -> int:
          pick(grouped_cases, "serve road64k cross_res (serve_cross_res)"),
          "src/repro_torch/csrc/minplus_twoside.cu",
          "src/repro/kernels/minplus_twoside.py:89"),
-        ("fw_batch", pick(new_cases, "fw_batch b=1 n=128"),
+        ("fw_batch", pick(new_cases, "fw_batch b=1 n=64"),
          "src/repro_torch/csrc/fw_dist.cu",
          "src/repro/kernels/floyd_warshall.py:54"),
         ("minplus_accum", pick(
             new_cases, "accum phase3 C[1792,1792] A[1792,128] B[128,1792]"),
+         "src/repro_torch/csrc/minplus.cu",
+         "src/repro/kernels/minplus.py:116"),
+        ("minplus_accum_into", pick(
+            new_cases, "into phase3 D[1728,1728] K=[576,640)"),
+         "src/repro_torch/csrc/minplus.cu",
+         "src/repro/kernels/minplus.py:116"),
+        ("minplus_accum_panels", pick(
+            new_cases, "panels D[1728,1728] K=[576,640)"),
          "src/repro_torch/csrc/minplus.cu",
          "src/repro/kernels/minplus.py:116"),
         ("minplus", pick(new_cases, "minplus [1,1712]x[1712,1712]"),

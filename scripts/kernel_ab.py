@@ -2,7 +2,7 @@
 """Time the kernels of one checkout, for before/after pairs.
 
     python3 scripts/kernel_ab.py --src SRC_DIR --tag NAME [--road64k]
-                                 [--serve] [--twoside FILE]
+                                 [--serve] [--twoside FILE] [--fwapsp]
 
 Needs one NVIDIA card and ``nvcc``.  Imports ``repro_torch`` from
 ``SRC_DIR`` (the ``src`` directory of this checkout, or of an unpacked
@@ -31,7 +31,24 @@ profiler's device time:
     the grouped op runs it, and captures FILE from its own builds of
     both graphs when FILE is missing (so time it first); an older one
     scatters each row at its ids (the ids gathered beforehand) and runs
-    its dense ``ops.minplus_twoside``.
+    its dense ``ops.minplus_twoside``;
+  * with ``--fwapsp``, the distance-only blocked APSP and its kernels
+    (CUDA events and device time, each result against its plain
+    version): ``ops.fw_batch`` (kernel 3) at [1, 128, 128],
+    [3, 100, 100] and [1, 64, 64]; ``minplus_accum`` (kernel 4)
+    at the blocked schedule's shapes for k-blocks of 128 (n = 1,711
+    padded to 1,792) and of 64 (to 1,728): phase 3 and the phase-2 row
+    (C = B) and column (C = A) panels, through the fresh-output entry,
+    and, where the checkout has them, through the in-place entry (phase
+    3) and the two-panel entry (phase 2) on views of the padded matrix;
+    ``minplus`` (kernel 5) at [1,1712]x[1712,1712]
+    and [1,480]x[480,480]; ``ops.fw_apsp`` at n = 1,711 and 4,661 (a
+    seeded integer matrix with 99.5% +inf, as ``chip_smoke.py`` makes
+    it; 4,661 is road250k's top overlay) at the checkout's default
+    k-block width and, where it offers them, at 64 and 128, and at
+    1,711 through the checked wrappers on views where the checkout's
+    schedule has its own launch sites.  Add
+    ``--road64k`` for the ``l2_fw`` build stage.
 
 Prints one JSON line tagged NAME and the card's name and power limit.
 """
@@ -59,6 +76,7 @@ def main() -> int:
     ap.add_argument("--road64k", action="store_true")
     ap.add_argument("--serve", action="store_true")
     ap.add_argument("--twoside")
+    ap.add_argument("--fwapsp", action="store_true")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -73,7 +91,10 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     _build.build()
     rec: dict = {"tag": args.tag, "src": args.src, "argmin": {}, "fw": {}}
-    for q, k in ARGMIN:
+    if args.fwapsp:
+        rec["fwapsp"] = _fwapsp(ops)
+        rec["profiler_windows"] = WINDOWS
+    for q, k in ([] if args.fwapsp else ARGMIN):
         rng = np.random.default_rng(q * 37 + k)
         rows, d, rowt = (torch.from_numpy(_int_inf(s, rng)).cuda()
                          for s in ((q, k), (k, k), (q, k)))
@@ -82,7 +103,7 @@ def main() -> int:
             return ops.minplus_twoside_argmin(rows, d, rowt)
         rec["argmin"][f"q={q} k={k}"] = {"ms": _time_ms(fn, 10),
                                          "device_ms": _device_ms(fn, 10)}
-    for b, n in FW:
+    for b, n in ([] if args.fwapsp else FW):
         rng = np.random.default_rng(b * 7919 + n)
         d = torch.from_numpy(_int_inf((b, n, n), rng)).cuda()
         rec["fw"][f"b={b} n={n}"] = _time_ms(lambda: ops.fw_batch_next(d),
@@ -130,6 +151,131 @@ def main() -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip())
     return 0
+
+
+def _fwapsp(ops) -> dict:
+    """The ``--fwapsp`` readings of this checkout (see the module
+    note): {label: {"ms", "device_ms", "equal"}}."""
+    import functools
+
+    import numpy as np
+    import torch
+    from chip_smoke import _device_ms, _int_inf, _time_ms
+    from repro_torch.kernels import floyd_warshall as fw
+    from repro_torch.kernels import minplus as mp
+    out = {}
+
+    def time(label, fn, want, reps=20, dev_reps=20):
+        got = fn()
+        torch.cuda.synchronize()
+        out[label] = {"equal": (None if want is None
+                                else bool(torch.equal(got, want))),
+                      "ms": _time_ms(fn, reps),
+                      "device_ms": _device_ms(fn, dev_reps)}
+        print(f"  {label}: {out[label]}", flush=True)
+
+    for b, n in ((1, 128), (3, 100)):
+        rng = np.random.default_rng(b * 7907 + n)
+        d = torch.from_numpy(_int_inf((b, n, n), rng)).cuda()
+        want = ops.fw_batch(d, force="ref")
+        time(f"fw_batch b={b} n={n}", functools.partial(fw.fw_batch_cuda, d),
+             want)
+    d = torch.from_numpy(_int_inf((1, 64, 64), np.random.default_rng(64))
+                         ).cuda()
+    time("fw_batch b=1 n=64", functools.partial(fw.fw_batch_cuda, d),
+         ops.fw_batch(d, force="ref"))
+    for np_, blk, s in ((1792, 128, 512), (1728, 64, 576)):
+        rng = np.random.default_rng(np_)
+        x = torch.from_numpy(_int_inf((np_, np_), rng)).cuda()
+        e = s + blk
+        x[s:e, s:e] = ops.fw_batch(x[None, s:e, s:e].contiguous())[0]
+        dkk = x[s:e, s:e].contiguous()
+        row, col = x[s:e].contiguous(), x[:, s:e].contiguous()
+        tag = f"D[{np_}] K=[{s},{e})"
+        for label, c, a, b in (("phase3", x, col, row),
+                               ("phase2 row", row, dkk, row),
+                               ("phase2 col", col, col, dkk)):
+            time(f"minplus_accum {label} {tag}",
+                 functools.partial(mp.minplus_accum_cuda, c, a, b),
+                 ops.minplus_accum(c, a, b, force="ref"))
+        if not hasattr(mp, "minplus_accum_panels_cuda"):
+            continue
+
+        def views(p):
+            return p[s:e, s:e], p[s:e], p[:, s:e]
+        got, want = x.clone(), x.clone()
+        gk, gr, gc = views(got)
+        wk, wr, wc = views(want)
+        ops.minplus_accum_into(want, wc, wr, skip_rows=(s, e),
+                               skip_cols=(s, e), force="ref")
+        time(f"minplus_accum_into phase3 {tag}", functools.partial(
+            mp.minplus_accum_into_cuda, got, gc, gr, skip_rows=(s, e),
+            skip_cols=(s, e)), want)
+        got, want = x.clone(), x.clone()
+        gk, gr, gc = views(got)
+        wk, wr, wc = views(want)
+        ops.minplus_accum_panels((wr, wk, wr), (wc, wc, wk),
+                                 skip_cols=(s, e), skip_rows=(s, e),
+                                 force="ref")
+
+        def panels(gk=gk, gr=gr, gc=gc):
+            mp.minplus_accum_panels_cuda((gr, gk, gr), (gc, gc, gk),
+                                         skip_cols=(s, e), skip_rows=(s, e))
+            return got
+        time(f"minplus_accum_panels phase2 {tag}", panels, want)
+    for n in (1712, 480):
+        rng = np.random.default_rng(n)
+        a = torch.from_numpy(_int_inf((1, n), rng)).cuda()
+        b = torch.from_numpy(_int_inf((n, n), rng)).cuda()
+        time(f"minplus [1,{n}]x[{n},{n}]",
+             functools.partial(mp.minplus_cuda, a, b),
+             ops.minplus(a, b, force="ref"))
+    blocks = (None, 64, 128) if hasattr(fw, "apsp_block") else (None,)
+    for n in (1711, 4661):
+        rng = np.random.default_rng(n + 128)
+        d = torch.from_numpy(_int_inf((n, n), rng, 0.995)).cuda()
+        want = ops.fw_apsp(d, force="ref")
+        for blk in blocks:
+            kw = {} if blk is None else {"block": blk}
+            time(f"fw_apsp n={n} block={blk or 'default'}",
+                 functools.partial(ops.fw_apsp, d, **kw), want,
+                 reps=5 if n < 2000 else 2, dev_reps=3 if n < 2000 else 1)
+        if n < 2000 and hasattr(fw, "blocked_steps"):
+            time(f"fw_apsp n={n} block=default through the checked wrappers",
+                 functools.partial(_apsp_on_views, fw, ops, d), want,
+                 reps=5, dev_reps=3)
+    return out
+
+
+def _apsp_on_views(fw, ops, d):
+    """``fw.fw_blocked``'s schedule on the card through the checked
+    wrappers on tensor views (``ops``, as its CPU branch calls them),
+    not through the launch sites: what the packing and checks of each
+    launch cost on the host."""
+    import torch
+    n = d.shape[0]
+    block = fw.apsp_block(n)
+    np_ = -(-n // block) * block
+    pad = torch.full((np_, np_), float("inf"), device=d.device)
+    pad[:n, :n] = d
+    pad.fill_diagonal_(0.0)
+
+    def view(w):
+        return pad[w[0]:w[0] + w[2], w[1]:w[1] + w[3]]
+    for step in fw.blocked_steps(np_, block):
+        if step[0] == "fw":
+            tile = view(step[1])[None]
+            ops.fw_batch(tile, out=tile)
+        elif step[0] == "p2":
+            _, row, skip_c, col, skip_r = step
+            ops.minplus_accum_panels(tuple(map(view, row)),
+                                     tuple(map(view, col)),
+                                     skip_cols=skip_c, skip_rows=skip_r)
+        else:
+            _, c, a, b, skip_r, skip_c = step
+            ops.minplus_accum_into(view(c), view(a), view(b),
+                                   skip_rows=skip_r, skip_cols=skip_c)
+    return pad[:n, :n].contiguous()
 
 
 def _scatter_combine(ops, de, row_s, ids_s, d, row_t, ids_t):

@@ -8,26 +8,47 @@
 // array-equal to repro_torch/kernels/ref.py:fw_batch_ref (distances of
 // an exact APSP are unique, and integer weights keep every sum exact).
 //
-// Updating in place is exact: the diagonal is 0 and every weight is
-// nonnegative, so during pivot k neither row k nor column k changes
-// (d[i][k] + d[k][k] == d[i][k]).  Every cell is written only by the
-// thread that owns it, so one barrier (or one launch boundary) between
-// pivots reproduces the reference's functional update.
+// What bounds it on the H100: the function moves 8 bytes a cell and
+// does 2 operations per cell and pivot, a bound of ~0.06 us at b = 1,
+// n = 128 (the blocked schedule's only shape).  No schedule reaches
+// that: the n pivots are a serial chain, so one matrix is one block on
+// one SM and the floor is n x (one barrier plus a few dependent
+// instructions), and one SM's float32 pipes: 2 x 16,384 operations a
+// pivot at n = 128.  The kernel that held the matrix in shared memory
+// paid about three shared-memory accesses a cell and pivot on that
+// chain (0.185 ms at n = 128 on an H100 SXM, 700 W).
 //
-// Two launch shapes:
+// The design (fw_dist_reg_kernel, n <= FWD_REG_MAX_N): every thread
+// owns a fixed RM x 4 sub-tile of the matrix in registers (rows
+// ty*RM.., columns tx*4..; a warp is one row group).  At pivot k the
+// owners of row k and of column k publish them into a shared-memory
+// strip pair, double-buffered by the parity of k; every thread reads
+// its RM column entries (broadcast within the warp) and its 4 row
+// entries (one float4) and updates its cells.  Right after its update
+// at pivot k a thread publishes row/column k + 1 if it owns them, into
+// the other buffer, so each pivot needs one __syncthreads: nobody reads
+// that buffer before the barrier, and the buffer it overwrites was last
+// read before the previous barrier.  The pivot loop is unrolled by RM,
+// so the owner's register index (k % RM, k % 4) is static and nothing
+// spills.  One tile shape a padded n: 32 and 64 take RM = 4 (64 and
+// 256 threads), 128 takes RM = 16 (256 threads), which ran faster than
+// 512 and 1,024 threads at b = 1, n = 128 (PERF.md).  The strips hold
+// row k and column k as they were before pivot k, so the update is the
+// reference's functional one, min(D, D[:, k] + D[k, :]), cell for
+// cell.  Input and output
+// take row and batch strides, so the blocked schedule runs it in place
+// on the diagonal tile of its padded matrix (each thread reads all its
+// cells before it writes any, and no two threads share a cell).
+//
+// Two more launch shapes, unchanged from the first port:
 //  * fw_dist_smem: one block per matrix holds dist (4 bytes a cell) in
-//    shared memory for all n pivots; n <= FWD_SMEM_MAX_N.  Threads walk
-//    a 32-wide column lane and a row lane, so a warp reads row k and
-//    writes row i at consecutive addresses and d[i][k] is a broadcast.
+//    shared memory for all n pivots, n <= FWD_SMEM_MAX_N.  Updating in
+//    place is exact: the diagonal is 0 and every weight is nonnegative,
+//    so during pivot k neither row k nor column k changes
+//    (d[i][k] + d[k][k] == d[i][k]), and one barrier between pivots
+//    reproduces the functional update.
 //  * fw_dist_global: an init pass, then one launch per pivot over all b
-//    matrices in device memory; any n.
-//
-// Bound on this card: the function moves 8 bytes a cell (read d, write
-// dist) and does 2 operations per cell and pivot (add, compare), so it
-// is bound by operations (float32, no tensor-core form for (min,+)).
-// The blocked schedule calls it with b = 1 and n = 128: one block on
-// one SM, so it runs far from that bound; the phases 2/3 products that
-// follow it carry the blocked schedule's work.
+//    matrices in device memory; any n (off the main path).
 //
 // Plain IEEE float adds only: built without --use_fast_math, and
 // inf + x stays inf, so no NaN can arise from the +inf padding.
@@ -36,6 +57,114 @@
 
 #define FWD_SMEM_MAX_N 240          // 240 * 240 * 4 B = 225 KB <= 227 KB
 #define FWD_TILE 32
+#define FWD_REG_MAX_N 128           // register tiles: padded n of 32, 64, 128
+#define FWD_RN 4                    // columns a thread owns
+
+// NP: padded n, a multiple of RM; RM: rows a thread owns.  Threads:
+// (NP / RM) row groups x (NP / 4) column lanes.
+template <int NP, int RM>
+__global__ void __launch_bounds__((NP / RM) * (NP / FWD_RN))
+fw_dist_reg_kernel(const float* din, float* dout, int n, long long ldi,
+                   long long ldo, long long bsi, long long bso) {
+  constexpr int RN = FWD_RN;
+  constexpr int TX = NP / RN;         // column lanes
+  static_assert(RM % 4 == 0 && NP % RM == 0, "row tile");
+  __shared__ __align__(16) float rowk[2][NP];
+  __shared__ __align__(16) float colk[2][NP];
+  const int tx = threadIdx.x % TX;
+  const int ty = threadIdx.x / TX;
+  const float inf = __int_as_float(0x7f800000);
+  const float* src = din + (long long)blockIdx.x * bsi;
+  float* dst = dout + (long long)blockIdx.x * bso;
+
+  float acc[RM][RN];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const int i = ty * RM + r;
+#pragma unroll
+    for (int c = 0; c < RN; ++c) {
+      const int j = tx * RN + c;
+      acc[r][c] = (i < n && j < n)
+                      ? (i == j ? 0.0f : src[(long long)i * ldi + j])
+                      : inf;
+    }
+  }
+  // row k + 1 lives in row group (k + 1) / RM at register row
+  // (k + 1) % RM, column k + 1 in lane (k + 1) / 4 at register column
+  // (k + 1) % 4; the unrolled loop below makes both register indices
+  // constants
+#define FWD_PUBLISH(K, RR, CC, BUF)                                      \
+  do {                                                                  \
+    if (ty == (K) / RM)                                                 \
+      *reinterpret_cast<float4*>(&rowk[BUF][tx * RN]) = make_float4(    \
+          acc[RR][0], acc[RR][1], acc[RR][2], acc[RR][3]);              \
+    if (tx == (K) / RN) {                                               \
+      _Pragma("unroll") for (int q = 0; q < RM; q += 4)                 \
+        *reinterpret_cast<float4*>(&colk[BUF][ty * RM + q]) =           \
+            make_float4(acc[q][CC], acc[q + 1][CC], acc[q + 2][CC],     \
+                        acc[q + 3][CC]);                                \
+    }                                                                   \
+  } while (0)
+
+  // pivots past n see an all-+inf row and column and change nothing
+  const int kend = (n + RM - 1) / RM * RM;
+  FWD_PUBLISH(0, 0, 0, 0);
+  __syncthreads();
+  for (int kb = 0; kb < kend; kb += RM) {
+#pragma unroll
+    for (int u = 0; u < RM; ++u) {
+      const int k = kb + u;
+      const int buf = u & 1;          // kb is even, so k & 1 == u & 1
+      float cv[RM];
+#pragma unroll
+      for (int q = 0; q < RM; q += 4) {
+        const float4 t =
+            *reinterpret_cast<const float4*>(&colk[buf][ty * RM + q]);
+        cv[q] = t.x;
+        cv[q + 1] = t.y;
+        cv[q + 2] = t.z;
+        cv[q + 3] = t.w;
+      }
+      const float4 rv4 = *reinterpret_cast<const float4*>(&rowk[buf][tx * RN]);
+      const float rv[RN] = {rv4.x, rv4.y, rv4.z, rv4.w};
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+#pragma unroll
+        for (int c = 0; c < RN; ++c)
+          acc[r][c] = fminf(acc[r][c], cv[r] + rv[c]);
+      if (k + 1 < kend)
+        FWD_PUBLISH(k + 1, (u + 1) % RM, (u + 1) % RN, buf ^ 1);
+      __syncthreads();
+    }
+  }
+#undef FWD_PUBLISH
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const int i = ty * RM + r;
+    if (i >= n) continue;
+#pragma unroll
+    for (int c = 0; c < RN; ++c) {
+      const int j = tx * RN + c;
+      if (j < n) dst[(long long)i * ldo + j] = acc[r][c];
+    }
+  }
+}
+
+template <int NP, int RM>
+static cudaError_t reg_launch(const float* din, float* dout, int b, int n,
+                              long long ldi, long long ldo, long long bsi,
+                              long long bso, cudaStream_t s) {
+  constexpr int threads = (NP / RM) * (NP / FWD_RN);
+  for (int b0 = 0; b0 < b; b0 += 65535) {
+    const int bc = (b - b0 < 65535) ? b - b0 : 65535;
+    fw_dist_reg_kernel<NP, RM><<<bc, threads, 0, s>>>(
+        din + (long long)b0 * bsi, dout + (long long)b0 * bso, n, ldi, ldo,
+        bsi, bso);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
 
 __global__ void __launch_bounds__(1024)
 fw_dist_smem_kernel(const float* __restrict__ din,
@@ -86,6 +215,26 @@ __global__ void fw_dist_pivot_kernel(float* __restrict__ d, int n, int k) {
 }
 
 extern "C" {
+
+// din, dout: float32 [b, n, n] with row strides ldi, ldo and batch
+// strides bsi, bso (elements; dout may be din, for an in-place update);
+// n <= FWD_REG_MAX_N.
+int fw_dist_reg(const void* din, void* dout, int b, int n, long long ldi,
+                long long ldo, long long bsi, long long bso, void* stream) {
+  if (b <= 0 || n <= 0) return (int)cudaSuccess;
+  if (n > FWD_REG_MAX_N) return (int)cudaErrorInvalidValue;
+  const float* di = (const float*)din;
+  float* dd = (float*)dout;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (n <= 32)
+    err = reg_launch<32, 4>(di, dd, b, n, ldi, ldo, bsi, bso, s);
+  else if (n <= 64)
+    err = reg_launch<64, 4>(di, dd, b, n, ldi, ldo, bsi, bso, s);
+  else
+    err = reg_launch<128, 16>(di, dd, b, n, ldi, ldo, bsi, bso, s);
+  return (int)err;
+}
 
 // din, dout: float32 [b, n, n]; n <= FWD_SMEM_MAX_N.
 int fw_dist_smem(const void* din, void* dout, int b, int n, void* stream) {

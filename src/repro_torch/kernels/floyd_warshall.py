@@ -16,13 +16,16 @@ launch per pivot, left the main path with the blocked variant and stays
 callable so the two can be timed side by side.
 
 Distance-only FW, port of ``fw_batch_pallas``: the kernel is
-``csrc/fw_dist.cu`` (shared memory up to n = 240, one launch per pivot
-above) and its plain version ``ref.fw_batch_ref``.
+``csrc/fw_dist.cu`` (each matrix in one block's registers up to n =
+128, in shared memory up to n = 240, one launch per pivot above) and its
+plain version ``ref.fw_batch_ref``.
 
 ``fw_blocked`` is the 3-phase blocked APSP of ``fw_blocked`` in the
-reference: phase 1 through ``ops.fw_batch``, phases 2/3 through
-``ops.minplus_accum``.  Each kernel wrapper counts its calls in
-``.launches``.
+reference, run in place on one padded matrix: phase 1 through
+``ops.fw_batch`` on the diagonal tile, phase 2 through
+``ops.minplus_accum_panels`` and phase 3 through
+``ops.minplus_accum_into`` on views of the matrix.  Each kernel wrapper
+counts its launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -45,6 +48,19 @@ SMEM_DISPATCH_N = 64
 #: the same for distance-only FW (FWD_SMEM_MAX_N in fw_dist.cu):
 #: 240 * 240 cells * 4 bytes = 225 KB
 DIST_SMEM_MAX_N = 240
+#: largest n of the distance-only register variant (FWD_REG_MAX_N)
+DIST_REG_MAX_N = 128
+#: k-block widths of the blocked APSP: 64 up to n = APSP_WIDE_N, 128
+#: above.  Timed at n = 1,711 and 4,661 by ``scripts/kernel_ab.py
+#: --fwapsp`` (PERF.md): 64 won at 1,711 (its phase 1 is 4x cheaper a
+#: k-block), 128 at 4,661 (phase 3 on the wide matrix dominates)
+APSP_BLOCKS = (64, 128)
+APSP_WIDE_N = 2048
+
+
+def apsp_block(n: int) -> int:
+    """The k-block width the blocked APSP takes for an [n, n] matrix."""
+    return APSP_BLOCKS[0] if n <= APSP_WIDE_N else APSP_BLOCKS[1]
 
 
 def _lib() -> ctypes.CDLL:
@@ -67,6 +83,10 @@ def _dist_lib() -> ctypes.CDLL:
         for fn in (lib.fw_dist_smem, lib.fw_dist_global):
             fn.argtypes = _SIG_DIST
             fn.restype = ctypes.c_int
+        ll = ctypes.c_longlong
+        lib.fw_dist_reg.argtypes = [_VP, _VP, ctypes.c_int, ctypes.c_int, ll,
+                                    ll, ll, ll, _VP]
+        lib.fw_dist_reg.restype = ctypes.c_int
     return lib
 
 
@@ -152,54 +172,183 @@ def fw_batch_next_cuda(d: torch.Tensor) -> tuple[torch.Tensor,
     return fw_next_blocked_cuda(d)
 
 
-def fw_batch_cuda(d: torch.Tensor) -> torch.Tensor:
-    """Batched distance-only APSP on the card: [b, n, n] -> dist, the
-    shared-memory variant up to n = DIST_SMEM_MAX_N, one launch per
-    pivot above."""
-    b, n = _check(d, "fw_dist")
-    entry = "fw_dist_smem" if n <= DIST_SMEM_MAX_N else "fw_dist_global"
-    dist = torch.empty_like(d)
+def _check_rows(d: torch.Tensor, kernel: str) -> tuple[int, int]:
+    """[b, n, n] float32 on the card whose rows are contiguous (any row
+    and batch strides)."""
+    if not d.is_cuda:
+        raise ValueError(f"{kernel} kernel needs a CUDA tensor, got "
+                         f"{d.device}")
+    if d.dtype != torch.float32:
+        raise TypeError(f"{kernel} kernel takes float32, got {d.dtype}")
+    if d.dim() != 3 or d.shape[1] != d.shape[2]:
+        raise ValueError(f"{kernel} kernel takes [b, n, n], got "
+                         f"{tuple(d.shape)}")
+    if d.shape[2] > 1 and d.stride(2) != 1:
+        raise ValueError(f"{kernel} kernel takes rows with unit stride")
+    return d.shape[0], d.shape[1]
+
+
+def fw_batch_cuda(d: torch.Tensor, out: torch.Tensor | None = None
+                  ) -> torch.Tensor:
+    """Batched distance-only APSP on the card: [b, n, n] -> dist, into
+    ``out`` when given (which may be ``d`` itself) else a new tensor.
+    Up to n = DIST_REG_MAX_N each matrix sits in one block's registers
+    and ``d`` and ``out`` may be strided views (rows contiguous), as the
+    blocked schedule's diagonal tile is; above that ``d`` and ``out``
+    are contiguous, the shared-memory variant takes n <= DIST_SMEM_MAX_N
+    and one launch a pivot the rest."""
+    b, n = _check_rows(d, "fw_dist")
+    if out is None:
+        out = torch.empty_like(d, memory_format=torch.contiguous_format)
+    elif _check_rows(out, "fw_dist") != (b, n) or out.device != d.device:
+        raise ValueError(f"fw_dist kernel: out is {tuple(out.shape)} on "
+                         f"{out.device}, expected {tuple(d.shape)} on "
+                         f"{d.device}")
+    if n > DIST_REG_MAX_N and not (d.is_contiguous()
+                                   and out.is_contiguous()):
+        raise ValueError(f"fw_dist kernel takes contiguous tensors above "
+                         f"n = {DIST_REG_MAX_N}")
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_dist_lib(), entry)(d.data_ptr(), dist.data_ptr(),
-                                          b, n, stream)
+        if n <= DIST_REG_MAX_N:
+            launch_dist_reg(d.data_ptr(), out.data_ptr(), b, n,
+                            ld_in=d.stride(1), ld_out=out.stride(1),
+                            bs_in=d.stride(0), bs_out=out.stride(0),
+                            stream=stream)
+            return out
+        entry = "fw_dist_smem" if n <= DIST_SMEM_MAX_N else "fw_dist_global"
+        err = getattr(_dist_lib(), entry)(d.data_ptr(), out.data_ptr(), b, n,
+                                          stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     fw_batch_cuda.launches += 1
-    return dist
+    return out
+
+
+def launch_dist_reg(din: int, dout: int, b: int, n: int, *, ld_in: int,
+                    ld_out: int, bs_in: int, bs_out: int,
+                    stream: int) -> None:
+    """One launch of ``fw_dist_reg`` (the one place that packs its C
+    arguments: device addresses, row and batch strides in elements):
+    the launch site of ``fw_batch_cuda`` at n <= DIST_REG_MAX_N and of
+    the blocked schedule.  Counts the launch."""
+    err = _dist_lib().fw_dist_reg(din, dout, b, n, ld_in, ld_out, bs_in,
+                                  bs_out, stream)
+    if err != 0:
+        raise RuntimeError(f"fw_dist_reg launch failed: CUDA error {err}")
+    fw_batch_cuda.launches += 1
 
 
 fw_batch_cuda.launches = 0
 
 
-def fw_blocked(d: torch.Tensor, *, block: int = 128, force=None
+def blocked_steps(np_: int, block: int):
+    """The launches of the blocked schedule on a padded [np_, np_]
+    matrix, in order, each operand a window (row, col, rows, cols) of
+    the matrix.  Per k-block K = [s, e):
+      ("fw", tile):                           phase 1 on the pivot tile;
+      ("p2", (c, a, b), skip_cols, (c, a, b), skip_rows):
+          phase 2, the row panel (C = B, the pivot columns skipped) and
+          the column panel (C = A, the pivot rows skipped) at once;
+      ("mp", c, a, b, skip_rows, skip_cols):  phase 3 on the whole
+          matrix, the band skipped."""
+    for s in range(0, np_, block):
+        e = s + block
+        piv, row, col = (s, s, block, block), (s, 0, block, np_), \
+            (0, s, np_, block)
+        yield ("fw", piv)
+        yield ("p2", (row, piv, row), (s, e), (col, col, piv), (s, e))
+        yield ("mp", (0, 0, np_, np_), col, row, (s, e), (s, e))
+
+
+def fw_blocked(d: torch.Tensor, *, block: int | None = None, force=None
                ) -> torch.Tensor:
     """3-phase blocked Floyd-Warshall for one [n, n] matrix, the
-    reference's ``fw_blocked`` step for step.
+    reference's ``fw_blocked`` schedule, in place on one padded matrix,
+    in k-blocks of ``block`` (default ``apsp_block(n)``).
 
-    Pads to a block multiple with +inf (diagonal 0).  Per k-block:
-      phase 1: FW on the diagonal block D[kk]            (ops.fw_batch)
-      phase 2: D[k, *] = min(D[k, *], D[kk] (x) D[k, *]);
-               D[*, k] = min(D[*, k], D[*, k] (x) D[kk]) (ops.minplus_accum)
-      phase 3: D = min(D, D[*, k] (x) D[k, *])          (ops.minplus_accum)
-    The ops dispatch follows the tensor: CUDA kernels on the card, the
-    plain versions on the CPU.
+    Pads to a block multiple with +inf (diagonal 0), allocated once.
+    Per k-block K = [s, e), with P = D[K, K]:
+      phase 1: P = FW(P), in place                     (ops.fw_batch)
+      phase 2: D[K, *] = min(D[K, *], P (x) D[K, *]), columns K kept;
+               D[*, K] = min(D[*, K], D[*, K] (x) P), rows K kept
+                                              (ops.minplus_accum_panels)
+      phase 3: D = min(D, D[*, K] (x) D[K, *]), rows and columns K kept
+                                                (ops.minplus_accum_into)
+    The kept cells are the reference's fixed points: a closed P gives
+    min(P, P (x) P) = P, and after phase 2 the bands are closed under
+    phase 3, so on integer-valued input (exact sums) this equals the
+    reference, which rewrites them.  The launches are
+    ``blocked_steps``: on the card they go straight to the kernels'
+    launch sites (block <= 128, so each phase-2 panel fits one tile's
+    rows or columns), on the CPU through ``ops`` (the plain versions) on
+    views of the same windows, so the CPU tests hold the windows the
+    card's pointers are computed from.
     """
     from . import ops                  # ops imports this module
     n = d.shape[0]
+    block = block or apsp_block(n)
     np_ = -(-n // block) * block
     pad = torch.full((np_, np_), float("inf"), dtype=d.dtype,
                      device=d.device)
     pad[:n, :n] = d
     pad.fill_diagonal_(0.0)
-    for s in range(0, np_, block):
-        e = s + block
-        dkk = ops.fw_batch(pad[None, s:e, s:e].contiguous(), force=force)[0]
-        pad[s:e, s:e] = dkk
-        row = ops.minplus_accum(pad[s:e], dkk, pad[s:e], force=force)
-        pad[s:e] = row
-        col = pad[:, s:e].contiguous()
-        col = ops.minplus_accum(col, col, dkk, force=force)
-        pad[:, s:e] = col
-        pad = ops.minplus_accum(pad, col, row, force=force)
+    steps = blocked_steps(np_, block)
+    if ops.use_kernel(pad.device, force):
+        _blocked_cuda(pad, steps, block)
+    else:
+        def view(w):
+            return pad[w[0]:w[0] + w[2], w[1]:w[1] + w[3]]
+        for step in steps:
+            if step[0] == "fw":
+                tile = view(step[1])[None]
+                ops.fw_batch(tile, out=tile, force=force)
+            elif step[0] == "p2":
+                _, row, skip_c, col, skip_r = step
+                ops.minplus_accum_panels(
+                    tuple(map(view, row)), tuple(map(view, col)),
+                    skip_cols=skip_c, skip_rows=skip_r, force=force)
+            else:
+                _, c, a, b, skip_r, skip_c = step
+                ops.minplus_accum_into(view(c), view(a), view(b),
+                                       skip_rows=skip_r, skip_cols=skip_c,
+                                       force=force)
     return pad[:n, :n].contiguous()
+
+
+def _blocked_cuda(pad: torch.Tensor, steps, block: int) -> None:
+    """The blocked schedule's launches on the card: each step's operands
+    computed from its windows (element offset row * np + col into
+    ``pad``) and handed to the kernels' launch sites, with no tensor
+    view or check a launch, since every window lies inside ``pad`` and
+    the aliasing is the one ``csrc/minplus.cu`` allows."""
+    from .minplus import PANEL, Job, launch_into, launch_panels
+    if block > min(PANEL, DIST_REG_MAX_N):
+        raise ValueError(f"fw_blocked on the card takes block <= "
+                         f"{min(PANEL, DIST_REG_MAX_N)}, got {block}")
+    _check_rows(pad[None], "fw_blocked")
+    if not pad.is_contiguous():
+        raise ValueError("fw_blocked: the padded matrix must be contiguous")
+    np_ = pad.shape[0]
+    base = pad.data_ptr()
+
+    def ptr(w):
+        return base + 4 * (w[0] * np_ + w[1])
+
+    def job(c, a, b):
+        return Job(c=ptr(c), ldc=np_, a=ptr(a), lda=np_, b=ptr(b), ldb=np_,
+                   m=c[2], n=c[3], k=a[3])
+    with torch.cuda.device(pad.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for step in steps:
+            if step[0] == "fw":
+                p = ptr(step[1])
+                launch_dist_reg(p, p, 1, block, ld_in=np_, ld_out=np_,
+                                bs_in=np_ * np_, bs_out=np_ * np_,
+                                stream=stream)
+            elif step[0] == "p2":
+                _, row, skip_c, col, skip_r = step
+                launch_panels(job(*row), skip_c, job(*col), skip_r, stream)
+            else:
+                _, c, a, b, skip_r, skip_c = step
+                launch_into(job(c, a, b), skip_r, skip_c, stream)

@@ -7,13 +7,30 @@ with plain versions ``ref.minplus_ref`` and ``ref.minplus_accum_ref``:
     minplus_cuda(a, b)          = min_k a[i, k] + b[k, j]
     minplus_accum_cuda(c, a, b) = min(c, minplus_cuda(a, b))
 
-Both always allocate their output, so ``c`` may be the same tensor as
-``b`` (the blocked Floyd-Warshall's phase 2 passes one row panel as
-both).  Each wrapper counts its calls in ``.launches``.
+Both allocate their output, so ``c`` may be the same tensor as ``b``.
+A third wrapper runs the accumulating kernel in place, on strided views:
+
+    minplus_accum_into_cuda(c, a, b, skip_rows=, skip_cols=)
+        c[i, j] = min(c[i, j], (a (x) b)[i, j]), but for the skipped
+        rows and columns
+
+which is how the blocked Floyd-Warshall's phase 3 updates its padded
+matrix where it lies, and a fourth runs phase 2's two panels in one
+launch:
+
+    minplus_accum_panels_cuda(row, col, skip_cols=, skip_rows=)
+        minplus_accum_into_cuda(*row, skip_cols=skip_cols) and
+        minplus_accum_into_cuda(*col, skip_rows=skip_rows), where the
+        row panel's c may be its b and the column panel's c its a
+
+(``csrc/minplus.cu`` states when the views may alias; plain versions
+``ref.minplus_accum_into_ref`` and ``ref.minplus_accum_panels_ref``).
+Each wrapper counts its calls in ``.launches``.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -29,6 +46,13 @@ def _lib() -> ctypes.CDLL:
         lib.minplus.argtypes = [_VP, _VP, _VP, _I, _I, _I, _VP]
         lib.minplus_accum.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _VP]
         lib.minplus.restype = lib.minplus_accum.restype = ctypes.c_int
+        ll = ctypes.c_longlong
+        lib.minplus_accum_ld.argtypes = [_VP, ll, _VP, ll, _VP, ll, _VP, ll,
+                                         _I, _I, _I, _I, _I, _I, _I, _VP]
+        lib.minplus_accum_ld.restype = ctypes.c_int
+        lib.minplus_accum_panels.argtypes = (
+            [_VP, ll, _VP, ll, _VP, ll, _I, _I, _I, _I, _I] * 2 + [_VP])
+        lib.minplus_accum_panels.restype = ctypes.c_int
     return lib
 
 
@@ -90,5 +114,172 @@ def minplus_accum_cuda(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     return out
 
 
+#: a panel of at most this many rows (columns) is one tile high (wide)
+#: in ``minplus_accum_panels`` (csrc/minplus.cu), so C may alias B (A)
+#: there up to it
+PANEL = 128
+
+
+class Job(NamedTuple):
+    """One in-place product as the C entries take it: device addresses
+    and leading dimensions (elements) of c (which is also c_in), a and
+    b, and the sizes c [m, n], a [m, k], b [k, n]."""
+    c: int
+    ldc: int
+    a: int
+    lda: int
+    b: int
+    ldb: int
+    m: int
+    n: int
+    k: int
+
+
+def _job(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> Job:
+    return Job(c=c.data_ptr(), ldc=c.stride(0), a=a.data_ptr(),
+               lda=a.stride(0), b=b.data_ptr(), ldb=b.stride(0),
+               m=c.shape[0], n=c.shape[1], k=a.shape[1])
+
+
+def launch_into(job: Job, skip_rows, skip_cols, stream: int) -> None:
+    """One launch of ``minplus_accum_ld`` (the one place that packs its C
+    arguments): the launch site of ``minplus_accum_into_cuda``, which
+    checks its views first, and of the blocked schedule, whose windows
+    are checked by construction (``floyd_warshall.fw_blocked``).
+    Counts the launch."""
+    (r0, r1), (c0, c1) = skip_rows, skip_cols
+    err = _lib().minplus_accum_ld(job.c, job.ldc, job.a, job.lda, job.b,
+                                  job.ldb, job.c, job.ldc, job.m, job.n,
+                                  job.k, r0, r1, c0, c1, stream)
+    if err != 0:
+        raise RuntimeError(f"minplus_accum_ld launch failed: CUDA error "
+                           f"{err}")
+    minplus_accum_into_cuda.launches += 1
+
+
+def launch_panels(row: Job, skip_cols, col: Job, skip_rows,
+                  stream: int) -> None:
+    """One launch of ``minplus_accum_panels`` (the one place that packs
+    its C arguments): the launch site of ``minplus_accum_panels_cuda``
+    and of the blocked schedule.  Counts the launch."""
+    err = _lib().minplus_accum_panels(
+        row.c, row.ldc, row.a, row.lda, row.b, row.ldb, row.m, row.n,
+        row.k, *skip_cols, col.c, col.ldc, col.a, col.lda, col.b, col.ldb,
+        col.m, col.n, col.k, *skip_rows, stream)
+    if err != 0:
+        raise RuntimeError(f"minplus_accum_panels launch failed: CUDA "
+                           f"error {err}")
+    minplus_accum_panels_cuda.launches += 1
+
+
+def _overlap(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Whether the memory spans of two views intersect."""
+    def span(t):
+        lo = t.data_ptr()
+        hi = lo + 4 * sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+        return lo, hi
+    (a0, a1), (b0, b1) = span(x), span(y)
+    return a0 <= b1 and b0 <= a1
+
+
+def _skipped(c: torch.Tensor, x: torch.Tensor, skip_rows, skip_cols
+             ) -> bool:
+    """Whether x is a window of c (same row stride) whose every cell lies
+    in c's skipped rows or in its skipped columns."""
+    ld = c.stride(0)
+    off = (x.data_ptr() - c.data_ptr()) // 4
+    if x.stride(0) != ld or off < 0:
+        return False
+    r, col = divmod(off, ld)
+    if col + x.shape[1] > ld:
+        return False
+    return ((skip_rows[0] <= r and r + x.shape[0] <= skip_rows[1])
+            or (skip_cols[0] <= col and col + x.shape[1] <= skip_cols[1]))
+
+
+def _check_views(kernel: str, c: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor) -> tuple[int, int, int]:
+    """(m, n, k) of views c [m, n], a [m, k], b [k, n]: float32 on c's
+    CUDA device, unit column stride."""
+    for name, x in (("c", c), ("a", a), ("b", b)):
+        if not x.is_cuda or x.device != c.device:
+            raise ValueError(f"{kernel} kernel: {name} must be a CUDA "
+                             f"tensor on {c.device}, got {x.device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{kernel} kernel: {name} must be float32, "
+                            f"got {x.dtype}")
+        if x.dim() != 2 or (x.shape[1] > 1 and x.stride(1) != 1):
+            raise ValueError(f"{kernel} kernel: {name} must be a matrix "
+                             f"with unit column stride")
+    m, n, k = _shapes(kernel, a, b)
+    if tuple(c.shape) != (m, n):
+        raise ValueError(f"{kernel} kernel: c is {tuple(c.shape)}, "
+                         f"expected {(m, n)}")
+    return m, n, k
+
+
+def _same_window(c: torch.Tensor, x: torch.Tensor) -> bool:
+    """Whether x starts where c does with c's row stride."""
+    return x.data_ptr() == c.data_ptr() and x.stride(0) == c.stride(0)
+
+
+def _check_alias(kernel: str, c: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, skip_rows, skip_cols, panel: str = ""
+                 ) -> None:
+    """Refuses a or b sharing c's memory beyond c's skipped cells, but
+    for the panel operand ``panel`` ("a" or "b"), which may be the same
+    window as c (``csrc/minplus.cu`` says why each case is race-free)."""
+    for name, x in (("a", a), ("b", b)):
+        if (not _overlap(c, x) or _skipped(c, x, skip_rows, skip_cols)
+                or (name == panel and _same_window(c, x))):
+            continue
+        also = ", nor is it the same window as c" if name == panel else ""
+        raise ValueError(f"{kernel} kernel: c shares {name}'s memory "
+                         f"beyond c's skipped cells{also}")
+
+
+def minplus_accum_into_cuda(c: torch.Tensor, a: torch.Tensor,
+                            b: torch.Tensor, *, skip_rows=(0, 0),
+                            skip_cols=(0, 0)) -> torch.Tensor:
+    """c [m, n], a [m, k], b [k, n]: float32 views on one CUDA device
+    with unit column stride.  Writes min(c, a (x) b) into c in place,
+    but for rows in [skip_rows) and columns in [skip_cols), and returns
+    c.  a and b may share memory with c only in c's skipped cells (the
+    blocked schedule's phase 3: its bands); phase 2's aliased panels go
+    through ``minplus_accum_panels_cuda``."""
+    _check_views("minplus_accum_into", c, a, b)
+    _check_alias("minplus_accum_into", c, a, b, skip_rows, skip_cols)
+    with torch.cuda.device(c.device):
+        launch_into(_job(c, a, b), skip_rows, skip_cols,
+                    torch.cuda.current_stream().cuda_stream)
+    return c
+
+
+def minplus_accum_panels_cuda(row, col, *, skip_cols=(0, 0),
+                              skip_rows=(0, 0)) -> None:
+    """Phase 2 of the blocked FW in one launch: ``row`` = (c, a, b) with
+    at most PANEL rows gets ``minplus_accum_into_cuda(*row,
+    skip_cols=skip_cols)``, ``col`` = (c, a, b) with at most PANEL
+    columns ``minplus_accum_into_cuda(*col, skip_rows=skip_rows)``.  In
+    ``row`` b may be the same window as c, in ``col`` a; anything else
+    shares c's memory only in its skipped cells.  The two must write
+    disjoint cells and neither may write what the other reads (the row
+    panel and the column panel of one pivot tile, its cells skipped in
+    both)."""
+    (rm, _, _), (_, qn, _) = (_check_views("minplus_accum_panels", *job)
+                              for job in (row, col))
+    if rm > PANEL or qn > PANEL:
+        raise ValueError(f"minplus_accum_panels kernel: the row panel has "
+                         f"{rm} rows, the column panel {qn} columns; at "
+                         f"most {PANEL} each")
+    _check_alias("minplus_accum_panels", *row, (0, 0), skip_cols, "b")
+    _check_alias("minplus_accum_panels", *col, skip_rows, (0, 0), "a")
+    with torch.cuda.device(row[0].device):
+        launch_panels(_job(*row), skip_cols, _job(*col), skip_rows,
+                      torch.cuda.current_stream().cuda_stream)
+
+
 minplus_cuda.launches = 0
 minplus_accum_cuda.launches = 0
+minplus_accum_into_cuda.launches = 0
+minplus_accum_panels_cuda.launches = 0

@@ -21,7 +21,8 @@ import torch
 from . import ref as _ref
 from .floyd_warshall import fw_batch_cuda, fw_batch_next_cuda, fw_blocked
 from .label_merge import label_merge_cuda
-from .minplus import minplus_accum_cuda, minplus_cuda
+from .minplus import (minplus_accum_cuda, minplus_accum_into_cuda,
+                      minplus_accum_panels_cuda, minplus_cuda)
 from .minplus_twoside import (minplus_twoside_argmin_cuda,
                               minplus_twoside_cuda,
                               minplus_twoside_grouped_cuda)
@@ -123,17 +124,50 @@ def minplus_accum(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
     return _ref.minplus_accum_ref(c, a, b)
 
 
-def fw_batch(d: torch.Tensor, *, force: Force = None) -> torch.Tensor:
-    """Distance-only batched APSP over [b, n, n] (diagonal forced to 0)."""
+def minplus_accum_into(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                       *, skip_rows=(0, 0), skip_cols=(0, 0),
+                       force: Force = None) -> torch.Tensor:
+    """min(C, A (x) B) written into the view C, but for rows in
+    [skip_rows) and columns in [skip_cols); on the card A and B may
+    share C's memory only in its skipped cells, as in the blocked FW's
+    phase 3 (``minplus_accum_into_cuda``)."""
+    if use_kernel(a.device, force):
+        return minplus_accum_into_cuda(c, a, b, skip_rows=skip_rows,
+                                       skip_cols=skip_cols)
+    return _ref.minplus_accum_into_ref(c, a, b, skip_rows=skip_rows,
+                                       skip_cols=skip_cols)
+
+
+def minplus_accum_panels(row, col, *, skip_cols=(0, 0), skip_rows=(0, 0),
+                         force: Force = None) -> None:
+    """The blocked FW's phase 2 in one call: ``minplus_accum_into`` on the
+    row panel ``row`` = (c, a, b) with ``skip_cols`` and on the column
+    panel ``col`` with ``skip_rows``, where the row panel's C may be its
+    B and the column panel's C its A (``minplus_accum_panels_cuda``)."""
+    if use_kernel(row[0].device, force):
+        minplus_accum_panels_cuda(row, col, skip_cols=skip_cols,
+                                  skip_rows=skip_rows)
+    else:
+        _ref.minplus_accum_panels_ref(row, col, skip_cols=skip_cols,
+                                      skip_rows=skip_rows)
+
+
+def fw_batch(d: torch.Tensor, *, out: torch.Tensor | None = None,
+             force: Force = None) -> torch.Tensor:
+    """Distance-only batched APSP over [b, n, n] (diagonal forced to 0),
+    into ``out`` when given (which may be ``d``)."""
     if use_kernel(d.device, force):
-        return fw_batch_cuda(d)
-    return _ref.fw_batch_ref(d)
+        return fw_batch_cuda(d, out)
+    dist = _ref.fw_batch_ref(d)
+    return dist if out is None else out.copy_(dist)
 
 
-def fw_apsp(d: torch.Tensor, *, block: int = 128, force: Force = None
-            ) -> torch.Tensor:
+def fw_apsp(d: torch.Tensor, *, block: int | None = None,
+            force: Force = None) -> torch.Tensor:
     """APSP for a single [n, n] matrix: the blocked 3-phase schedule
-    over kernels ``fw_batch`` and ``minplus_accum`` on the card, the
+    over kernels ``fw_batch``, ``minplus_accum_panels`` and
+    ``minplus_accum_into`` on the card, in k-blocks of ``block`` (at
+    most 128 there; default ``floyd_warshall.apsp_block(n)``), the
     single-pivot plain version ``fw_ref`` on the CPU (as the reference's
     CPU path runs)."""
     if use_kernel(d.device, force):

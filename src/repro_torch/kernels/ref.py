@@ -329,6 +329,36 @@ def minplus_accum_ref(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     return torch.minimum(c, minplus_ref(a, b))
 
 
+def minplus_accum_into_ref(c: torch.Tensor, a: torch.Tensor,
+                           b: torch.Tensor, *, skip_rows=(0, 0),
+                           skip_cols=(0, 0)) -> torch.Tensor:
+    """The in-place kernel ``minplus_accum_into_cuda`` in plain torch:
+    c[i, j] = min(c[i, j], (a (x) b)[i, j]) written into the view c, but
+    for rows in [skip_rows) and columns in [skip_cols), which keep their
+    values.  The product is formed before anything is written, which is
+    what the kernels' race-free aliasing gives (c may share memory with
+    a and b in its skipped cells, and in ``minplus_accum_panels_cuda``
+    be the same window as the panel operand)."""
+    new = minplus_accum_ref(c, a, b)
+    m, n = c.shape
+    keep = torch.zeros((m, n), dtype=torch.bool, device=c.device)
+    keep[skip_rows[0]:skip_rows[1]] = True
+    keep[:, skip_cols[0]:skip_cols[1]] = True
+    c.copy_(torch.where(keep, c, new))
+    return c
+
+
+def minplus_accum_panels_ref(row, col, *, skip_cols=(0, 0),
+                             skip_rows=(0, 0)) -> None:
+    """The two-panel kernel ``minplus_accum_panels_cuda`` in plain torch:
+    ``minplus_accum_into_ref`` on the row panel (c, a, b) with its
+    skipped columns, then on the column panel with its skipped rows (the
+    kernel runs them at once; they write disjoint cells and neither
+    writes what the other reads, so the order does not matter)."""
+    minplus_accum_into_ref(*row, skip_cols=skip_cols)
+    minplus_accum_into_ref(*col, skip_rows=skip_rows)
+
+
 def fw_batch_ref(d: torch.Tensor) -> torch.Tensor:
     """Distance-only Floyd-Warshall over a batch [b, n, n]: diagonal
     forced to 0, then the serial pivot recurrence of
