@@ -14,16 +14,21 @@ prints no result.  Phases, each of which must pass:
      shapes that are not tile multiples (and all-+inf blocks), timing
      kernel and plain version with CUDA events and, but for the
      per-pivot FW, the profiler's device time: the witness FW at the
-     dense path's shapes, road64k's fragments ([130, 496, 496], out of
-     L2) and the hierarchy's group closures ([6 and 3, 1024, 1024]),
-     ragged n, tie-heavy values and all-+inf blocks, each shape timed
-     for the blocked kernel beside the shared-memory one (n <= 160) or
-     the per-pivot one it replaced (above); the dense twoside
+     piece buckets of both main paths ([407, 8, 8], [6, 32, 32],
+     [6211, 8, 8], [75, 32, 32]), the dense path's shapes, road64k's
+     fragments ([130, 496, 496], out of L2) and the hierarchy's group
+     closures ([6 and 3, 1024, 1024]), ragged n, tie-heavy values and
+     all-+inf blocks, each shape timed for the register kernel beside
+     the blocked one (n <= 64) or the blocked kernel beside the
+     per-pivot one it replaced (above); the dense twoside
      contraction at the dense and top-closure shapes (S_top+1 = 1712)
      through the grouped kernel's identity tables; the distance-only FW
      (the register variant at each of its block sizes, fresh and in
      place on strided tiles, the shared-memory and per-pivot ones
-     above), the (min,+) products with and without accumulation, the
+     above), the (min,+) products with and without accumulation (the
+     one-to-all GEMV at [1, 480], [1, 1712] and [1, 4614] with B cycled
+     out of L2 and warm, the m = 8 / 9 neighbours of its row threshold,
+     negative entries), the
      in-place accumulate on views of a padded matrix as the blocked
      schedule's phases 2 (aliased panels) and 3 (band skipped) call it,
      the whole blocked APSP (``ops.fw_apsp`` at n = 1,711 and 4,661,
@@ -55,7 +60,8 @@ prints no result.  Phases, each of which must pass:
      ``serve_one_to_all`` from 3 sources against Dijkstra and, from
      4,096 random pairs of hub nodes, the hub-gated pairs through
      ``query_hub`` (== ``query``, 32 == Dijkstra); counters zeroed just
-     before and read just after;
+     before and read just after; then each one-to-all source timed on
+     its own (warm, synchronised, Dijkstra excluded);
   7. the grouped twoside kernel (compact rows through id tables)
      array-equal to its plain version: random operands in both regimes
      (ragged, all-+inf rows, ties, duplicate and sentinel ids, one
@@ -64,7 +70,7 @@ prints no result.  Phases, each of which must pass:
      for a batch of 1,024 (cross_frag at both, road64k's cross_res),
      bounds counted from each input's own finite cells;
   8. the ``kernels`` JSON line (launches summed over the main paths of
-     phases 4 and 6, which must launch the blocked witness FW, the
+     phases 4 and 6, which must launch both witness FW kernels, the
      grouped twoside and the in-place accumulate, and never the
      per-pivot FW or the fresh-output accumulate; times and bounds from
      phases 2 and 7), the card's name and power limit from nvidia-smi,
@@ -200,9 +206,9 @@ def _fw_input(b, n, kind, all_inf):
 def _check_fw(cases, out):
     """(label, b, n, kind, all_inf): the witness FW variants against the
     plain version, dist and nxt array-equal, each timed in this call:
-    n <= SMEM_MAX_N the shared-memory kernel and the blocked one, above
-    it the blocked kernel (the main path's) and the per-pivot one it
-    replaced (CUDA events; device time too, but for the per-pivot
+    n <= REG_MAX_N the register kernel (the main path's) and the blocked
+    one, above it the blocked kernel (the main path's) and the per-pivot
+    one it replaced (CUDA events; device time too, but for the per-pivot
     kernel, off the main path)."""
     import torch
     from repro_torch.kernels import floyd_warshall as fw
@@ -214,9 +220,9 @@ def _check_fw(cases, out):
         plain_ms = _time_ms(lambda: ops.fw_batch_next(d, force="ref"),
                             1 if big else 3)
         bound, by = _bound_ms(12.0 * b * n * n, 2.0 * b * n ** 3)
-        other = (fw.fw_next_smem_cuda if n <= fw.SMEM_MAX_N
-                 else fw.fw_next_global_cuda)
-        for kernel in (fw.fw_next_blocked_cuda, other):
+        for kernel in ((fw.fw_next_reg_cuda, fw.fw_next_blocked_cuda)
+                       if n <= fw.REG_MAX_N else
+                       (fw.fw_next_blocked_cuda, fw.fw_next_global_cuda)):
             got = kernel(d)
             torch.cuda.synchronize()
             dist_ok = torch.equal(got[0], want[0])
@@ -380,6 +386,19 @@ def _check_twoside_argmin(cases, out):
 #: bytes of inputs a timed call cycles through, so each call finds its
 #: own inputs out of the card's 50 MB L2 (as a serve batch finds them)
 _COLD_BYTES = 128 << 20
+
+
+def _cold_minplus(minplus, a, b):
+    """(fn, copies): fn() = minplus(a, b') with b' the next of ``copies``
+    copies of b that together exceed the L2 (at least 5), one a call, so
+    each call reads its B from HBM (kernel 5's one-to-all reading)."""
+    bs = [b.clone() for _ in range(
+        max(5, -(-_COLD_BYTES // (4 * b.numel()))))]
+    turn = iter(range(1 << 30))
+
+    def fn():
+        return minplus(a, bs[next(turn) % len(bs)])
+    return fn, len(bs)
 
 
 def _check_label_merge(cases, out):
@@ -635,23 +654,30 @@ def _check_fw_batch(cases, out):
 
 
 def _check_minplus(cases, out):
-    """(label, m, k, n, accum): minplus_accum (C_in = an independent
-    matrix, or B itself as the blocked FW's phase 2 passes it) or
-    minplus, against the plain version."""
+    """(label, m, k, n, accum[, opts]): minplus_accum (C_in = an
+    independent matrix, or B itself as the blocked FW's phase 2 passes
+    it) or minplus, against the plain version.  opts "neg": integers
+    from [-50, 50) (+inf as usual); "cold": minplus timed over copies of
+    B that together exceed the L2 (at least 5), one a call, as
+    ``_check_label_merge`` does (``_cold_minplus``), beside the warm
+    reading."""
     import functools
 
     import numpy as np
     import torch
     from repro_torch.kernels import minplus as mp
     from repro_torch.kernels import ops
-    for label, m, k, n, accum in cases:
+    for label, m, k, n, accum, *opts in cases:
         rng = np.random.default_rng(m * 31 + k * 7 + n)
-        a = torch.from_numpy(_int_inf((m, k), rng)).cuda()
-        b = torch.from_numpy(_int_inf((k, n), rng)).cuda()
-        if accum == "alias":
-            c = b
-        else:
-            c = torch.from_numpy(_int_inf((m, n), rng, 0.5)).cuda()
+        lo = -50 if "neg" in opts else 0
+
+        def ints(shape, frac=0.2):
+            x = rng.integers(lo, lo + 100, size=shape).astype(np.float32)
+            x[rng.random(shape) < frac] = np.inf
+            return torch.from_numpy(x).cuda()
+        a, b = ints((m, k)), ints((k, n))
+        c = b if accum == "alias" else ints((m, n), 0.5)
+        extra = {}
         if accum:
             kern = functools.partial(mp.minplus_accum_cuda, c, a, b)
             plain = functools.partial(ops.minplus_accum, c, a, b,
@@ -661,20 +687,25 @@ def _check_minplus(cases, out):
             kern = functools.partial(mp.minplus_cuda, a, b)
             plain = functools.partial(ops.minplus, a, b, force="ref")
             nbytes = 4.0 * (m * k + k * n + m * n)
+            extra["route"] = list(mp.route(m, k, n))
         got, want = kern(), plain()
         torch.cuda.synchronize()
         triples = _finite_triples(a, b)
         bound, by = _bound_ms(nbytes, 2.0 * triples)
         ok = torch.equal(got, want)
+        timed = kern
+        if "cold" in opts:
+            timed, copies = _cold_minplus(mp.minplus_cuda, a, b)
+            extra.update(copies=copies, warm_device_ms=_device_ms(kern, 20))
         _record(out, {
             "case": label,
             "kernel": "minplus_accum_cuda" if accum else "minplus_cuda",
             "m": m, "k": k, "n": n, "equal": ok,
             "max_abs_err": _max_abs_err(got, want),
-            "ms": _time_ms(kern, 20), "device_ms": _device_ms(kern, 20),
+            "ms": _time_ms(timed, 20), "device_ms": _device_ms(timed, 20),
             "plain_ms": _time_ms(plain, 2),
             "bound_ms": bound, "bound_by": by,
-            "finite_triples": triples}, ok)
+            "finite_triples": triples, **extra}, ok)
 
 
 def _check_minplus_into(cases, out):
@@ -792,7 +823,7 @@ def _check_fw_apsp(cases, out):
 
 
 #: every kernel entry: (name, wrapper module, wrapper attribute)
-KERNELS = (("fw_next_smem", "floyd_warshall", "fw_next_smem_cuda"),
+KERNELS = (("fw_next_reg", "floyd_warshall", "fw_next_reg_cuda"),
            ("fw_next_blocked", "floyd_warshall", "fw_next_blocked_cuda"),
            ("fw_next_global", "floyd_warshall", "fw_next_global_cuda"),
            ("minplus_twoside_grouped", "minplus_twoside",
@@ -978,7 +1009,8 @@ def _main_path(graph: str, validate: int, sources=(), path_args=(),
     warmup + batches + validation, then the ``--paths`` loop), then
     ``serve_one_to_all`` from ``sources`` against Dijkstra and, with
     ``n_hubs`` seeded random hub nodes, the hub tier (``_hub_check``);
-    kernel launches counted in between."""
+    kernel launches counted in between.  After the count, each
+    one-to-all source is timed on its own (``_one_to_all_ms``)."""
     import numpy as np
     from repro_torch.core import dijkstra
     from repro_torch.core.device_engine import serve_one_to_all
@@ -1000,7 +1032,6 @@ def _main_path(graph: str, validate: int, sources=(), path_args=(),
     if n_hubs:
         res["hub"] = _hub_check(g, dix, hubs)
     bad_o2a = 0
-    t0 = time.perf_counter()
     for src in sources:
         got = serve_one_to_all(dix, int(src)).cpu().numpy()
         want = dijkstra.sssp(g, int(src)).astype(np.float32)
@@ -1009,9 +1040,10 @@ def _main_path(graph: str, validate: int, sources=(), path_args=(),
     if sources:
         res["one_to_all"] = {"sources": [int(x) for x in sources],
                              "mismatches": bad_o2a,
-                             "s_with_dijkstra": time.perf_counter() - t0}
+                             **_one_to_all_ms(dix, sources)}
         print(f"  {graph} one-to-all from {list(sources)}: {bad_o2a} "
-              f"mismatches against Dijkstra")
+              f"mismatches against Dijkstra; per source "
+              f"{res['one_to_all']}")
     print(f"  {graph} launches: {res['launches']}")
     if (res["mismatches"] or res["paths"]["mismatches"]
             or not res["answers_finite"] or bad_o2a):
@@ -1021,6 +1053,31 @@ def _main_path(graph: str, validate: int, sources=(), path_args=(),
                              f"{res['answers_finite']}, one-to-all "
                              f"mismatches: {bad_o2a}")
     return res
+
+
+def _one_to_all_ms(dix, sources, reps: int = 5) -> dict:
+    """``serve_one_to_all`` timed a source on its own, warm: the median
+    host-clock ms of ``reps`` calls each ending in a synchronise, and the
+    device ms a call (every kernel it launches, ``_device_ms``)."""
+    import functools
+    import statistics
+
+    import torch
+    from repro_torch.core.device_engine import serve_one_to_all
+    ms, dev = [], []
+    for src in sources:
+        call = functools.partial(serve_one_to_all, dix, int(src))
+        call()
+        torch.cuda.synchronize()
+        took = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            took.append((time.perf_counter() - t0) * 1e3)
+        ms.append(statistics.median(took))
+        dev.append(_device_ms(call, 3))
+    return {"ms_per_source": ms, "device_ms_per_source": dev}
 
 
 def _require_launched(res: dict, graph: str, names) -> None:
@@ -1101,12 +1158,19 @@ def main() -> int:
     print("kernel checks: tolerance exact (torch.equal on dist, nxt and "
           "out); integer-valued inputs keep every sum below 2**24")
     phase("fw_kernel", lambda: _check_fw([
-        ("smem b=36 n=128", 36, 128, "ragged", ()),
-        ("smem b=8 n=8 all-inf blocks", 8, 8, "ragged", (1, 5)),
-        ("smem b=256 n=32 (piece bucket)", 256, 32, "ragged", ()),
-        ("smem b=64 n=64 ties", 64, 64, "ties", ()),
-        ("smem b=36 n=96", 36, 96, "ragged", ()),
-        ("smem b=36 n=160", 36, 160, "ragged", ()),
+        ("reg b=407 n=8 (road4000 piece bucket)", 407, 8, "ragged", ()),
+        ("reg b=6 n=32 (road4000 piece bucket)", 6, 32, "ragged", ()),
+        ("reg b=6211 n=8 (road64k piece bucket)", 6211, 8, "ragged", ()),
+        ("reg b=75 n=32 (road64k piece bucket)", 75, 32, "ragged", ()),
+        ("reg b=6211 n=8 ties", 6211, 8, "ties", ()),
+        ("reg b=75 n=32 ties all-inf block", 75, 32, "ties", (3,)),
+        ("reg b=8 n=8 all-inf blocks", 8, 8, "ragged", (1, 5)),
+        ("reg b=64 n=64 ties", 64, 64, "ties", ()),
+        ("reg b=9 n=5 ties", 9, 5, "ties", ()),
+        ("reg b=13 n=17 ties", 13, 17, "ties", ()),
+        ("reg b=7 n=33 all-inf block", 7, 33, "ragged", (2,)),
+        ("b=36 n=128", 36, 128, "ragged", ()),
+        ("b=36 n=96", 36, 96, "ragged", ()),
         ("b=1 n=4613", 1, 4613, "ragged", ()),
         ("b=4 n=496 all-inf block", 4, 496, "ragged", (2,)),
         ("b=130 n=496 (frag_stage)", 130, 496, "ragged", ()),
@@ -1140,8 +1204,14 @@ def main() -> int:
         ("accum phase3 C[1792,1792] A[1792,128] B[128,1792]",
          1792, 128, 1792, True),
         ("accum m,k,n=100,37,250", 100, 37, 250, True),
-        ("minplus [1,1712]x[1712,1712]", 1, 1712, 1712, False),
-        ("minplus [1,480]x[480,480]", 1, 480, 480, False),
+        ("minplus [1,1712]x[1712,1712]", 1, 1712, 1712, False, "cold"),
+        ("minplus [1,4614]x[4614,4614]", 1, 4614, 4614, False, "cold"),
+        ("minplus [1,480]x[480,480]", 1, 480, 480, False, "cold"),
+        ("minplus m=8 [8,1712]x[1712,1712] (GEMV, threshold)", 8, 1712,
+         1712, False),
+        ("minplus m=9 [9,1712]x[1712,1712] (tiles)", 9, 1712, 1712,
+         False),
+        ("minplus [3,300]x[300,257] negative", 3, 300, 257, False, "neg"),
         ("minplus [33,77]x[77,129]", 33, 77, 129, False),
     ], new_cases))
     phase("minplus_into_kernel", lambda: _check_minplus_into([
@@ -1226,11 +1296,11 @@ def main() -> int:
 
     try:
         _require_launched(report["road4000"], "road4000",
-                          ("fw_next_smem", "fw_next_blocked",
+                          ("fw_next_reg", "fw_next_blocked",
                            "minplus_twoside_grouped",
                            "minplus_twoside_argmin"))
         _require_launched(report["road64k"], "road64k",
-                          ("fw_batch", "minplus_accum_panels",
+                          ("fw_next_reg", "fw_batch", "minplus_accum_panels",
                            "minplus_accum_into", "minplus",
                            "fw_next_blocked", "minplus_twoside_grouped",
                            "minplus_twoside_argmin", "label_merge"))
@@ -1254,8 +1324,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(
         json.dumps(report, indent=1, default=str))
     rows = [
-        ("fw_next_smem", pick(fw_cases, "smem b=256 n=32 (piece bucket)",
-                              "fw_next_smem_cuda"),
+        ("fw_next_reg", pick(fw_cases, "reg b=6211 n=8 (road64k piece bucket)",
+                             "fw_next_reg_cuda"),
          "src/repro_torch/csrc/fw_next.cu",
          "src/repro/kernels/floyd_warshall.py:97"),
         ("fw_next_blocked", pick(fw_cases, "b=130 n=496 (frag_stage)",

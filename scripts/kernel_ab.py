@@ -3,6 +3,7 @@
 
     python3 scripts/kernel_ab.py --src SRC_DIR --tag NAME [--road64k]
                                  [--serve] [--twoside FILE] [--fwapsp]
+                                 [--small]
 
 Needs one NVIDIA card and ``nvcc``.  Imports ``repro_torch`` from
 ``SRC_DIR`` (the ``src`` directory of this checkout, or of an unpacked
@@ -48,7 +49,17 @@ profiler's device time:
     k-block width and, where it offers them, at 64 and 128, and at
     1,711 through the checked wrappers on views where the checkout's
     schedule has its own launch sites.  Add
-    ``--road64k`` for the ``l2_fw`` build stage.
+    ``--road64k`` for the ``l2_fw`` build stage;
+  * with ``--small``, kernels 5 and 1's small-n variant at the main
+    paths' shapes (device time and CUDA events, each result against its
+    plain version): ``ops.minplus`` (whichever route the checkout takes)
+    at [1,480]x[480,480], [1,1712]x[1712,1712] and [1,4614]x[4614,4614]
+    with B cycled out of L2 (at least 5 copies) and warm, and at
+    [8,1712]x[1712,1712]; ``ops.fw_batch_next`` at the piece buckets
+    [407,8,8], [6,32,32] (road4000), [6211,8,8], [75,32,32] (road64k),
+    at [6211,8,8] tie-heavy and at [64,64,64] tie-heavy; then road64k's
+    ``serve_one_to_all`` a source on its own (sources 0, 31,000 and
+    61,000 of the preset's 3-level build: ``chip_smoke._one_to_all_ms``).
 
 Prints one JSON line tagged NAME and the card's name and power limit.
 """
@@ -77,6 +88,7 @@ def main() -> int:
     ap.add_argument("--serve", action="store_true")
     ap.add_argument("--twoside")
     ap.add_argument("--fwapsp", action="store_true")
+    ap.add_argument("--small", action="store_true")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -94,7 +106,11 @@ def main() -> int:
     if args.fwapsp:
         rec["fwapsp"] = _fwapsp(ops)
         rec["profiler_windows"] = WINDOWS
-    for q, k in ([] if args.fwapsp else ARGMIN):
+    if args.small:
+        rec["small"] = _small(ops)
+        rec["profiler_windows"] = WINDOWS
+    only = args.fwapsp or args.small
+    for q, k in ([] if only else ARGMIN):
         rng = np.random.default_rng(q * 37 + k)
         rows, d, rowt = (torch.from_numpy(_int_inf(s, rng)).cuda()
                          for s in ((q, k), (k, k), (q, k)))
@@ -103,7 +119,7 @@ def main() -> int:
             return ops.minplus_twoside_argmin(rows, d, rowt)
         rec["argmin"][f"q={q} k={k}"] = {"ms": _time_ms(fn, 10),
                                          "device_ms": _device_ms(fn, 10)}
-    for b, n in ([] if args.fwapsp else FW):
+    for b, n in ([] if only else FW):
         rng = np.random.default_rng(b * 7919 + n)
         d = torch.from_numpy(_int_inf((b, n, n), rng)).cuda()
         rec["fw"][f"b={b} n={n}"] = _time_ms(lambda: ops.fw_batch_next(d),
@@ -244,6 +260,65 @@ def _fwapsp(ops) -> dict:
             time(f"fw_apsp n={n} block=default through the checked wrappers",
                  functools.partial(_apsp_on_views, fw, ops, d), want,
                  reps=5, dev_reps=3)
+    return out
+
+
+def _small(ops) -> dict:
+    """The ``--small`` readings of this checkout (see the module note):
+    {label: {"equal", "ms", "device_ms"[, "warm_device_ms"]}}, and the
+    road64k one-to-all times under "road64k one-to-all"."""
+    import functools
+
+    import numpy as np
+    import torch
+    from chip_smoke import (_cold_minplus, _device_ms, _fw_input, _int_inf,
+                            _one_to_all_ms, _time_ms)
+    out = {}
+
+    def ints(shape, rng):
+        return torch.from_numpy(_int_inf(shape, rng)).cuda()
+    for m, n, cold in ((1, 480, True), (1, 1712, True), (1, 4614, True),
+                       (8, 1712, False)):
+        rng = np.random.default_rng(m * 31 + n)
+        a, b = ints((m, n), rng), ints((n, n), rng)
+        want = ops.minplus(a, b, force="ref")
+        got = ops.minplus(a, b)
+        torch.cuda.synchronize()
+        rec = {"equal": bool(torch.equal(got, want))}
+        fn = functools.partial(ops.minplus, a, b)
+        if cold:
+            rec["warm_device_ms"] = _device_ms(fn, 50)
+            fn, rec["copies"] = _cold_minplus(ops.minplus, a, b)
+        rec.update(ms=_time_ms(fn, 50), device_ms=_device_ms(fn, 50))
+        out[f"minplus [{m},{n}]x[{n},{n}]"] = rec
+        print(f"  minplus [{m},{n}]: {rec}", flush=True)
+        del a, b, fn
+        torch.cuda.empty_cache()
+    for b, n, kind in ((407, 8, "ragged"), (6, 32, "ragged"),
+                       (6211, 8, "ragged"), (75, 32, "ragged"),
+                       (6211, 8, "ties"), (64, 64, "ties")):
+        d = _fw_input(b, n, kind, ())
+        want = ops.fw_batch_next(d, force="ref")
+        got = ops.fw_batch_next(d)
+        torch.cuda.synchronize()
+        rec = {"equal": bool(torch.equal(got[0], want[0])
+                             and torch.equal(got[1], want[1])),
+               "ms": _time_ms(lambda: ops.fw_batch_next(d), 50),
+               "device_ms": _device_ms(lambda: ops.fw_batch_next(d), 50)}
+        out[f"fw_batch_next b={b} n={n} {kind}"] = rec
+        print(f"  fw_batch_next b={b} n={n} {kind}: {rec}", flush=True)
+    from repro_torch.core.device_engine import build_device_index_with_plan
+    from repro_torch.core.graph import road_like
+    from repro_torch.core.supergraph import build_index
+    from repro_torch.data.roads import road_preset
+    preset = road_preset("road64k")
+    dix, _plan = build_device_index_with_plan(
+        build_index(road_like(preset.nodes, seed=0)), device="cuda",
+        hierarchy_levels=preset.hierarchy)
+    sources = (0, 31_000, 61_000)
+    out["road64k one-to-all"] = {"sources": list(sources),
+                                 **_one_to_all_ms(dix, sources)}
+    print(f"  road64k one-to-all: {out['road64k one-to-all']}", flush=True)
     return out
 
 

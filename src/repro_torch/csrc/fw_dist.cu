@@ -19,26 +19,14 @@
 // chain (0.185 ms at n = 128 on an H100 SXM, 700 W).
 //
 // The design (fw_dist_reg_kernel, n <= FWD_REG_MAX_N): every thread
-// owns a fixed RM x 4 sub-tile of the matrix in registers (rows
-// ty*RM.., columns tx*4..; a warp is one row group).  At pivot k the
-// owners of row k and of column k publish them into a shared-memory
-// strip pair, double-buffered by the parity of k; every thread reads
-// its RM column entries (broadcast within the warp) and its 4 row
-// entries (one float4) and updates its cells.  Right after its update
-// at pivot k a thread publishes row/column k + 1 if it owns them, into
-// the other buffer, so each pivot needs one __syncthreads: nobody reads
-// that buffer before the barrier, and the buffer it overwrites was last
-// read before the previous barrier.  The pivot loop is unrolled by RM,
-// so the owner's register index (k % RM, k % 4) is static and nothing
-// spills.  One tile shape a padded n: 32 and 64 take RM = 4 (64 and
-// 256 threads), 128 takes RM = 16 (256 threads), which ran faster than
-// 512 and 1,024 threads at b = 1, n = 128 (PERF.md).  The strips hold
-// row k and column k as they were before pivot k, so the update is the
-// reference's functional one, min(D, D[:, k] + D[k, :]), cell for
-// cell.  Input and output
-// take row and batch strides, so the blocked schedule runs it in place
-// on the diagonal tile of its padded matrix (each thread reads all its
-// cells before it writes any, and no two threads share a cell).
+// owns a fixed RM x 4 sub-tile of the matrix in registers, the owners of
+// row k and column k publish them into double-buffered shared strips,
+// one __syncthreads a pivot (fw_reg_tile.cuh, which the witness FW's
+// n <= 64 shape shares).  One tile shape a padded n: 32 and 64 take
+// RM = 4 (64 and 256 threads), 128 takes RM = 16 (256 threads), which
+// ran faster than 512 and 1,024 threads at b = 1, n = 128 (PERF.md).
+// Input and output take row and batch strides, so the blocked schedule
+// runs it in place on the diagonal tile of its padded matrix.
 //
 // Two more launch shapes, unchanged from the first port:
 //  * fw_dist_smem: one block per matrix holds dist (4 bytes a cell) in
@@ -55,106 +43,28 @@
 
 #include <cuda_runtime.h>
 
+#include "fw_reg_tile.cuh"
+
 #define FWD_SMEM_MAX_N 240          // 240 * 240 * 4 B = 225 KB <= 227 KB
 #define FWD_TILE 32
 #define FWD_REG_MAX_N 128           // register tiles: padded n of 32, 64, 128
-#define FWD_RN 4                    // columns a thread owns
 
 // NP: padded n, a multiple of RM; RM: rows a thread owns.  Threads:
 // (NP / RM) row groups x (NP / 4) column lanes.
 template <int NP, int RM>
-__global__ void __launch_bounds__((NP / RM) * (NP / FWD_RN))
+__global__ void __launch_bounds__((NP / RM) * (NP / FWT_RN))
 fw_dist_reg_kernel(const float* din, float* dout, int n, long long ldi,
                    long long ldo, long long bsi, long long bso) {
-  constexpr int RN = FWD_RN;
-  constexpr int TX = NP / RN;         // column lanes
-  static_assert(RM % 4 == 0 && NP % RM == 0, "row tile");
-  __shared__ __align__(16) float rowk[2][NP];
-  __shared__ __align__(16) float colk[2][NP];
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const float inf = __int_as_float(0x7f800000);
-  const float* src = din + (long long)blockIdx.x * bsi;
-  float* dst = dout + (long long)blockIdx.x * bso;
-
-  float acc[RM][RN];
-#pragma unroll
-  for (int r = 0; r < RM; ++r) {
-    const int i = ty * RM + r;
-#pragma unroll
-    for (int c = 0; c < RN; ++c) {
-      const int j = tx * RN + c;
-      acc[r][c] = (i < n && j < n)
-                      ? (i == j ? 0.0f : src[(long long)i * ldi + j])
-                      : inf;
-    }
-  }
-  // row k + 1 lives in row group (k + 1) / RM at register row
-  // (k + 1) % RM, column k + 1 in lane (k + 1) / 4 at register column
-  // (k + 1) % 4; the unrolled loop below makes both register indices
-  // constants
-#define FWD_PUBLISH(K, RR, CC, BUF)                                      \
-  do {                                                                  \
-    if (ty == (K) / RM)                                                 \
-      *reinterpret_cast<float4*>(&rowk[BUF][tx * RN]) = make_float4(    \
-          acc[RR][0], acc[RR][1], acc[RR][2], acc[RR][3]);              \
-    if (tx == (K) / RN) {                                               \
-      _Pragma("unroll") for (int q = 0; q < RM; q += 4)                 \
-        *reinterpret_cast<float4*>(&colk[BUF][ty * RM + q]) =           \
-            make_float4(acc[q][CC], acc[q + 1][CC], acc[q + 2][CC],     \
-                        acc[q + 3][CC]);                                \
-    }                                                                   \
-  } while (0)
-
-  // pivots past n see an all-+inf row and column and change nothing
-  const int kend = (n + RM - 1) / RM * RM;
-  FWD_PUBLISH(0, 0, 0, 0);
-  __syncthreads();
-  for (int kb = 0; kb < kend; kb += RM) {
-#pragma unroll
-    for (int u = 0; u < RM; ++u) {
-      const int k = kb + u;
-      const int buf = u & 1;          // kb is even, so k & 1 == u & 1
-      float cv[RM];
-#pragma unroll
-      for (int q = 0; q < RM; q += 4) {
-        const float4 t =
-            *reinterpret_cast<const float4*>(&colk[buf][ty * RM + q]);
-        cv[q] = t.x;
-        cv[q + 1] = t.y;
-        cv[q + 2] = t.z;
-        cv[q + 3] = t.w;
-      }
-      const float4 rv4 = *reinterpret_cast<const float4*>(&rowk[buf][tx * RN]);
-      const float rv[RN] = {rv4.x, rv4.y, rv4.z, rv4.w};
-#pragma unroll
-      for (int r = 0; r < RM; ++r)
-#pragma unroll
-        for (int c = 0; c < RN; ++c)
-          acc[r][c] = fminf(acc[r][c], cv[r] + rv[c]);
-      if (k + 1 < kend)
-        FWD_PUBLISH(k + 1, (u + 1) % RM, (u + 1) % RN, buf ^ 1);
-      __syncthreads();
-    }
-  }
-#undef FWD_PUBLISH
-#pragma unroll
-  for (int r = 0; r < RM; ++r) {
-    const int i = ty * RM + r;
-    if (i >= n) continue;
-#pragma unroll
-    for (int c = 0; c < RN; ++c) {
-      const int j = tx * RN + c;
-      if (j < n) dst[(long long)i * ldo + j] = acc[r][c];
-    }
-  }
+  fw_reg_tile<NP, RM, false>(din + (long long)blockIdx.x * bsi, ldi,
+                             dout + (long long)blockIdx.x * bso, nullptr,
+                             ldo, n);
 }
 
 template <int NP, int RM>
 static cudaError_t reg_launch(const float* din, float* dout, int b, int n,
                               long long ldi, long long ldo, long long bsi,
                               long long bso, cudaStream_t s) {
-  constexpr int threads = (NP / RM) * (NP / FWD_RN);
+  constexpr int threads = (NP / RM) * (NP / FWT_RN);
   for (int b0 = 0; b0 < b; b0 += 65535) {
     const int bc = (b - b0 < 65535) ? b - b0 : 65535;
     fw_dist_reg_kernel<NP, RM><<<bc, threads, 0, s>>>(

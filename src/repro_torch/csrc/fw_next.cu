@@ -19,8 +19,7 @@
 // boundary) between pivots reproduces the reference's functional update.
 //
 // Three launch shapes:
-//  * fw_next_smem: one block per matrix holds dist and nxt (8 bytes a
-//    cell) in shared memory for all n pivots; n <= FW_SMEM_MAX_N.
+//  * fw_next_reg: every matrix in registers, n <= 64 (below).
 //  * fw_next_global: an init pass, then one launch per pivot over all b
 //    matrices in device memory; any n.  Off the main path since the
 //    blocked variant; kept to time the two side by side.
@@ -70,6 +69,38 @@
 // every n / B pivots, against every pivot for fw_next_global); its
 // phases 1+2 are B serial steps over 2 B x B tiles per block.
 //
+// The register variant (fw_next_reg, the piece buckets: [6211, 8, 8]
+// and [75, 32, 32] at road64k, [407, 8, 8] and [6, 32, 32] at
+// road4000).  The function moves 12 bytes a cell and does 2 operations
+// per cell and pivot, so at n = 8 it is bound by bytes (1.4 us for
+// road64k's 6,211 pieces) and at n = 32 the n pivots are a serial chain
+// per matrix.  The first port held a matrix in shared memory, one
+// thread a cell, a block barrier a pivot, a runtime division and three
+// shared accesses per cell and pivot.  Here the cells live in registers
+// and only row k crosses threads:
+//  * n <= 8 (fw_next_warp_kernel): a warp holds 4 matrices, one row a
+//    lane, so d[i][k] and nxt[i][k] are the lane's own registers at a
+//    static index (the pivot loop is unrolled).  Row k goes through a
+//    per-warp shared strip, double-buffered by the parity of k: lane
+//    k + 1 publishes its row right after its pivot-k update, and one
+//    __syncwarp closes the pivot.  No block barrier, no division in the
+//    loop.  Loads and stores are coalesced: the warp copies its
+//    matrices (contiguous, 1 KB at n = 8) through a shared buffer with
+//    rows padded to NP + 4 floats, so the lanes' row reads are free of
+//    bank conflicts.
+//  * 8 < n <= 32 (fw_next_split_kernel): the same with 4 lanes a row
+//    (8 columns each) and one block of 4 warps a matrix: a warp alone
+//    would issue 128 instructions a pivot at n = 32.  d[i][k] and
+//    nxt[i][k] come from the row's lane that owns column k by shuffle;
+//    one block barrier a pivot.
+//  * 32 < n <= 64 (fw_next_tile_kernel): one block of 256 threads a
+//    matrix, each thread a 4 x 4 tile of dist and nxt: the register-tile
+//    body of fw_reg_tile.cuh, which fw_dist.cu's fw_dist_reg shares,
+//    with the witness carried (the owners of column k + 1 publish its
+//    first hops too), one barrier a pivot.
+// All three read row k (and column k) as they stood before pivot k, which
+// the invariant above makes the same as during it.
+
 // Plain IEEE float adds only: built without --use_fast_math, and
 // inf + x stays inf, so no NaN can arise from the +inf padding.
 
@@ -77,9 +108,10 @@
 #include <math.h>
 #include <stdint.h>
 
-#define FW_SMEM_MAX_N 160          // 160 * 160 * 8 B = 200 KB <= 227 KB
-#define FW_SMEM_THREADS 1024
+#include "fw_reg_tile.cuh"
+
 #define FW_TILE 32
+#define FWR_WARPS 4                // warps a block of fw_next_warp_kernel
 // k-block width B, pivots per k-block.  The band phases cost ~4 n^2 b B
 // cell updates against phase 3's n^3 b, a wider block halves phase 3's
 // dist/nxt passes: measured on the H100, 32 beat 64 at every shape of
@@ -100,35 +132,274 @@ __device__ __forceinline__ void init_cell(float v, int i, int j,
   *nx = (i != j && isfinite(v)) ? j : -1;
 }
 
-__global__ void __launch_bounds__(FW_SMEM_THREADS)
-fw_next_smem_kernel(const float* __restrict__ din,
-                    float* __restrict__ dout, int* __restrict__ nout,
-                    int n) {
-  extern __shared__ unsigned char smem[];
-  float* ds = reinterpret_cast<float*>(smem);
-  int* ns = reinterpret_cast<int*>(smem + sizeof(float) * n * n);
+// One matrix row a lane: d[i][:] and its first hops in registers.
+// NP: padded n (8), G = 32 / NP matrices a warp.  EXACT: n ==
+// NP and the pointers 16-byte aligned (float4 copies, constant shifts).
+template <int NP, bool EXACT>
+__global__ void __launch_bounds__(FWR_WARPS * 32)
+fw_next_warp_kernel(const float* __restrict__ din, float* __restrict__ dout,
+                    int* __restrict__ nout, long long b, int n_arg) {
+  constexpr int G = 32 / NP;                // matrices a warp
+  constexpr int P = NP + 4;                 // padded row pitch (floats)
+  constexpr int MS = NP * P;                // staged floats a matrix
+  __shared__ __align__(16) float stage[FWR_WARPS][G * MS];
+  __shared__ __align__(16) float rowk[FWR_WARPS][2][G][NP];
+  const float inf = __int_as_float(0x7f800000);
+  const int n = EXACT ? NP : n_arg;
   const int nn = n * n;
-  const size_t base = (size_t)blockIdx.x * nn;
-  for (int c = threadIdx.x; c < nn; c += blockDim.x) {
-    init_cell(din[base + c], c / n, c % n, &ds[c], &ns[c]);
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / NP, i = lane % NP;
+  const long long m0 = ((long long)blockIdx.x * FWR_WARPS + w) * G;
+  if (m0 >= b) return;                      // the whole warp
+  const int gc = (int)min((long long)G, b - m0);   // live matrices
+  const int total = gc * nn;
+  const size_t off = (size_t)m0 * nn;
+  float* st = stage[w];
+
+  // the warp's matrices, contiguous in memory -> padded rows
+  if (EXACT) {
+    const float4* src = reinterpret_cast<const float4*>(din + off);
+    for (int e = lane; e < total / 4; e += 32) {
+      const int f = 4 * e, mg = f / nn, rem = f % nn;
+      *reinterpret_cast<float4*>(&st[mg * MS + rem / NP * P + rem % NP]) =
+          src[e];
+    }
+  } else {
+    for (int f = lane; f < total; f += 32) {
+      const int mg = f / nn, rem = f - mg * nn, r = rem / n;
+      st[mg * MS + r * P + (rem - r * n)] = din[off + f];
+    }
+  }
+  __syncwarp();
+  const bool live = g < gc && i < n;
+  float* row = st + g * MS + i * P;
+  float d[NP];
+  int nx[NP];
+#pragma unroll
+  for (int q = 0; q < NP; q += 4) {
+    const float4 v = live ? *reinterpret_cast<const float4*>(row + q)
+                          : make_float4(inf, inf, inf, inf);
+    d[q] = v.x; d[q + 1] = v.y; d[q + 2] = v.z; d[q + 3] = v.w;
+  }
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {            // init_cell, padding +inf
+    float v = j < n ? d[j] : inf;
+    if (live && j == i) v = 0.0f;
+    d[j] = v;
+    nx[j] = (j != i && isfinite(v)) ? j : -1;
+  }
+
+  float (*rk)[G][NP] = rowk[w];
+#define FWR_PUBLISH(BUF)                                                  \
+  do {                                                                   \
+    _Pragma("unroll") for (int q = 0; q < NP; q += 4)                    \
+      *reinterpret_cast<float4*>(&rk[BUF][g][q]) =                       \
+          make_float4(d[q], d[q + 1], d[q + 2], d[q + 3]);               \
+  } while (0)
+  if (i == 0) FWR_PUBLISH(0);
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    if (k < n) {                            // uniform: n is the warp's
+      const float dik = d[k];               // unchanged at pivot k
+      const int nik = nx[k];
+      const float* r = rk[k & 1][g];
+#pragma unroll
+      for (int q = 0; q < NP; q += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(r + q);
+        const float dk[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float cand = dik + dk[t];
+          const bool better = cand < d[q + t];
+          d[q + t] = better ? cand : d[q + t];
+          nx[q + t] = better ? nik : nx[q + t];
+        }
+      }
+      if (k + 1 < n && i == k + 1) FWR_PUBLISH((k + 1) & 1);
+      __syncwarp();
+    }
+  }
+#undef FWR_PUBLISH
+
+  // dist, then the first hops, back through the padded rows
+  int* sti = reinterpret_cast<int*>(st);
+  int* rowi = reinterpret_cast<int*>(row);
+  for (int pass = 0; pass < 2; ++pass) {
+    if (live) {
+#pragma unroll
+      for (int q = 0; q < NP; q += 4) {
+        if (pass == 0)
+          *reinterpret_cast<float4*>(row + q) =
+              make_float4(d[q], d[q + 1], d[q + 2], d[q + 3]);
+        else
+          *reinterpret_cast<int4*>(rowi + q) =
+              make_int4(nx[q], nx[q + 1], nx[q + 2], nx[q + 3]);
+      }
+    }
+    __syncwarp();
+    if (EXACT) {
+      int4* dst = pass == 0 ? reinterpret_cast<int4*>(dout + off)
+                            : reinterpret_cast<int4*>(nout + off);
+      for (int e = lane; e < total / 4; e += 32) {
+        const int f = 4 * e, mg = f / nn, rem = f % nn;
+        dst[e] = *reinterpret_cast<const int4*>(
+            &sti[mg * MS + rem / NP * P + rem % NP]);
+      }
+    } else {
+      int* dst = pass == 0 ? reinterpret_cast<int*>(dout + off) : nout + off;
+      for (int f = lane; f < total; f += 32) {
+        const int mg = f / nn, rem = f - mg * nn, r = rem / n;
+        dst[f] = sti[mg * MS + r * P + (rem - r * n)];
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// n <= NP = 32: one block a matrix, Q threads a row, each W = NP / Q
+// columns of it in registers (a single warp a matrix is held back by its
+// issue rate: 4 instructions a cell, 32 cells a lane and pivot).  The Q
+// threads of a row are adjacent lanes, so d[i][k] and nxt[i][k] come
+// from the one of them that owns column k by two shuffles at a static
+// register index; row k goes through a double-buffered shared strip,
+// one block barrier a pivot.
+template <int NP, int Q, bool EXACT>
+__global__ void __launch_bounds__(NP * Q)
+fw_next_split_kernel(const float* __restrict__ din, float* __restrict__ dout,
+                     int* __restrict__ nout, int n_arg) {
+  constexpr int W = NP / Q;                 // columns a thread
+  constexpr int T = NP * Q;                 // threads a matrix
+  constexpr int P = NP + 4;                 // padded row pitch (floats)
+  static_assert(32 % Q == 0 && W % 4 == 0, "a row's threads share a warp");
+  __shared__ __align__(16) float st[NP * P];
+  __shared__ __align__(16) float rowk[2][NP];
+  const float inf = __int_as_float(0x7f800000);
+  const int n = EXACT ? NP : n_arg;
+  const int nn = n * n;
+  const int i = threadIdx.x / Q, j0 = (threadIdx.x % Q) * W;
+  const int lane = threadIdx.x % 32;
+  const size_t off = (size_t)blockIdx.x * nn;
+
+  if (EXACT) {
+    const float4* src = reinterpret_cast<const float4*>(din + off);
+    for (int e = threadIdx.x; e < nn / 4; e += T) {
+      const int f = 4 * e;
+      *reinterpret_cast<float4*>(&st[f / NP * P + f % NP]) = src[e];
+    }
+  } else {
+    for (int f = threadIdx.x; f < nn; f += T) {
+      const int r = f / n;
+      st[r * P + (f - r * n)] = din[off + f];
+    }
   }
   __syncthreads();
-  for (int k = 0; k < n; ++k) {
-    for (int c = threadIdx.x; c < nn; c += blockDim.x) {
-      const int i = c / n;
-      const int j = c - i * n;
-      const float cand = ds[i * n + k] + ds[k * n + j];
-      if (cand < ds[c]) {
-        ds[c] = cand;
-        ns[c] = ns[i * n + k];
+  const bool live = i < n;
+  float* row = st + i * P + j0;
+  float d[W];
+  int nx[W];
+#pragma unroll
+  for (int q = 0; q < W; q += 4) {
+    const float4 v = live ? *reinterpret_cast<const float4*>(row + q)
+                          : make_float4(inf, inf, inf, inf);
+    d[q] = v.x; d[q + 1] = v.y; d[q + 2] = v.z; d[q + 3] = v.w;
+  }
+#pragma unroll
+  for (int w = 0; w < W; ++w) {             // init_cell, padding +inf
+    const int j = j0 + w;
+    float v = j < n ? d[w] : inf;
+    if (live && j == i) v = 0.0f;
+    d[w] = v;
+    nx[w] = (j != i && isfinite(v)) ? j : -1;
+  }
+#define FWS_PUBLISH(BUF)                                                  \
+  do {                                                                   \
+    _Pragma("unroll") for (int q = 0; q < W; q += 4)                     \
+      *reinterpret_cast<float4*>(&rowk[BUF][j0 + q]) =                   \
+          make_float4(d[q], d[q + 1], d[q + 2], d[q + 3]);               \
+  } while (0)
+  if (i == 0) FWS_PUBLISH(0);
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    if (k < n) {                            // uniform
+      // column k of this row, unchanged at pivot k, from its owner
+      const int src = (lane & ~(Q - 1)) | (k / W);
+      const float dik = __shfl_sync(0xffffffffu, d[k % W], src);
+      const int nik = __shfl_sync(0xffffffffu, nx[k % W], src);
+      const float* r = &rowk[k & 1][j0];
+#pragma unroll
+      for (int q = 0; q < W; q += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(r + q);
+        const float dk[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float cand = dik + dk[t];
+          const bool better = cand < d[q + t];
+          d[q + t] = better ? cand : d[q + t];
+          nx[q + t] = better ? nik : nx[q + t];
+        }
+      }
+      if (k + 1 < n && i == k + 1) FWS_PUBLISH((k + 1) & 1);
+      __syncthreads();
+    }
+  }
+#undef FWS_PUBLISH
+
+  int* sti = reinterpret_cast<int*>(st);
+  int* rowi = reinterpret_cast<int*>(row);
+  for (int pass = 0; pass < 2; ++pass) {
+    if (live) {
+#pragma unroll
+      for (int q = 0; q < W; q += 4) {
+        if (pass == 0)
+          *reinterpret_cast<float4*>(row + q) =
+              make_float4(d[q], d[q + 1], d[q + 2], d[q + 3]);
+        else
+          *reinterpret_cast<int4*>(rowi + q) =
+              make_int4(nx[q], nx[q + 1], nx[q + 2], nx[q + 3]);
+      }
+    }
+    __syncthreads();
+    if (EXACT) {
+      int4* dst = pass == 0 ? reinterpret_cast<int4*>(dout + off)
+                            : reinterpret_cast<int4*>(nout + off);
+      for (int e = threadIdx.x; e < nn / 4; e += T) {
+        const int f = 4 * e;
+        dst[e] = *reinterpret_cast<const int4*>(&sti[f / NP * P + f % NP]);
+      }
+    } else {
+      int* dst = pass == 0 ? reinterpret_cast<int*>(dout + off) : nout + off;
+      for (int f = threadIdx.x; f < nn; f += T) {
+        const int r = f / n;
+        dst[f] = sti[r * P + (f - r * n)];
       }
     }
     __syncthreads();
   }
-  for (int c = threadIdx.x; c < nn; c += blockDim.x) {
-    dout[base + c] = ds[c];
-    nout[base + c] = ns[c];
-  }
+}
+
+// One block a matrix, n <= NP: thread (ty, tx) holds rows ty RM ..,
+// columns tx 4 .. of dist and nxt (fw_reg_tile.cuh).
+template <int NP, int RM>
+__global__ void __launch_bounds__((NP / RM) * (NP / FWT_RN))
+fw_next_tile_kernel(const float* __restrict__ din, float* __restrict__ dout,
+                    int* __restrict__ nout, int n) {
+  const size_t base = (size_t)blockIdx.x * n * n;
+  fw_reg_tile<NP, RM, true>(din + base, n, dout + base, nout + base, n, n);
+}
+
+template <int NP>
+static void warp_launch(const float* din, float* dout, int* nout, int b,
+                        int n, bool exact, cudaStream_t s) {
+  constexpr int per_block = FWR_WARPS * (32 / NP);
+  const int blocks = (b + per_block - 1) / per_block;
+  if (exact)
+    fw_next_warp_kernel<NP, true><<<blocks, FWR_WARPS * 32, 0, s>>>(
+        din, dout, nout, b, n);
+  else
+    fw_next_warp_kernel<NP, false><<<blocks, FWR_WARPS * 32, 0, s>>>(
+        din, dout, nout, b, n);
 }
 
 __global__ void fw_next_init_kernel(const float* __restrict__ din,
@@ -397,20 +668,34 @@ static cudaError_t fw_blocked_run(float* dd, int* nd, void* scratch, int b,
 
 extern "C" {
 
-// din, dout: float32 [b, n, n]; nout: int32 [b, n, n]; n <= max_n.
-int fw_next_smem(const void* din, void* dout, void* nout, int b, int n,
-                 void* stream) {
+// din, dout: float32 [b, n, n]; nout: int32 [b, n, n]; n <= np, np the
+// padded n of the variant (8: a row a lane; 32: a quarter row a
+// thread; 64: a 4 x 4 tile a thread).
+int fw_next_reg(const void* din, void* dout, void* nout, int b, int n,
+                int np, void* stream) {
   if (b <= 0 || n <= 0) return (int)cudaSuccess;
-  if (n > FW_SMEM_MAX_N) return (int)cudaErrorInvalidValue;
-  const int bytes = n * n * (int)(sizeof(float) + sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(
-      fw_next_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return (int)err;
-  int threads = ((n * n + 31) / 32) * 32;
-  if (threads > FW_SMEM_THREADS) threads = FW_SMEM_THREADS;
-  fw_next_smem_kernel<<<b, threads, bytes, (cudaStream_t)stream>>>(
-      (const float*)din, (float*)dout, (int*)nout, n);
+  if (n > np) return (int)cudaErrorInvalidValue;
+  const float* di = (const float*)din;
+  float* dd = (float*)dout;
+  int* nd = (int*)nout;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool exact = n == np && ((size_t)din | (size_t)dout |
+                                 (size_t)nout) % 16 == 0;
+  switch (np) {
+    case 8: warp_launch<8>(di, dd, nd, b, n, exact, s); break;
+    case 32:
+      if (exact)
+        fw_next_split_kernel<32, 4, true><<<b, 32 * 4, 0, s>>>(di, dd, nd, n);
+      else
+        fw_next_split_kernel<32, 4, false><<<b, 32 * 4, 0, s>>>(di, dd, nd,
+                                                               n);
+      break;
+    case 64:
+      fw_next_tile_kernel<64, 4><<<b, (64 / 4) * (64 / 4), 0, s>>>(
+          di, dd, nd, n);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

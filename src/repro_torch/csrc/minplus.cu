@@ -65,89 +65,38 @@
 //    could get tiles that split the panel.
 // The wrappers (kernels/minplus.py) check these conditions.
 //
-// minplus (minplus_kernel, kernel 5) keeps the first port's tiling: 64
-// x 64 tiles of C, a 4 x 4 micro-tile, synchronous shared-memory
-// loads; the m = 1 vector x matrix shape leaves 63 of its 64 rows idle
-// (a GEMV-shaped variant is later work).
+// minplus (kernel 5) takes one of two routes, chosen by the caller
+// (kernels/minplus.py: route):
+//  * m <= MG_MAX_M (one-to-all's m = 1): minplus_gemv_kernel, a vector
+//    (or few-row) x matrix product.  Its bound is bytes: B [K, N] is read
+//    once across the grid (11.7 MB at road64k's [1,1712]x[1712,1712],
+//    3.5 us at 3.35 TB/s), and the first port's 64 x 64 tiles left 63 of
+//    64 rows idle on 27 blocks.  Here N is cut into strips of SW columns
+//    and K into MG_SLICES k-slices, one block each, the k-slices of a
+//    strip forming one thread-block cluster.  A block stages its slice
+//    of A [m, k] in shared memory (cp.async, double-buffered chunks of
+//    MG_KC rows, read by broadcast) and walks its B rows MG_U at a time
+//    per thread, 4 columns a thread (one float4 where N and B allow,
+//    else two float2 or four floats, each coalesced), so 4 KB of B a
+//    warp is in flight.  Each thread keeps m x 4 minima; the row lanes
+//    of a block fold theirs by warp shuffles and shared memory, and the
+//    block of rank 0 folds the cluster's k-slices through distributed
+//    shared memory and writes C.  One launch, no scratch, no atomics:
+//    min is order-free, so the fold is exact for any input, negatives
+//    included.
+//  * m above it: the accumulate tiles below with no C_in (CIN = false:
+//    nothing is read for it).
 //
 // Exact: integer-valued inputs keep every sum below 2**24, so any
 // association order gives the reference's bits.  Built without
 // --use_fast_math.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "twoside_tiles.cuh"   // cp_async4 and the commit / wait helpers
 
-#define MP_BM 64      // rows of C per block
-#define MP_BN 64      // columns of C per block
-#define MP_BK 32      // k depth per shared-memory tile
-#define MP_TM 16      // threads along m
-#define MP_TN 16      // threads along n
-#define MP_RM (MP_BM / MP_TM)
-#define MP_RN (MP_BN / MP_TN)
-
-__global__ void __launch_bounds__(MP_TM * MP_TN)
-minplus_kernel(const float* __restrict__ a, const float* __restrict__ b,
-               float* __restrict__ c, int M, int N, int K) {
-  // A tile, transposed; the +1 keeps the transposing store free of
-  // bank conflicts
-  __shared__ float as[MP_BK][MP_BM + 1];
-  __shared__ float bs[MP_BK][MP_BN];
-  const int tn = threadIdx.x % MP_TN;
-  const int tm = threadIdx.x / MP_TN;
-  const int m0 = blockIdx.y * MP_BM;
-  const int n0 = blockIdx.x * MP_BN;
-  const float inf = __int_as_float(0x7f800000);
-
-  float acc[MP_RM][MP_RN];
-#pragma unroll
-  for (int r = 0; r < MP_RM; ++r)
-#pragma unroll
-    for (int q = 0; q < MP_RN; ++q) acc[r][q] = inf;
-
-  for (int k0 = 0; k0 < K; k0 += MP_BK) {
-    // A[m0:m0+BM, k0:k0+BK] -> as[k][m]; consecutive threads read
-    // consecutive k of one row
-    for (int e = threadIdx.x; e < MP_BM * MP_BK; e += blockDim.x) {
-      const int mm = e / MP_BK, kk = e % MP_BK;
-      const int m = m0 + mm, k = k0 + kk;
-      as[kk][mm] = (m < M && k < K) ? a[(size_t)m * K + k] : inf;
-    }
-    // B[k0:k0+BK, n0:n0+BN] -> bs[k][n]
-    for (int e = threadIdx.x; e < MP_BK * MP_BN; e += blockDim.x) {
-      const int kk = e / MP_BN, nn = e % MP_BN;
-      const int k = k0 + kk, n = n0 + nn;
-      bs[kk][nn] = (k < K && n < N) ? b[(size_t)k * N + n] : inf;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < MP_BK; ++kk) {
-      float av[MP_RM], bv[MP_RN];
-#pragma unroll
-      for (int r = 0; r < MP_RM; ++r) av[r] = as[kk][tm + r * MP_TM];
-#pragma unroll
-      for (int q = 0; q < MP_RN; ++q) bv[q] = bs[kk][tn + q * MP_TN];
-#pragma unroll
-      for (int r = 0; r < MP_RM; ++r)
-#pragma unroll
-        for (int q = 0; q < MP_RN; ++q)
-          acc[r][q] = fminf(acc[r][q], av[r] + bv[q]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < MP_RM; ++r) {
-    const int m = m0 + tm + r * MP_TM;
-    if (m >= M) continue;
-#pragma unroll
-    for (int q = 0; q < MP_RN; ++q) {
-      const int n = n0 + tn + q * MP_TN;
-      if (n >= N) continue;
-      c[(size_t)m * N + n] = acc[r][q];
-    }
-  }
-}
+namespace cg = cooperative_groups;
 
 #define MA_BK 16      // k depth per staged tile
 
@@ -194,8 +143,9 @@ struct AccumSmem {
 // Tile (bx, by) of job j: BM x BN cells of C.  Thread (tm, tn) owns rows
 // tm + r * TM and columns g * 4 * TN + 4 * tn + q.  NS k-tiles are in
 // flight (NS - 1 staged ahead of the one computed).  No __restrict__: C
-// may alias C_in, A and B (see the note at the top).
-template <int BM, int BN, int TM, int TN, int NS>
+// may alias C_in, A and B (see the note at the top).  CIN = false: C =
+// A (x) B, with no C_in read (kernel 5 above MG_MAX_M rows).
+template <int BM, int BN, int TM, int TN, int NS, bool CIN = true>
 __device__ __forceinline__ void accum_tile(const AccumJob& j, int bx,
                                            int by,
                                            AccumSmem<BM, BN, NS>& sm) {
@@ -324,16 +274,17 @@ __device__ __forceinline__ void accum_tile(const AccumJob& j, int bx,
       const int n = n0 + (q / 4) * 4 * TN + 4 * tn + q % 4;
       if (n >= N || (n >= j.sc0 && n < j.sc1)) continue;
       j.c[(long long)m * j.ldc + n] =
-          fminf(j.cin[(long long)m * j.ldcin + n], acc[r][q]);
+          CIN ? fminf(j.cin[(long long)m * j.ldcin + n], acc[r][q])
+              : acc[r][q];
     }
   }
 }
 
-template <int BM, int BN, int TM, int TN, int NS>
+template <int BM, int BN, int TM, int TN, int NS, bool CIN>
 __global__ void __launch_bounds__(TM * TN)
 minplus_accum_kernel(const AccumJob j) {
   __shared__ __align__(16) AccumSmem<BM, BN, NS> sm;
-  accum_tile<BM, BN, TM, TN, NS>(j, blockIdx.x, blockIdx.y, sm);
+  accum_tile<BM, BN, TM, TN, NS, CIN>(j, blockIdx.x, blockIdx.y, sm);
 }
 
 // Phase 2's two panels in one launch: blocks [0, row_blocks) take the
@@ -368,12 +319,27 @@ static AccumJob make_job(const void* cin, long long ldcin, const void* a,
                   sc0, sc1, vec};
 }
 
-template <int BM, int BN, int TM, int TN, int NS>
+template <int BM, int BN, int TM, int TN, int NS, bool CIN>
 static int accum_launch(const AccumJob& j, cudaStream_t s) {
   if ((j.M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((j.N + BN - 1) / BN, (j.M + BM - 1) / BM);
-  minplus_accum_kernel<BM, BN, TM, TN, NS><<<grid, TM * TN, 0, s>>>(j);
+  minplus_accum_kernel<BM, BN, TM, TN, NS, CIN><<<grid, TM * TN, 0, s>>>(j);
   return (int)cudaGetLastError();
+}
+
+// The tile a product of this shape takes: panels get narrow tiles and
+// four k-tiles in flight, for blocks enough to cover the card and loads
+// enough to cover the latency; anything wider than a panel (phase 3)
+// 64 x 64 tiles of 4 x 4 for k-blocks of up to 64, 128 x 64 of 8 x 8
+// above (PERF.md).
+template <bool CIN>
+static int accum_dispatch(const AccumJob& j, cudaStream_t s) {
+  if (j.M <= 64) return accum_launch<64, 8, 32, 2, 4, CIN>(j, s);
+  if (j.M <= 128) return accum_launch<128, 8, 64, 2, 4, CIN>(j, s);
+  if (j.N <= 64) return accum_launch<8, 64, 2, 16, 4, CIN>(j, s);
+  if (j.N <= 128) return accum_launch<8, 128, 2, 32, 4, CIN>(j, s);
+  if (j.K <= 64) return accum_launch<64, 64, 16, 16, 4, CIN>(j, s);
+  return accum_launch<128, 64, 16, 8, 3, CIN>(j, s);
 }
 
 template <int RBM, int RBN, int RTM, int RTN, int CBM, int CBN, int CTM,
@@ -389,17 +355,246 @@ static int panels_launch(const AccumJob& row, const AccumJob& col,
   return (int)cudaGetLastError();
 }
 
+#define MG_THREADS 256  // threads a block
+#define MG_SLICES 8     // k-slices of a strip: the blocks of one cluster
+#define MG_KC 256       // rows of A a staged chunk
+#define MG_U 8          // B rows a thread loads before it computes
+#define MG_MAX_M 8      // most rows of A the GEMV route takes
+
+// The 4 columns (strip offsets) of column lane cl in a strip of SW
+// columns, for V-wide loads: V = 4 one float4, V = 2 two float2 half a
+// strip apart, V = 1 four floats CL apart.  Each load instruction of a
+// warp reads whole 32-byte sectors.
+template <int SW, int V>
+__device__ __forceinline__ int mg_col(int cl, int q) {
+  constexpr int CL = SW / 4;
+  return V == 4 ? 4 * cl + q
+       : V == 2 ? (q >> 1) * (SW / 2) + 2 * cl + (q & 1)
+                : cl + CL * q;
+}
+
+// Row k's 4 columns of this thread, +inf past N (p: B row k + strip).
+template <int SW, int V>
+__device__ __forceinline__ void mg_load(const float* p, int cl, int room,
+                                        float (&v)[4]) {
+  const float inf = __int_as_float(0x7f800000);
+  if (V == 4) {
+    const int c = mg_col<SW, V>(cl, 0);
+    const float4 t = c < room ? __ldg(reinterpret_cast<const float4*>(p + c))
+                              : make_float4(inf, inf, inf, inf);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if (V == 2) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = mg_col<SW, V>(cl, 2 * h);
+      const float2 t = c < room
+          ? __ldg(reinterpret_cast<const float2*>(p + c))
+          : make_float2(inf, inf);
+      v[2 * h] = t.x; v[2 * h + 1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = mg_col<SW, V>(cl, q);
+      v[q] = c < room ? __ldg(p + c) : inf;
+    }
+  }
+}
+
+// A[:, kc : kc + MG_KC] -> as[k][m] by cp.async, +inf past M and k1
+template <int MT>
+__device__ __forceinline__ void mg_stage(float (*as)[MT], const float* a,
+                                         int M, int K, int kc, int k1) {
+  const float inf = __int_as_float(0x7f800000);
+  for (int e = threadIdx.x; e < MG_KC * MT; e += MG_THREADS) {
+    const int r = e / MT, m = e % MT, k = kc + r;
+    if (m < M && k < k1)
+      cp_async4(&as[r][m], a + (long long)m * K + k);
+    else
+      as[r][m] = inf;
+  }
+}
+
+template <int MT, int SW>
+union MgSmem {
+  float as[2][MG_KC][MT];                     // A chunks, [k][m]
+  float part[MG_THREADS / 32][MT][SW];        // a warp's minima
+};
+
+// Grid (strips, MG_SLICES), clusters of MG_SLICES blocks along y: block
+// (x, y) takes columns [x SW, x SW + SW) and k-slice y.  MT >= M: rows
+// of A (past M: +inf, never written).  V: load width (see mg_col).
+template <int MT, int SW, int V>
+__global__ void __cluster_dims__(1, MG_SLICES, 1) __launch_bounds__(MG_THREADS)
+minplus_gemv_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                    float* __restrict__ c, int M, int N, int K) {
+  constexpr int CL = SW / 4;                  // column lanes
+  constexpr int RL = MG_THREADS / CL;         // row lanes
+  __shared__ __align__(16) MgSmem<MT, SW> sm;
+  const float inf = __int_as_float(0x7f800000);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = threadIdx.x % CL, rl = threadIdx.x / CL;
+  const int c0 = blockIdx.x * SW;
+  const int room = N - c0;                    // columns left from c0
+  const int ks = (K + MG_SLICES - 1) / MG_SLICES;
+  const int k0 = min(K, (int)blockIdx.y * ks), k1 = min(K, k0 + ks);
+  const int nch = (k1 - k0 + MG_KC - 1) / MG_KC;
+
+  float acc[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[m][q] = inf;
+
+  if (nch > 0) mg_stage<MT>(sm.as[0], a, M, K, k0, k1);
+  cp_async_commit();
+  for (int ch = 0; ch < nch; ++ch) {
+    const int kc = k0 + ch * MG_KC;
+    const int nr = min(MG_KC, k1 - kc);
+    const float* bp = b + (long long)kc * N + c0;
+    // this chunk's first B rows go out before the wait on A
+    float bv[MG_U][4];
+#pragma unroll
+    for (int u = 0; u < MG_U; ++u) {
+      const int r = rl + u * RL;
+      if (r < nr) {
+        mg_load<SW, V>(bp + (long long)r * N, cl, room, bv[u]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) bv[u][q] = inf;
+      }
+    }
+    // the other buffer was last read in chunk ch - 1, closed by a barrier
+    if (ch + 1 < nch)
+      mg_stage<MT>(sm.as[(ch + 1) & 1], a, M, K, kc + MG_KC, k1);
+    cp_async_commit();
+    cp_async_wait_prev();                     // chunk ch's A landed
+    __syncthreads();
+    const float (*as)[MT] = sm.as[ch & 1];
+    for (int r0 = rl;; r0 += MG_U * RL) {
+#pragma unroll
+      for (int u = 0; u < MG_U; ++u) {
+        const int r = r0 + u * RL;
+        if (r < nr) {
+          float av[MT];
+#pragma unroll
+          for (int m = 0; m < MT; ++m) av[m] = as[r][m];
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              acc[m][q] = fminf(acc[m][q], av[m] + bv[u][q]);
+        }
+      }
+      const int next = r0 + MG_U * RL;
+      if (next >= nr) break;                  // uniform per row lane
+#pragma unroll
+      for (int u = 0; u < MG_U; ++u) {
+        const int r = next + u * RL;
+        if (r < nr) {
+          mg_load<SW, V>(bp + (long long)r * N, cl, room, bv[u]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) bv[u][q] = inf;
+        }
+      }
+    }
+    __syncthreads();                          // as[ch & 1] free
+  }
+  cp_async_wait_all();
+
+  // fold the row lanes of a warp (lanes CL apart share columns)
+#pragma unroll
+  for (int o = CL; o < 32; o *= 2)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        acc[m][q] = fminf(acc[m][q],
+                          __shfl_xor_sync(0xffffffffu, acc[m][q], o));
+  const int w = threadIdx.x / 32;
+  if ((threadIdx.x % 32) < CL) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        sm.part[w][m][mg_col<SW, V>(cl, q)] = acc[m][q];
+  }
+  __syncthreads();
+  // then the warps: the block's minima land in part[0]
+  for (int e = threadIdx.x; e < MT * SW; e += MG_THREADS) {
+    float v = sm.part[0][e / SW][e % SW];
+#pragma unroll
+    for (int x = 1; x < MG_THREADS / 32; ++x)
+      v = fminf(v, sm.part[x][e / SW][e % SW]);
+    sm.part[0][e / SW][e % SW] = v;
+  }
+  // then the cluster's k-slices, read by rank 0 from each block's
+  // shared memory; the second sync keeps every block resident until then
+  cluster.sync();
+  if (cluster.block_rank() == 0) {
+    const int nb = (int)cluster.num_blocks();
+    for (int e = threadIdx.x; e < MT * SW; e += MG_THREADS) {
+      const int m = e / SW, x = e % SW;
+      if (m >= M || x >= room) continue;
+      float v = inf;
+      for (int r = 0; r < nb; ++r)
+        v = fminf(v, cluster.map_shared_rank(&sm.part[0][0][0], r)[e]);
+      c[(long long)m * N + c0 + x] = v;
+    }
+  }
+  cluster.sync();
+}
+
+template <int MT, int SW>
+static int gemv_launch(const float* a, const float* b, float* c, int M,
+                       int N, int K, cudaStream_t s) {
+  const dim3 grid((N + SW - 1) / SW, MG_SLICES);
+  const bool v4 = N % 4 == 0 && (size_t)b % 16 == 0;
+  const bool v2 = N % 2 == 0 && (size_t)b % 8 == 0;
+  if (v4)
+    minplus_gemv_kernel<MT, SW, 4><<<grid, MG_THREADS, 0, s>>>(a, b, c, M,
+                                                               N, K);
+  else if (v2)
+    minplus_gemv_kernel<MT, SW, 2><<<grid, MG_THREADS, 0, s>>>(a, b, c, M,
+                                                               N, K);
+  else
+    minplus_gemv_kernel<MT, SW, 1><<<grid, MG_THREADS, 0, s>>>(a, b, c, M,
+                                                               N, K);
+  return (int)cudaGetLastError();
+}
+
+// one-to-all's single row, or up to MG_MAX_M rows in one shape
+template <int SW>
+static int gemv_rows(const float* a, const float* b, float* c, int M, int N,
+                     int K, cudaStream_t s) {
+  if (M == 1) return gemv_launch<1, SW>(a, b, c, M, N, K, s);
+  return gemv_launch<MG_MAX_M, SW>(a, b, c, M, N, K, s);
+}
+
 extern "C" {
 
-// a f32 [M, K], b f32 [K, N] -> c f32 [M, N] = a (x) b.
-int minplus(const void* a, const void* b, void* c, int M, int N, int K,
-            void* stream) {
+// a f32 [M, K], b f32 [K, N] (contiguous) -> c f32 [M, N] = a (x) b,
+// M <= MG_MAX_M, in strips of sw (32 or 128) columns.
+int minplus_gemv(const void* a, const void* b, void* c, int M, int N, int K,
+                 int sw, void* stream) {
   if (M <= 0 || N <= 0) return (int)cudaSuccess;
-  if ((M + MP_BM - 1) / MP_BM > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + MP_BN - 1) / MP_BN, (M + MP_BM - 1) / MP_BM);
-  minplus_kernel<<<grid, MP_TM * MP_TN, 0, (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)b, (float*)c, M, N, K);
-  return (int)cudaGetLastError();
+  if (M > MG_MAX_M) return (int)cudaErrorInvalidValue;
+  const float* fa = (const float*)a;
+  const float* fb = (const float*)b;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (sw == 32) return gemv_rows<32>(fa, fb, (float*)c, M, N, K, s);
+  if (sw == 128) return gemv_rows<128>(fa, fb, (float*)c, M, N, K, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same product, any M, through the accumulate tiles with no C_in.
+int minplus_tiles(const void* a, const void* b, void* c, int M, int N,
+                  int K, void* stream) {
+  if (M <= 0 || N <= 0) return (int)cudaSuccess;
+  const AccumJob j = make_job(nullptr, 0, a, K, b, N, c, N, M, N, K, 0, 0,
+                              0, 0);
+  return accum_dispatch<false>(j, (cudaStream_t)stream);
 }
 
 // c[i, j] = min(cin[i, j], (a (x) b)[i, j]) for i < M, j < N, but for
@@ -416,17 +611,7 @@ int minplus_accum_ld(const void* cin, long long ldcin, const void* a,
   if (M <= 0 || N <= 0) return (int)cudaSuccess;
   const AccumJob j = make_job(cin, ldcin, a, lda, b, ldb, c, ldc, M, N, K,
                               sr0, sr1, sc0, sc1);
-  const cudaStream_t s = (cudaStream_t)stream;
-  // panels: narrow tiles and four k-tiles in flight, for blocks enough
-  // to cover the card and loads enough to cover the latency
-  if (M <= 64) return accum_launch<64, 8, 32, 2, 4>(j, s);
-  if (M <= 128) return accum_launch<128, 8, 64, 2, 4>(j, s);
-  if (N <= 64) return accum_launch<8, 64, 2, 16, 4>(j, s);
-  if (N <= 128) return accum_launch<8, 128, 2, 32, 4>(j, s);
-  // anything wider than a panel (phase 3): 64 x 64 tiles of 4 x 4 for
-  // k-blocks of up to 64, 128 x 64 of 8 x 8 above (PERF.md)
-  if (K <= 64) return accum_launch<64, 64, 16, 16, 4>(j, s);
-  return accum_launch<128, 64, 16, 8, 3>(j, s);
+  return accum_dispatch<true>(j, (cudaStream_t)stream);
 }
 
 // Both panels of phase 2 in one launch, each with minplus_accum_ld's

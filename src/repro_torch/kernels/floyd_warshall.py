@@ -5,9 +5,11 @@ Witness FW, port of ``repro/kernels/floyd_warshall.py:
 fw_batch_next_pallas``: the kernel is ``csrc/fw_next.cu`` and its plain
 version ``ref.fw_batch_next_ref``.  ``d[b, n, n]`` (float32, +inf = no
 edge) -> ``(dist, nxt)``, array-equal to the plain version in both
-outputs.  Two launch shapes on the main path, chosen by n:
-``fw_next_smem`` keeps a whole matrix in shared memory (one block per
-matrix, taken up to n = SMEM_DISPATCH_N: the small piece buckets),
+outputs.  Two launch shapes on the main path, chosen by n (``route``):
+``fw_next_reg`` keeps every matrix in registers up to n = REG_MAX_N
+(the small piece buckets: a row a lane, 4 matrices a warp, up to n = 8;
+a quarter row a thread, one block a matrix, up to 32; a 4 x 4 tile a
+thread, one block a matrix, up to 64),
 ``fw_next_blocked`` runs the exact blocked schedule (two launches per
 k-block of 32 pivots over the batch, ``ref.fw_batch_next_blocked_ref``
 models it) for the fragments, the SUPER overlay, the hierarchy's
@@ -38,15 +40,15 @@ from . import _build
 _VP = ctypes.c_void_p
 _SIG = [_VP, _VP, _VP, ctypes.c_int, ctypes.c_int, _VP]
 _SIG_DIST = [_VP, _VP, ctypes.c_int, ctypes.c_int, _VP]
-#: largest n the shared-memory variant takes (FW_SMEM_MAX_N in the .cu):
-#: 160 * 160 cells * 8 bytes = 200 KB of the 227 KB a block may use
-SMEM_MAX_N = 160
-#: largest n dispatched to the shared-memory variant: on the H100 it beat
-#: the blocked one at n = 64 and below and lost at n = 128 and 160
-#: (``chip_smoke.py`` times both at each of those shapes)
-SMEM_DISPATCH_N = 64
-#: the same for distance-only FW (FWD_SMEM_MAX_N in fw_dist.cu):
-#: 240 * 240 cells * 4 bytes = 225 KB
+#: padded n of the register variant's shapes (``fw_next_reg`` in the
+#: .cu): a row a lane at 8, a quarter row a thread at 32, a 4 x 4 tile a
+#: thread at 64 (the piece buckets are 8 and 32); the blocked variant
+#: takes every n above REG_MAX_N (the shared-memory variant the register
+#: one replaced beat the blocked one at n <= 64 and lost above)
+REG_SHAPES = (8, 32, 64)
+REG_MAX_N = REG_SHAPES[-1]
+#: largest n of the distance-only shared-memory variant (FWD_SMEM_MAX_N
+#: in fw_dist.cu): 240 * 240 cells * 4 bytes = 225 KB
 DIST_SMEM_MAX_N = 240
 #: largest n of the distance-only register variant (FWD_REG_MAX_N)
 DIST_REG_MAX_N = 128
@@ -63,12 +65,25 @@ def apsp_block(n: int) -> int:
     return APSP_BLOCKS[0] if n <= APSP_WIDE_N else APSP_BLOCKS[1]
 
 
+def route(n: int) -> tuple[str, int]:
+    """The entry of ``csrc/fw_next.cu`` that runs a batch of [n, n]
+    matrices on the main path, and the padded n it takes: ("fw_next_reg",
+    the smallest of REG_SHAPES >= n) up to REG_MAX_N, else
+    ("fw_next_blocked", n)."""
+    for np_ in REG_SHAPES:
+        if n <= np_:
+            return "fw_next_reg", np_
+    return "fw_next_blocked", n
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fw_next")
-    if lib.fw_next_smem.argtypes is None:
-        for fn in (lib.fw_next_smem, lib.fw_next_global):
-            fn.argtypes = _SIG
-            fn.restype = ctypes.c_int
+    if lib.fw_next_global.argtypes is None:
+        lib.fw_next_global.argtypes = _SIG
+        lib.fw_next_global.restype = ctypes.c_int
+        lib.fw_next_reg.argtypes = [_VP, _VP, _VP, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_int, _VP]
+        lib.fw_next_reg.restype = ctypes.c_int
         lib.fw_next_blocked.argtypes = [_VP, _VP, _VP, _VP, ctypes.c_int,
                                         ctypes.c_int, _VP]
         lib.fw_next_blocked.restype = ctypes.c_int
@@ -104,28 +119,29 @@ def _check(d: torch.Tensor, kernel: str = "fw_next") -> tuple[int, int]:
     return d.shape[0], d.shape[1]
 
 
-def _launch(entry: str, d: torch.Tensor) -> tuple[torch.Tensor,
-                                                   torch.Tensor]:
+def _launch(entry: str, d: torch.Tensor, *extra: int
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     b, n = _check(d)
     dist = torch.empty_like(d)
     nxt = torch.empty(d.shape, dtype=torch.int32, device=d.device)
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(_lib(), entry)(d.data_ptr(), dist.data_ptr(),
-                                     nxt.data_ptr(), b, n, stream)
+                                     nxt.data_ptr(), b, n, *extra, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     return dist, nxt
 
 
-def fw_next_smem_cuda(d: torch.Tensor) -> tuple[torch.Tensor,
-                                                 torch.Tensor]:
-    """Shared-memory variant: one block per matrix, n <= SMEM_MAX_N."""
-    if d.shape[-1] > SMEM_MAX_N:
-        raise ValueError(f"fw_next_smem takes n <= {SMEM_MAX_N}, got "
+def fw_next_reg_cuda(d: torch.Tensor) -> tuple[torch.Tensor,
+                                                torch.Tensor]:
+    """Register variant: every matrix in registers, n <= REG_MAX_N."""
+    entry, np_ = route(d.shape[-1])
+    if entry != "fw_next_reg":
+        raise ValueError(f"fw_next_reg takes n <= {REG_MAX_N}, got "
                          f"{d.shape[-1]}")
-    out = _launch("fw_next_smem", d)
-    fw_next_smem_cuda.launches += 1
+    out = _launch(entry, d, np_)
+    fw_next_reg_cuda.launches += 1
     return out
 
 
@@ -159,16 +175,17 @@ def fw_next_blocked_cuda(d: torch.Tensor) -> tuple[torch.Tensor,
     return dist, nxt
 
 
-fw_next_smem_cuda.launches = 0
+fw_next_reg_cuda.launches = 0
 fw_next_global_cuda.launches = 0
 fw_next_blocked_cuda.launches = 0
 
 
 def fw_batch_next_cuda(d: torch.Tensor) -> tuple[torch.Tensor,
                                                   torch.Tensor]:
-    """Batched witness APSP on the card, variant chosen by n."""
-    if d.shape[-1] <= SMEM_DISPATCH_N:
-        return fw_next_smem_cuda(d)
+    """Batched witness APSP on the card, variant chosen by n
+    (``route``)."""
+    if route(d.shape[-1])[0] == "fw_next_reg":
+        return fw_next_reg_cuda(d)
     return fw_next_blocked_cuda(d)
 
 

@@ -1,11 +1,16 @@
 """Tropical (min,+) matrix product: the CUDA kernels' Python wrappers.
 
 Port of ``repro/kernels/minplus.py``: ``minplus_pallas`` and
-``minplus_accum_pallas`` become the two C entries of ``csrc/minplus.cu``,
-with plain versions ``ref.minplus_ref`` and ``ref.minplus_accum_ref``:
+``minplus_accum_pallas`` become C entries of ``csrc/minplus.cu``, with
+plain versions ``ref.minplus_ref`` and ``ref.minplus_accum_ref``:
 
     minplus_cuda(a, b)          = min_k a[i, k] + b[k, j]
     minplus_accum_cuda(c, a, b) = min(c, minplus_cuda(a, b))
+
+``minplus_cuda`` takes the entry ``route`` names for the shape: the
+GEMV kernel for a few rows (one-to-all's vector x matrix product; its
+k-split schedule is modelled by ``ref.minplus_gemv_ref``), the
+accumulate tiles without C_in above.
 
 Both allocate their output, so ``c`` may be the same tensor as ``b``.
 A third wrapper runs the accumulating kernel in place, on strided views:
@@ -40,12 +45,38 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+#: most rows of A the GEMV entry takes (MG_MAX_M in csrc/minplus.cu)
+GEMV_MAX_M = 8
+#: k-slices of a GEMV strip (MG_SLICES): the blocks of one cluster
+GEMV_SLICES = 8
+#: strip widths the GEMV entry is built for, narrow first
+GEMV_STRIPS = (32, 128)
+#: GEMV blocks that fill the card: 2 per SM of an H100's 132
+GEMV_BLOCKS = 264
+
+
+def route(m: int, k: int, n: int) -> tuple[str, int]:
+    """The entry of ``csrc/minplus.cu`` that computes an [m, k] x [k, n]
+    product, and its strip width: ("minplus_gemv", sw) for m <=
+    GEMV_MAX_M, sw the widest of GEMV_STRIPS whose strips times
+    GEMV_SLICES still reach GEMV_BLOCKS (else the narrowest), so that B
+    is streamed by enough blocks; ("minplus_tiles", 0) above."""
+    if m > GEMV_MAX_M:
+        return "minplus_tiles", 0
+    for sw in reversed(GEMV_STRIPS):
+        if -(-n // sw) * GEMV_SLICES >= GEMV_BLOCKS:
+            return "minplus_gemv", sw
+    return "minplus_gemv", GEMV_STRIPS[0]
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("minplus")
-    if lib.minplus.argtypes is None:
-        lib.minplus.argtypes = [_VP, _VP, _VP, _I, _I, _I, _VP]
+    if lib.minplus_gemv.argtypes is None:
+        lib.minplus_gemv.argtypes = [_VP, _VP, _VP, _I, _I, _I, _I, _VP]
+        lib.minplus_tiles.argtypes = [_VP, _VP, _VP, _I, _I, _I, _VP]
         lib.minplus_accum.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _VP]
-        lib.minplus.restype = lib.minplus_accum.restype = ctypes.c_int
+        lib.minplus_gemv.restype = lib.minplus_tiles.restype = ctypes.c_int
+        lib.minplus_accum.restype = ctypes.c_int
         ll = ctypes.c_longlong
         lib.minplus_accum_ld.argtypes = [_VP, ll, _VP, ll, _VP, ll, _VP, ll,
                                          _I, _I, _I, _I, _I, _I, _I, _VP]
@@ -79,22 +110,24 @@ def _shapes(kernel: str, a: torch.Tensor, b: torch.Tensor
 
 
 def _run(entry: str, out: torch.Tensor, *ptrs, m: int, n: int,
-         k: int) -> None:
+         k: int, extra=()) -> None:
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(_lib(), entry)(*ptrs, out.data_ptr(), m, n, k,
-                                     stream)
+                                     *extra, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
 
 def minplus_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [m, k], b [k, n] (float32, contiguous, one CUDA device) ->
-    c [m, n] = a (x) b."""
+    c [m, n] = a (x) b, through the entry ``route`` names."""
     _check("minplus", a, a=a, b=b)
     m, n, k = _shapes("minplus", a, b)
+    name, sw = route(m, k, n)
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    _run("minplus", out, a.data_ptr(), b.data_ptr(), m=m, n=n, k=k)
+    _run(name, out, a.data_ptr(), b.data_ptr(), m=m, n=n, k=k,
+         extra=(sw,) if name == "minplus_gemv" else ())
     minplus_cuda.launches += 1
     return out
 

@@ -323,6 +323,33 @@ def minplus_ref(a: torch.Tensor, b: torch.Tensor, *, chunk: int = 16
     return out
 
 
+def minplus_gemv_ref(a: torch.Tensor, b: torch.Tensor, *, strip: int,
+                     slices: int) -> torch.Tensor:
+    """The ``minplus_gemv`` CUDA kernel's schedule in plain torch, for the
+    CPU tests: array-equal to ``minplus_ref``.
+
+    N is cut into strips of ``strip`` columns and K into ``slices``
+    k-slices of ceil(K / slices) rows (the last ones short or empty);
+    each (k-slice, strip) block writes the partial minimum over its rows
+    (+inf for an empty slice), and the combine takes the minimum over a
+    strip's k-slices (the kernel folds them through its cluster's shared
+    memory)."""
+    m, k = a.shape
+    n = b.shape[1]
+    ks = -(-k // slices)
+    inf = torch.full((m, 1), float("inf"), dtype=a.dtype, device=a.device)
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    for c0 in range(0, n, strip):
+        parts = []
+        for s in range(slices):
+            k0, k1 = min(k, s * ks), min(k, s * ks + ks)
+            blk = b[k0:k1, c0:c0 + strip]
+            parts.append((a[:, k0:k1, None] + blk[None]).amin(dim=1)
+                         if k1 > k0 else inf.expand(m, blk.shape[1]))
+        out[:, c0:c0 + strip] = torch.stack(parts).amin(dim=0)
+    return out
+
+
 def minplus_accum_ref(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor
                       ) -> torch.Tensor:
     """min(C, A (x) B)."""
