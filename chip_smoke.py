@@ -45,7 +45,10 @@ prints no result.  Phases, each of which must pass:
      ``hierarchy_levels`` 2 and 3: distances, witnesses
      (``query_witness``), hub answers on gated pairs (== ``query`` ==
      Dijkstra), and 64 card witnesses unwound to paths with
-     ``path_weight == dist == Dijkstra``;
+     ``path_weight == dist == Dijkstra``; then one refresh epoch (a mixed
+     batch of 3% of the edges) through ``refresh_index`` on both, card ==
+     CPU on every table and sidecar, the stats, and 64 answers
+     (== Dijkstra);
   4. the dense main path at road4000 through
      ``repro_torch.launch.serve``: host build, device build, planner
      warmup, 5 batches of 1024, 64 answers validated against Dijkstra,
@@ -53,7 +56,13 @@ prints no result.  Phases, each of which must pass:
      paths, 64 validated (0 mismatches each); every kernel's launch
      counter is zeroed just before and read just after;
   5. road4000 at hierarchy levels 1, 2 and 3 serves 1,024 array-equal
-     answers;
+     answers; then road4000 through ``repro_torch.launch.serve
+     --update-batches 3 --update-frac 0.02`` (an ``EpochedEngine``): each
+     refreshed epoch == its scratch reweight rebuild (``REFRESHED_FIELDS``
+     and the host sidecars), 64 answers == Dijkstra, both witness FW
+     kernels launched; a ``--paths`` batch of 1,024 on the last epoch (64
+     validated); a staged ``RefreshPipeline`` drain of a 5% batch (32
+     answers checked on every epoch it publishes, the last == scratch);
   6. the hierarchical main path at road64k (its preset's 3 levels, with
      2,048 seeded random hub nodes) through the same entry points, 32
      validated, ``--paths`` at one batch of 16 (all validated), then
@@ -68,13 +77,22 @@ prints no result.  Phases, each of which must pass:
      query's table row each, 32 or 100 entries wide, or a few shared
      ones) and the operands the road4000 and road64k planners hand it
      for a batch of 1,024 (cross_frag at both, road64k's cross_res),
-     bounds counted from each input's own finite cells;
+     bounds counted from each input's own finite cells; then two
+     refresh epochs on phase 6's road64k index through ``refresh_index``
+     (a decrease-only batch of 0.1% of the edges, then a jam of 0.5%),
+     counters zeroed around each: each == its scratch reweight rebuild
+     with the same hub set, 32 answers, the hub answers and one
+     one-to-all source == Dijkstra, both witness FW kernels launched, and
+     the jam re-closes the top (``full_fw``: kernels 3 and 4); each
+     epoch's ``RefreshStats`` (synchronised stage seconds, top closure)
+     and the rebuild's seconds are printed;
   8. the ``kernels`` JSON line (launches summed over the main paths of
-     phases 4 and 6, which must launch both witness FW kernels, the
-     grouped twoside and the in-place accumulate, and never the
-     per-pivot FW or the fresh-output accumulate; times and bounds from
-     phases 2 and 7), the card's name and power limit from nvidia-smi,
-     and the ``{"ok": true, ...}`` line last.
+     phases 4 and 6 and the refresh epochs of phases 5 and 7, which must
+     launch both witness FW kernels, the grouped twoside and the in-place
+     accumulate, and never the per-pivot FW or the fresh-output
+     accumulate; times and bounds from phases 2 and 7), the card's name
+     and power limit from nvidia-smi, and the ``{"ok": true, ...}`` line
+     last.
 
 Details of every case go to ``chiprun_out/chip_smoke.json``, with the
 tally of the profiler windows behind every device time.  The old
@@ -444,6 +462,9 @@ def _check_label_merge(cases, out):
 
 #: (graph, index) of each main path, for the serve-shaped grouped cases
 _BUILT: dict = {}
+#: (host index, build plan, hub nodes) of each main path, for the refresh
+#: phases
+_HOST: dict = {}
 
 
 def _grouped_random(kind, q, m, k, groups, rng):
@@ -889,9 +910,10 @@ def _small_reference() -> dict:
     from repro_torch import convert
     from repro_torch.core import dijkstra
     from repro_torch.core.device_engine import (build_device_index_with_plan,
+                                                refresh_index,
                                                 serve_one_to_all)
     from repro_torch.core.dist_engine import QueryPlanner
-    from repro_torch.core.graph import road_like
+    from repro_torch.core.graph import road_like, traffic_updates
     from repro_torch.core.paths import PathUnwinder, path_weight
     from repro_torch.core.supergraph import build_index
     g = road_like(900, seed=0)
@@ -902,12 +924,17 @@ def _small_reference() -> dict:
     hs, ht = rng.integers(0, g.n, 4096), rng.integers(0, g.n, 4096)
     oracle = np.array([dijkstra.pair(g, int(x), int(y))
                        for x, y in zip(s[:64], t[:64])], np.float32)
+    # one refresh epoch: a mixed batch of 3% of the edges
+    u, v, w = traffic_updates(g, 0.03, seed=4)
+    g2 = g.with_edge_weights(u, v, w)
+    oracle2 = np.array([dijkstra.pair(g2, int(x), int(y))
+                        for x, y in zip(s[:64], t[:64])], np.float32)
     out = {}
     for lv in (1, 2, 3):
         on_card, plan = build_device_index_with_plan(
             ix, device="cuda", hierarchy_levels=lv, hub_nodes=hubs)
-        on_cpu = build_device_index_with_plan(
-            ix, device="cpu", hierarchy_levels=lv, hub_nodes=hubs)[0]
+        on_cpu, cpu_plan = build_device_index_with_plan(
+            ix, device="cpu", hierarchy_levels=lv, hub_nodes=hubs)
         bad = _differ(convert.device_index_to_numpy(on_card),
                       convert.device_index_to_numpy(on_cpu))
         card, cpu = QueryPlanner(on_card), QueryPlanner(on_cpu,
@@ -954,11 +981,29 @@ def _small_reference() -> dict:
                 np.array_equal(o2a, serve_one_to_all(on_cpu, 5).numpy())
                 and np.array_equal(o2a, dijkstra.sssp(g, 5).astype(
                     np.float32)))
+        card2, card_st = refresh_index(on_card, plan, g2, u, v, w)
+        cpu2, cpu_st = refresh_index(on_cpu, cpu_plan, g2, u, v, w)
+        bad2 = _differ(convert.device_index_to_numpy(card2),
+                       convert.device_index_to_numpy(cpu2))
+        got2 = QueryPlanner(card2).query(s[:64], t[:64])
+        res.update({
+            "refresh_fields_differ": bad2,
+            "refresh_top_closure": card_st.top_closure,
+            "refresh_stats_equal": all(
+                getattr(card_st, k) == getattr(cpu_st, k) for k in (
+                    "n_dirty_frags", "n_dirty_pieces", "n_eb_slots",
+                    "top_closure", "total_increase")),
+            "refresh_answers_equal": bool(
+                np.array_equal(got2, QueryPlanner(cpu2, layout="scatter")
+                               .query(s[:64], t[:64]))
+                and np.array_equal(got2, oracle2))})
         print(f"  road_like(900) levels={lv} card vs cpu: {res}")
         out[f"levels_{lv}"] = res
-        if bad or not all(v for k, v in res.items()
-                          if k not in ("fields_differ", "levels_built",
-                                       "hub_gated", "top_groups")):
+        if bad or bad2 or not all(
+                v for k, v in res.items()
+                if k not in ("fields_differ", "levels_built", "hub_gated",
+                             "top_groups", "refresh_fields_differ",
+                             "refresh_top_closure")):
             raise AssertionError(f"card and CPU builds disagree: {res}")
     return out
 
@@ -1014,20 +1059,18 @@ def _main_path(graph: str, validate: int, sources=(), path_args=(),
     import numpy as np
     from repro_torch.core import dijkstra
     from repro_torch.core.device_engine import serve_one_to_all
-    from repro_torch.core.graph import road_like
-    from repro_torch.data.roads import road_preset
     from repro_torch.launch import serve
     args = serve.parse_args(["--graph", graph, "--batches", "5",
                              "--batch-size", "1024", "--validate",
                              str(validate), "--device", "cuda", "--paths",
                              *path_args])
-    hubs = None
-    if n_hubs:                           # the graph serve.build makes
-        n = road_like(road_preset(graph).nodes, seed=args.seed).n
-        hubs = np.random.default_rng(11).choice(n, n_hubs, replace=False)
+    g, ix = serve.build_host(args)
+    hubs = (np.random.default_rng(11).choice(g.n, n_hubs, replace=False)
+            if n_hubs else None)
     _reset_counts()
-    g, dix, plan, summary = serve.build(args, hub_nodes=hubs)
+    g, dix, plan, summary = serve.build(args, hub_nodes=hubs, host=(g, ix))
     _BUILT[graph] = (g, dix)
+    _HOST[graph] = (ix, plan, hubs)
     res = serve.serve(args, g, dix, summary, plan)
     if n_hubs:
         res["hub"] = _hub_check(g, dix, hubs)
@@ -1111,6 +1154,209 @@ def _level_differential() -> dict:
                                  f"levels=1 on "
                                  f"{int((base != out).sum())} answers")
     print(f"  road4000 levels 1/2/3: 1024 answers array-equal; {res}")
+    return res
+
+
+def _count_refreshes(record: list):
+    """Make every ``refresh_index`` call an ``EpochedEngine`` makes
+    append its kernel launches (the counters' difference across the
+    call) to ``record``; returns the function that undoes it."""
+    from repro_torch.core import dist_engine
+    inner = dist_engine.refresh_index
+
+    def counted(*args, **kwargs):
+        before = _read_counts()
+        out = inner(*args, **kwargs)
+        after = _read_counts()
+        record.append({k: after[k] - before[k] for k in after})
+        return out
+    dist_engine.refresh_index = counted
+    return lambda: setattr(dist_engine, "refresh_index", inner)
+
+
+def _scratch_equal(engine_dix, g, ix, plan, hubs) -> tuple[list, float]:
+    """(fields and sidecars that differ, seconds) of the scratch rebuild
+    ``build_device_index(reweight_index(ix, g))`` on the card with the
+    live plan's depth, resident budget and hub set."""
+    import torch
+    from repro_torch.core.device_engine import (build_device_index,
+                                                index_fields_equal,
+                                                sidecars_equal)
+    from repro_torch.core.supergraph import reweight_index
+    from repro_torch.launch.serve import REFRESHED_FIELDS
+    t0 = time.perf_counter()
+    sdix = build_device_index(reweight_index(ix, g), device="cuda",
+                              hierarchy_levels=plan.hierarchy_levels,
+                              resident_mb=plan.resident_mb, hub_nodes=hubs)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    eq = {**index_fields_equal(engine_dix, sdix, REFRESHED_FIELDS),
+          **sidecars_equal(engine_dix, sdix)}
+    return sorted(k for k, ok in eq.items() if not ok), took
+
+
+def _pipeline_drain(engine, frac: float = 0.05, n_check: int = 32) -> dict:
+    """One ``frac`` batch staged through a ``RefreshPipeline`` (at most 4
+    work items, each published as an epoch): ``n_check`` answers ==
+    Dijkstra on every epoch, and the final epoch == scratch."""
+    import numpy as np
+    from repro_torch.core import dijkstra
+    from repro_torch.core.graph import traffic_updates
+    from repro_torch.core.refresh_pipeline import RefreshPipeline
+    u, v, w = traffic_updates(engine.g, frac, seed=77)
+    pipe = RefreshPipeline(engine, max_items=4)
+    pipe.submit(u, v, w)
+    items = pipe.plan()
+    rng = np.random.default_rng(8)
+    epochs, bad = [], 0
+    while True:
+        st = pipe.step()
+        if st is None:
+            break
+        s, t = rng.integers(0, engine.g.n, n_check), rng.integers(
+            0, engine.g.n, n_check)
+        got = engine.query(s, t)
+        miss = sum(dijkstra.mismatches_oracle(
+            dijkstra.pair(engine.g, int(a), int(b)), float(x))
+            for a, b, x in zip(s, t, got))
+        bad += miss
+        epochs.append({"epoch": engine.epoch, "mismatches": miss,
+                       "staleness": engine.snapshot()[3].as_record(),
+                       **st.as_record()})
+    plan = engine.plan
+    differ, scratch_s = _scratch_equal(engine.dix, engine.g, engine.ix,
+                                       plan, plan.hub_nodes)
+    res = {"update_frac": frac, "updates": int(u.size), "items": items,
+           "epochs": epochs, "mismatches": bad, "scratch_differ": differ,
+           "scratch_reweight_s": scratch_s}
+    print(f"  staged drain of {u.size} updates in {items} items: {bad} "
+          f"mismatches over {len(epochs)} epochs x {n_check}; final "
+          f"epoch == scratch: {not differ}; per item "
+          f"{[(e['top_closure'], e['refresh_s']) for e in epochs]}")
+    return res
+
+
+def _road4000_refresh() -> dict:
+    """road4000 (dense) through the serve CLI with ``--update-batches 3
+    --update-frac 0.02``: every epoch refreshed on the card == its
+    scratch rebuild (tables and sidecars), 64 answers == Dijkstra, and
+    launches both witness FW kernels; on the last epoch a ``--paths``
+    batch of 1,024 (64 validated); then a staged drain
+    (``_pipeline_drain``)."""
+    from repro_torch.launch import serve
+    args = serve.parse_args([
+        "--graph", "road4000", "--batches", "2", "--batch-size", "1024",
+        "--validate", "64", "--device", "cuda", "--update-batches", "3",
+        "--update-frac", "0.02", "--paths", "--path-batches", "1",
+        "--path-batch-size", "1024"])
+    per_call: list = []
+    undo = _count_refreshes(per_call)
+    try:
+        engine, res = serve.run_epoched(args)
+        rounds = per_call[-args.update_batches:]
+        res["drain"] = _pipeline_drain(engine)
+    finally:
+        undo()
+    for rec, launches in zip(res["refresh"], rounds):
+        rec["launches"] = launches
+    res["launches"] = {k: sum(r[k] for r in rounds) for k in rounds[0]}
+    print(f"  road4000 refresh launches per epoch: {rounds}")
+    checks = {
+        "no_mismatch": serve.failures(res) == 0,
+        "all_validated": all(r["validated"] == 64 for r in res["refresh"])
+        and res["paths_last_epoch"]["validated"] == 64,
+        "fw_kernels_each_epoch": all(
+            r["fw_next_blocked"] > 0 and r["fw_next_reg"] > 0
+            for r in rounds),
+        "drain_exact": res["drain"]["mismatches"] == 0
+        and not res["drain"]["scratch_differ"],
+    }
+    res["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"road4000 refresh: {checks}")
+    return res
+
+
+def _road64k_refresh() -> dict:
+    """Two refresh epochs on phase 6's road64k index (no second build),
+    through ``refresh_index`` directly: a decrease-only batch
+    (``traffic_updates(frac=0.001, jam_frac=0)``), then a jam
+    (``frac=0.005, jam_frac=1``).  Launch counters zeroed just before
+    each refresh and read just after; each epoch == the scratch reweight
+    rebuild with the same hub set, 32 answers == Dijkstra, hub answers
+    on gated pairs == ``query`` (``_hub_check``), one one-to-all source
+    == Dijkstra."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dijkstra
+    from repro_torch.core.device_engine import (refresh_index,
+                                                serve_one_to_all)
+    from repro_torch.core.dist_engine import QueryPlanner
+    from repro_torch.core.graph import traffic_updates
+    from repro_torch.obs import trace
+    g, dix = _BUILT["road64k"]
+    ix, plan, hubs = _HOST["road64k"]
+    rng = np.random.default_rng(12)
+    tracer = trace.get_tracer()
+    out = []
+    for label, frac, jam in (("decrease", 0.001, 0.0), ("jam", 0.005, 1.0)):
+        u, v, w = traffic_updates(g, frac, seed=10, jam_frac=jam)
+        w_old = g.edge_w[g.edge_ids(u, v)]
+        g2 = g.with_edge_weights(u, v, w)
+        torch.cuda.synchronize()
+        _reset_counts()
+        tracer.clear()
+        tracer.enable()
+        t0 = time.perf_counter()
+        dix2, stats = refresh_index(dix, plan, g2, u, v, w, w_old=w_old)
+        torch.cuda.synchronize()
+        refresh_s = time.perf_counter() - t0
+        tracer.enable(False)
+        launches = _read_counts()
+        # seconds of the spans inside the stages (the top closure's FW and
+        # first_hops, the dirty groups' FW, the resident re-lift)
+        spans: dict = {}
+        for ev in tracer.drain():
+            spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e6
+        differ, scratch_s = _scratch_equal(dix2, g2, ix, plan, hubs)
+        s, t = rng.integers(0, g2.n, 32), rng.integers(0, g2.n, 32)
+        got = QueryPlanner(dix2).query(s, t)
+        bad = sum(dijkstra.mismatches_oracle(
+            dijkstra.pair(g2, int(a), int(b)), float(x))
+            for a, b, x in zip(s, t, got))
+        hub = _hub_check(g2, dix2, hubs)
+        src = g2.n // 2
+        o2a = serve_one_to_all(dix2, src).cpu().numpy()
+        bad_o2a = int((o2a != dijkstra.sssp(g2, src).astype(
+            np.float32)).sum())
+        rec = {"batch": label, "update_frac": frac, "jam_frac": jam,
+               "refresh_wall_s": refresh_s, **stats.as_record(),
+               "stage_s": dict(stats.timings), "spans_s": spans,
+               "n_eb_slots": stats.n_eb_slots,
+               "scratch_reweight_s": scratch_s, "scratch_differ": differ,
+               "mismatches": bad, "one_to_all_mismatches": bad_o2a,
+               "hub_gated": hub["gated"], "launches": launches}
+        print(f"  road64k {label} epoch: {stats.as_record()}; spans "
+              f"{ {k: round(x, 4) for k, x in spans.items()} }; scratch "
+              f"reweight rebuild {scratch_s:.2f}s, match={not differ}; "
+              f"{bad} mismatches of 32; one-to-all {bad_o2a}; launches "
+              f"{launches}")
+        out.append(rec)
+        g, dix = g2, dix2
+    need = {"decrease": ("fw_next_blocked", "fw_next_reg"),
+            "jam": ("fw_next_blocked", "fw_next_reg", "fw_batch",
+                    "minplus_accum_panels", "minplus_accum_into")}
+    checks = {
+        "exact": all(not r["scratch_differ"] and r["mismatches"] == 0
+                     and r["one_to_all_mismatches"] == 0 for r in out),
+        "jam_full_fw": out[1]["top_closure"] == "full_fw",
+        "launched": all(r["launches"][k] > 0 for r in out
+                        for k in need[r["batch"]])}
+    res = {"epochs": out, "checks": checks,
+           "launches": {k: sum(r["launches"][k] for r in out)
+                        for k in out[0]["launches"]}}
+    if not all(checks.values()):
+        raise AssertionError(f"road64k refresh: {checks}")
     return res
 
 
@@ -1259,6 +1505,7 @@ def main() -> int:
     phase("small_reference", _small_reference)
     phase("road4000", lambda: _main_path("road4000", 64))
     phase("road4000_levels", _level_differential)
+    phase("road4000_refresh", _road4000_refresh)
     # road64k's path loop is one batch of 16: the host unwinder takes
     # ~1.7 s a path there (PERF.md)
     phase("road64k", lambda: _main_path(
@@ -1267,6 +1514,7 @@ def main() -> int:
         n_hubs=2048))
     phase("twoside_grouped", lambda: _check_twoside_grouped(
         _grouped_cases(), grouped_cases))
+    phase("road64k_refresh", _road64k_refresh)
 
     report["fw_cases"], report["ts_cases"] = fw_cases, ts_cases
     report["new_cases"], report["slice3_cases"] = new_cases, slice3_cases
@@ -1304,9 +1552,11 @@ def main() -> int:
                            "minplus_accum_into", "minplus",
                            "fw_next_blocked", "minplus_twoside_grouped",
                            "minplus_twoside_argmin", "label_merge"))
-        launches = {name: report["road4000"]["launches"][name]
-                    + report["road64k"]["launches"][name]
-                    for name, _m, _a in KERNELS}
+        # the main paths and the refresh epochs (each counted from zero
+        # just before it, read just after)
+        launches = {name: sum(report[path]["launches"][name] for path in (
+            "road4000", "road64k", "road4000_refresh", "road64k_refresh"))
+            for name, _m, _a in KERNELS}
         # the per-pivot FW and the fresh-output accumulate left the main
         # paths (for the blocked FW and the in-place accumulate): timed
         # beside their replacements, never run there

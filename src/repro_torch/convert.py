@@ -16,11 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.device_engine import (FIELD_DTYPES, TUPLE_FIELD_DTYPES,
-                                 DeviceIndex, resolve_device)
-
-SIDECARS = ("host_ov_slot", "host_l2_slot", "host_res_frag",
-            "host_topgrp_frag", "host_hub_agent")
+from .core.device_engine import (FIELD_DTYPES, SIDECARS,
+                                 TUPLE_FIELD_DTYPES, DeviceIndex,
+                                 resolve_device)
 
 
 def _tensor(name: str, arr, dtype: torch.dtype,

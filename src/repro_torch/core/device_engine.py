@@ -2,9 +2,9 @@
 
 Port of ``repro/core/device_engine.py``: the dense overlay
 (``hierarchy_levels=1``), the N-level overlay hierarchy with its
-resident pre-lifted rows, the hub-label tier, and the witness (path)
-serve mode (no refresh yet).  Every query becomes gathers plus (min,+)
-algebra over padded tensors.
+resident pre-lifted rows, the hub-label tier, the witness (path) serve
+mode, and the incremental refresh (``refresh_index``).  Every query
+becomes gathers plus (min,+) algebra over padded tensors.
 
 Offline (``build_device_index_with_plan``, device-resident products):
   * per-fragment dense APSP        [k, maxf, maxf]   (witness FW kernel)
@@ -19,6 +19,14 @@ Offline (``build_device_index_with_plan``, device-resident products):
     base/stride so one gather answers any same-piece query)
   * per-node lookup vectors        agent/fragment/piece ids + positions
   * optionally, hub labels         [H+1, W] per labeled agent (hub_stage)
+
+Refresh (``refresh_index``): a batch of edge-weight updates re-runs
+exactly the stages it dirties (the dirty fragments', groups' and
+pieces' witness FW, the overlay or top closure, resident rows, hub
+labels) into a new ``DeviceIndex`` that shares every unchanged tensor
+with the old one and writes none of them, so the old epoch can go on
+serving; the result is array-equal to a scratch build on the new
+weights.
 
 Online (``serve_step``, or the planner's per-case programs):
   dist(s,t) = same-DRA answer                                (case 1)
@@ -56,6 +64,7 @@ group, ``sf_members`` pads with S_l, ``bnd2_sid`` with S_{l+1},
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -403,13 +412,25 @@ def frag_stage(plan: BuildPlan, device: torch.device, *, force=None
             frag_next)
 
 
-def super_weights(plan: BuildPlan, blocks: np.ndarray) -> None:
-    """Fill every enforced SUPER slot weight by gathering from the full
-    fragment APSP table ``blocks`` [k, maxf, maxf] (the Upsilon weights
-    are *derived* state, never stored authoritatively)."""
-    mask = plan.sup_fi >= 0
-    plan.sup_w[mask] = blocks[plan.sup_fi[mask], plan.sup_pu[mask],
-                              plan.sup_pv[mask]]
+def super_weights(plan: BuildPlan, blocks: np.ndarray,
+                  frags: np.ndarray | None = None) -> None:
+    """Fill the enforced SUPER slot weights by gathering from fragment
+    APSP ``blocks`` (the Upsilon weights are *derived* state, never
+    stored authoritatively).
+
+    ``frags=None``: blocks is the full [k, maxf, maxf] table, fill every
+    enforced slot.  Otherwise blocks holds only the listed fragments'
+    rows, and only their slots are rewritten.
+    """
+    if frags is None:
+        mask = plan.sup_fi >= 0
+        local = plan.sup_fi[mask]
+    else:
+        mask = np.isin(plan.sup_fi, frags)
+        fi_to_row = -np.ones(plan.k, dtype=np.int64)
+        fi_to_row[frags] = np.arange(len(frags))
+        local = fi_to_row[plan.sup_fi[mask]]
+    plan.sup_w[mask] = blocks[local, plan.sup_pu[mask], plan.sup_pv[mask]]
 
 
 def super_overlay(plan: BuildPlan) -> np.ndarray:
@@ -469,7 +490,12 @@ def _piece_adj(g, members: np.ndarray, cap: int) -> np.ndarray:
 def _fw_bucket(adjs: List[np.ndarray], device: torch.device, *,
                force=None) -> tuple[np.ndarray, np.ndarray]:
     """Batched witness FW over equally-padded piece matrices ->
-    (dist blocks, next blocks) on the host."""
+    (dist blocks, next blocks) on the host.  The reference rounds a
+    refresh's batch up to a power of two with +inf matrices
+    (src/repro/core/device_engine.py:487-490) so XLA compiles O(log P)
+    batch shapes; the CUDA kernels take any batch and FW is independent
+    across it, so build and refresh both run exactly the matrices they
+    need."""
     out, nxt = ops.fw_batch_next(_to(np.stack(adjs), device), force=force)
     out = out.cpu().numpy()
     # +inf padding only ever ADDS (inf + inf = inf, never inf - inf), so
@@ -930,6 +956,548 @@ def build_device_index(ix: DislandIndex, *, device=None, force=None,
         ix, device=device, force=force,
         hierarchy_levels=hierarchy_levels, resident_mb=resident_mb,
         hub_nodes=hub_nodes)[0]
+
+
+# ---------------------------------------------------------------------------
+# incremental refresh (paper §IV/§V locality).  A refresh never writes a
+# tensor of the index it starts from: that epoch may still be serving, so
+# every changed table is a new tensor (``index_copy`` or a fresh build),
+# and the unchanged ones are shared by reference with the new epoch.
+# ---------------------------------------------------------------------------
+def _leaves(x) -> list:
+    return list(x) if isinstance(x, (tuple, list)) else [x]
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+# copied from src/repro/core/device_engine.py:973
+def index_fields_equal(a, b, names) -> dict:
+    """Per-field array equality between two indices, tuple-field aware
+    (per-level fields compare leaf by leaf).  Either index may live on
+    any device, or be the reference package's."""
+    out = {}
+    for name in names:
+        la, lb = _leaves(getattr(a, name)), _leaves(getattr(b, name))
+        out[name] = (len(la) == len(lb) and all(
+            np.array_equal(_host(x), _host(y)) for x, y in zip(la, lb)))
+    return out
+
+
+#: the host sidecars an epoch carries beside its tensors
+SIDECARS = ("host_ov_slot", "host_l2_slot", "host_res_frag",
+            "host_topgrp_frag", "host_hub_agent")
+
+
+def _sidecar_equal(x, y) -> bool:
+    if x is None or y is None:
+        return x is None and y is None
+    if isinstance(x, (list, tuple)):
+        return (isinstance(y, (list, tuple)) and len(x) == len(y)
+                and all(_sidecar_equal(p, q) for p, q in zip(x, y)))
+    if hasattr(x, "slots"):                       # a SlotMap
+        return (hasattr(y, "slots") and x.stride == y.stride
+                and np.array_equal(x.keys, y.keys)
+                and np.array_equal(x.slots, y.slots))
+    return np.array_equal(np.asarray(x), np.asarray(y))
+
+
+def sidecars_equal(a, b) -> dict:
+    """Per-sidecar equality between two indices (``SIDECARS``; a
+    SlotMap compares by stride, keys and slots).  The reference sets a
+    sidecar as an attribute only when it has one, so an absent one reads
+    as None."""
+    return {name: _sidecar_equal(getattr(a, name, None),
+                                 getattr(b, name, None))
+            for name in SIDECARS}
+
+
+def warmup_refresh(plan: BuildPlan, device: torch.device, *,
+                   force=None) -> None:
+    """Launch the witness FW once at each shape a refresh batches: a
+    fragment, a piece of each bucket in use, a group of each level, so
+    kernel loads and first-launch costs land here and not inside a live
+    ``refresh_index``.  The reference compiles its pow2 batch shapes
+    here (src/repro/core/device_engine.py:988); the port runs unpadded
+    batches, whose kernels take any batch size."""
+    shapes = {(1, plan.maxf, plan.maxf)}
+    shapes |= {(1, int(cap), int(cap)) for cap in np.unique(plan.piece_cap)}
+    shapes |= {(1, h.m2, h.m2) for h in plan.hier or ()}
+    for shp in sorted(shapes):
+        ops.fw_batch_next(torch.full(shp, _INF, dtype=torch.float32,
+                                     device=device), force=force)
+    _sync(device)
+
+
+# copied from src/repro/core/device_engine.py:1010
+@dataclasses.dataclass
+class UpdateClass:
+    """A weight-update batch classified against the index structure.
+
+    The paper's decomposition localizes every weight change: an edge is
+    (i) inside one DRA piece, (ii) inside one fragment, and/or (iii) an
+    E_B SUPER slot — nothing else.  Same-fragment boundary-boundary
+    edges hit (ii) and (iii) simultaneously.
+    """
+
+    dirty_frags: np.ndarray      # fragment ids
+    frag_fi: np.ndarray          # per same-fragment update
+    frag_pu: np.ndarray
+    frag_pv: np.ndarray
+    frag_w: np.ndarray
+    eb_slots: np.ndarray         # per E_B update
+    eb_w: np.ndarray
+    dirty_gids: np.ndarray       # piece ids
+    n_inert: int                 # edges touching no served structure
+
+
+# copied from src/repro/core/device_engine.py:1031
+def classify_updates(plan: BuildPlan, u, v, w) -> UpdateClass:
+    """Map (u, v, new_w) updates onto dirty fragments / slots / pieces."""
+    u = np.asarray(u, dtype=np.int64)
+    v = np.asarray(v, dtype=np.int64)
+    w = np.asarray(w, dtype=np.float64)
+    gid_u = plan.piece_gid[u]
+    gid_v = plan.piece_gid[v]
+    piece_m = (gid_u >= 0) | (gid_v >= 0)
+    gid = np.where(gid_u >= 0, gid_u, gid_v)
+    # structural invariant (paper Props 3-9): a represented node's only
+    # neighbours are its piece co-members and its agent
+    other_gid = np.where(gid_u >= 0, gid_v, gid_u)
+    other = np.where(gid_u >= 0, v, u)
+    safe_gid = np.where(piece_m, gid, 0)
+    ok = (~piece_m | (other_gid == gid)
+          | (other == plan.piece_agent[safe_gid]))
+    if not ok.all():
+        bad = np.nonzero(~ok)[0][0]
+        raise ValueError(
+            f"edge ({int(u[bad])}, {int(v[bad])}) crosses piece "
+            "boundaries; index structure does not admit it")
+    # same-fragment updates (frag_adj entries)
+    fu = plan.frag_of[u]
+    fv = plan.frag_of[v]
+    frag_m = ~piece_m & (fu >= 0) & (fu == fv)
+    # E_B slots (covers cross-fragment edges AND same-fragment edges
+    # whose endpoints are both boundary)
+    key = np.minimum(u, v) * plan.n + np.maximum(u, v)
+    if plan.eb_key.size:
+        pos = np.clip(np.searchsorted(plan.eb_key, key), 0,
+                      plan.eb_key.size - 1)
+        eb_m = ~piece_m & (plan.eb_key[pos] == key)
+        slots = plan.eb_slot[pos]
+    else:
+        eb_m = np.zeros(u.size, dtype=bool)
+        slots = np.zeros(u.size, dtype=np.int64)
+    inert = int((~piece_m & ~frag_m & ~eb_m).sum())
+    return UpdateClass(
+        dirty_frags=np.unique(fu[frag_m]).astype(np.int64),
+        frag_fi=fu[frag_m],
+        frag_pu=plan.pos_in_frag[u[frag_m]],
+        frag_pv=plan.pos_in_frag[v[frag_m]],
+        frag_w=w[frag_m],
+        eb_slots=slots[eb_m],
+        eb_w=w[eb_m],
+        dirty_gids=np.unique(gid[piece_m]).astype(np.int64),
+        n_inert=inert,
+    )
+
+
+# copied from src/repro/core/device_engine.py:1081
+@dataclasses.dataclass
+class RefreshStats:
+    """What one refresh_index call touched.  ``timings`` holds each
+    stage's seconds (classify, frag_fw, super_fw, hub, pieces) and the
+    total, each ending in a device synchronise."""
+
+    n_updates: int
+    n_dirty_frags: int
+    n_frags: int
+    n_dirty_pieces: int
+    n_pieces: int
+    n_eb_slots: int
+    n_inert: int
+    total_increase: float
+    decrease_only: bool          # no weight rose (jam-clear batch)
+    timings: dict
+    # how the top closure was produced: "carry" (no overlay delta),
+    # "decrease" (bounded relaxation fast path), "full_fw", "dense"
+    top_closure: str = "carry"
+
+    @property
+    def dirty_frag_frac(self) -> float:
+        return self.n_dirty_frags / max(self.n_frags, 1)
+
+    def as_record(self) -> dict:
+        return {
+            "n_updates": self.n_updates,
+            "dirty_frags": f"{self.n_dirty_frags}/{self.n_frags}",
+            "dirty_frag_frac": round(self.dirty_frag_frac, 4),
+            "dirty_pieces": f"{self.n_dirty_pieces}/{self.n_pieces}",
+            "decrease_only": self.decrease_only,
+            "top_closure": self.top_closure,
+            "refresh_s": round(self.timings.get("total", 0.0), 4),
+            "stage_timings": {
+                k: round(v, 4)
+                for k, v in sorted(self.timings.items())
+                if k != "total"},
+        }
+
+
+def refresh_frag_stage(plan: BuildPlan, frag_apsp: torch.Tensor,
+                       brow: torch.Tensor, frag_next: torch.Tensor,
+                       upd: UpdateClass, *, force=None
+                       ) -> tuple[torch.Tensor, torch.Tensor,
+                                  torch.Tensor, np.ndarray]:
+    """Re-run the witness FW on the dirty fragment subset only ->
+    (frag_apsp, brow, frag_next, the dirty blocks on the host).
+
+    FW is independent across the batch, so the dirty rows come out
+    bit-identical to a full-batch from-scratch run, distances and first
+    hops alike.  The reference pads the dirty set to a power of two by
+    repeating its first id (src/repro/core/device_engine.py:1141-1149)
+    so XLA compiles O(log k) programs; the CUDA kernels take any batch,
+    so the port runs the dirty set as it is, and its scatter has no
+    duplicate index.  The scatters are ``index_copy``: new tensors, the
+    serving epoch's stay as they were.
+    """
+    plan.frag_adj[upd.frag_fi, upd.frag_pu, upd.frag_pv] = upd.frag_w
+    plan.frag_adj[upd.frag_fi, upd.frag_pv, upd.frag_pu] = upd.frag_w
+    dirty = upd.dirty_frags
+    if dirty.size == 0:
+        return frag_apsp, brow, frag_next, np.empty(
+            (0, plan.maxf, plan.maxf), np.float32)
+    dev = frag_apsp.device
+    idx = _to(dirty, dev)
+    blocks, nexts = ops.fw_batch_next(_to(plan.frag_adj[dirty], dev),
+                                      force=force)
+    br = _brow_from(blocks, plan.bpos[dirty], plan.bvalid[dirty])
+    return (frag_apsp.index_copy(0, idx, blocks),
+            brow.index_copy(0, idx, br),
+            frag_next.index_copy(0, idx, nexts), blocks.cpu().numpy())
+
+
+def refresh_hier_stage(plan: BuildPlan, dix: DeviceIndex,
+                       changed_slots: np.ndarray, undo: dict, *,
+                       force=None) -> dict:
+    """Hierarchical twin of the dense overlay re-close: cascade the
+    dirty-slot delta up the level ladder (copied from
+    src/repro/core/device_engine.py:1159).
+
+    At each level, a changed source slot dirties either one group's
+    adjacency block (both endpoints inside it: re-close those groups'
+    witness FW tiles, unpadded, as ``refresh_frag_stage`` explains) or a
+    cross slot (a direct next-level weight copy).  The *observed*
+    next-level weight delta (l2_w before vs after) is what propagates:
+    the cascade stops at the first level whose boundary weights came out
+    unchanged, and every deeper table plus the top closure carries over
+    by reference.  A top reached by decreases only is re-closed by
+    ``hierarchy.l2_decrease_stage`` where it pays, else by the full
+    ``hierarchy.l2_stage``.  ``undo`` is filled with per-level rollback
+    snapshots of the weight caches BEFORE any mutation, so a failure
+    later in the refresh can restore them.
+    """
+    levels = plan.hier
+    dev = dix.device
+    closures = list(dix.sf_closure)
+    nexts = list(dix.sf_next)
+    rows_t = list(dix.l2row)
+    l2_slots = list(dix.host_l2_slot)
+    undo["levels"] = []
+    cur = changed_slots
+    w_src = plan.sup_w
+    d2, d2_next = dix.d2, dix.d2_next
+    dirty_top = False
+    top_closure = "carry"
+    lw_old = np.empty(0, np.float32)
+    for li, h in enumerate(levels):
+        sl = h.slot_sf[cur]
+        sfs = np.unique(sl[sl >= 0]).astype(np.int64)
+        lw_old = h.l2_w.copy()
+        undo["levels"].append({"hier": h, "sfs": sfs,
+                               "sf_adj": h.sf_adj[sfs].copy(),
+                               "l2_w": lw_old})
+        if sfs.size:
+            hierarchy.sf_adj_fill(h, w_src, sfs=sfs)
+            idx = _to(sfs, dev)
+            with trace.span("refresh.sf_fw", level=li + 1,
+                            groups=int(sfs.size)):
+                blocks, nx = ops.fw_batch_next(_to(h.sf_adj[sfs], dev),
+                                               force=force)
+                closures[li] = closures[li].index_copy(0, idx, blocks)
+                nexts[li] = nexts[li].index_copy(0, idx, nx)
+                r = hierarchy.l2row_from(blocks, h.bnd2_pos[sfs],
+                                         h.bnd2_valid[sfs])
+                rows_t[li] = rows_t[li].index_copy(0, idx, r)
+                host_blocks = blocks.cpu().numpy()      # synchronises
+            hierarchy.hier_weights(h, host_blocks, w_src, sfs=sfs)
+        else:
+            # only cross-group slots changed at this level: no FW, just
+            # the O(cross) next-level weight copy
+            hierarchy.hier_weights(
+                h, np.empty((0, h.m2, h.m2), np.float32), w_src, sfs=sfs)
+        l2_slots[li] = hierarchy.l2_slot_map(h)
+        nxt_changed = np.nonzero(h.l2_w != lw_old)[0].astype(np.int64)
+        if nxt_changed.size == 0:
+            # the next overlay's weights are untouched: closures AND
+            # witnesses above this level are still exact, carry them
+            break
+        cur = nxt_changed
+        w_src = h.l2_w
+    else:
+        dirty_top = True
+    if dirty_top:
+        # decrease-only fast path: when every changed top slot weight
+        # went DOWN, a bounded (min,+) relaxation seeded from the old
+        # closure is exact; any increase, or a too-large touched set,
+        # falls back to the full closure
+        h = levels[-1]
+        fast = None
+        if cur.size and bool(np.all(h.l2_w[cur] <= lw_old[cur])):
+            fast = hierarchy.l2_decrease_stage(h, d2, d2_next, cur)
+        if fast is not None:
+            d2, d2_next = fast
+            top_closure = "decrease"
+        else:
+            d2, d2_next = hierarchy.l2_stage(h, dev, force=force)
+            top_closure = "full_fw"
+    return {
+        "fields": {"sf_closure": tuple(closures),
+                   "sf_next": tuple(nexts), "l2row": tuple(rows_t),
+                   "d2": d2, "d2_next": d2_next},
+        "ov_slot": hierarchy.ov_slot_map(plan),
+        "l2_slot": l2_slots,
+        "top_closure": top_closure,
+    }
+
+
+def refresh_piece_stage(plan: BuildPlan, g_new, dirty_gids: np.ndarray,
+                        piece_flat: np.ndarray, piece_next: np.ndarray,
+                        dist_to_agent: np.ndarray, device: torch.device, *,
+                        force=None) -> None:
+    """Recompute only the dirty pieces, writing their APSP + witness
+    blocks into the host copies of the flat tables and re-deriving
+    dist-to-agent for their members from the agent's APSP row (paths
+    from a represented node to its agent never leave the piece, Props
+    3-9).  Copied from src/repro/core/device_engine.py:1257, the batches
+    unpadded (``_fw_bucket``)."""
+    for cap in PIECE_BUCKETS:
+        gids = [g for g in dirty_gids if plan.piece_cap[g] == cap]
+        if not gids:
+            continue
+        adjs = [_piece_adj(g_new, plan.piece_members[gid], cap)
+                for gid in gids]
+        blocks, nexts = _fw_bucket(adjs, device, force=force)
+        for gid, block, nxt in zip(gids, blocks, nexts):
+            base = plan.piece_base[gid]
+            piece_flat[base:base + cap * cap] = block.reshape(-1)
+            piece_next[base:base + cap * cap] = nxt.reshape(-1)
+            members = plan.piece_members[gid]
+            inner = members != plan.piece_agent[gid]
+            dist_to_agent[members[inner]] = block[
+                plan.piece_agent_pos[gid], np.nonzero(inner)[0]]
+
+
+def refresh_index(dix: DeviceIndex, plan: BuildPlan, g_new, u, v, w, *,
+                  w_old=None, force=None
+                  ) -> tuple[DeviceIndex, RefreshStats]:
+    """Incremental index maintenance on ``dix``'s device (copied from
+    src/repro/core/device_engine.py:1282).
+
+    Locality is inherited from the paper's decomposition: a DRA touches
+    the rest of G only at its agent (§IV, Props 3-9), so a DRA-internal
+    edge dirties exactly one piece; fragments meet only at boundary
+    nodes (§V-A), so an intra-fragment edge dirties one fragment's APSP
+    plus its boundary-clique Upsilon weights; a cross-fragment edge is
+    one E_B overlay slot (§V-A).  Given a batch of edge-weight updates
+    (u, v, new_w) against the graph the plan currently reflects, this
+    re-runs exactly the dirtied build stages:
+
+      a. batched witness FW on the dirty fragments only,
+      b. SUPER slot weights regathered from the new fragment APSP +
+         direct E_B writes, then the overlay re-closed (dense: the
+         witness FW; hierarchical: ``refresh_hier_stage``, then the
+         resident rows re-lifted) — skipped entirely when no overlay
+         weight changed,
+      c. hub labels re-derived when the overlay moved or a labeled
+         fragment is dirty, carried otherwise,
+      d. dirty piece APSP blocks rewritten into host copies of
+         piece_flat / piece_next, with member dist-to-agent re-derived
+         from the agent row, and copied back to the device,
+      e. a new DeviceIndex assembled from the results, every host
+         sidecar set to the new epoch's (the reference's ``replace()``
+         drops them; here the dataclass would copy the old ones).
+
+    No tensor of ``dix`` is written, so it can go on serving while this
+    runs.  ``g_new`` must be the post-update graph
+    (``Graph.with_edge_weights``); the plan's weight caches are mutated
+    to match, so consecutive refreshes compose, and an exception
+    anywhere mid-refresh rolls the caches back (``frag_adj``, ``sup_w``,
+    per level ``sf_adj`` and ``l2_w``).  ``w_old`` (the updated edges'
+    previous weights) classifies the batch direction in the stats.
+    Every stage recomputes from true weights, so the result is
+    array-equal to ``build_device_index(reweight_index(ix, g_new))``.
+    Each stage's seconds end in a device synchronise.
+    """
+    dev = dix.device
+    timings: dict = {}
+    t_all = time.perf_counter()
+
+    with trace.timed("refresh.classify", timings, "classify",
+                     n_updates=len(u)):
+        upd = classify_updates(plan, u, v, w)
+
+    frag_w_before = plan.frag_adj[upd.frag_fi, upd.frag_pu,
+                                  upd.frag_pv].copy()
+    sup_w_before = plan.sup_w.copy()
+    hier_undo: dict = {}
+    try:
+        with trace.timed("refresh.frag_fw", timings, "frag_fw",
+                         dirty=int(upd.dirty_frags.size)):
+            frag_apsp, brow, frag_next, blocks = refresh_frag_stage(
+                plan, dix.frag_apsp, dix.brow, dix.frag_next, upd,
+                force=force)
+            _sync(dev)
+
+        # ---- SUPER: regather dirty slot weights, re-close overlay ---
+        with trace.timed("refresh.super_fw", timings, "super_fw"):
+            touched = np.isin(plan.sup_fi, upd.dirty_frags)
+            touched_slots = np.concatenate(
+                [np.nonzero(touched)[0], upd.eb_slots]).astype(np.int64)
+            slot_w_old = sup_w_before[touched_slots]
+            if upd.dirty_frags.size:
+                super_weights(plan, blocks, frags=upd.dirty_frags)
+            plan.sup_w[upd.eb_slots] = upd.eb_w
+            slot_w_new = plan.sup_w[touched_slots]
+            changed = slot_w_old != slot_w_new
+            hier_fields: dict = {}
+            d_super, super_next = dix.d_super, dix.super_next
+            ov_slot, l2_slot = dix.host_ov_slot, dix.host_l2_slot
+            res_frag, topgrp_frag = dix.host_res_frag, dix.host_topgrp_frag
+            top_closure = "carry"
+            if changed.any():
+                if plan.hierarchy_levels >= 2:
+                    hres = refresh_hier_stage(plan, dix,
+                                              touched_slots[changed],
+                                              hier_undo, force=force)
+                    hier_fields = dict(hres["fields"])
+                    ov_slot = hres["ov_slot"]
+                    l2_slot = hres["l2_slot"]
+                    top_closure = hres["top_closure"]
+                    # re-lift the resident rows against the refreshed
+                    # per-level tables (the build's own stage, so
+                    # refresh == rebuild stays array-equal)
+                    with trace.span("refresh.resident"):
+                        rres = resident_stage(plan, {
+                            name: hier_fields.get(name, getattr(dix, name))
+                            for name in ("l2row", "bnd2_sid", "pos_in_sf",
+                                         "d2")})
+                    if rres is not None:
+                        hier_fields.update(rres["fields"])
+                        res_frag = rres["res_frag"]
+                        topgrp_frag = rres["topgrp_frag"]
+                else:
+                    d_super, super_next = super_stage(plan, dev,
+                                                      force=force)
+                    ov_slot = overlay_slot_table(plan)
+                    top_closure = "dense"
+            # else: no overlay weight changed, so the closure and its
+            # witnesses (and the per-level tables, the resident rows and
+            # the slot provenance) are still exact and carry over
+            _sync(dev)
+
+        # ---- hub labels ----------------------------------------------
+        # a label folds a brow leg with the overlay closure, so it is
+        # stale iff the closure moved (changed.any()) OR a labeled
+        # fragment's boundary rows did (dirty_frags); otherwise every
+        # input is unchanged and carrying the rows is bit-identical to
+        # recomputing them
+        with trace.timed("refresh.hub", timings, "hub"):
+            hub_fields: dict = {}
+            hub_agent = dix.host_hub_agent
+            if plan.hub_nodes is not None and len(plan.hub_nodes):
+                hub_frags = np.unique(plan.frag_of[
+                    plan.agent_of[plan.hub_nodes].astype(np.int64)])
+                if changed.any() or np.intersect1d(
+                        upd.dirty_frags, hub_frags).size:
+                    hub = hub_stage(plan, hub_base_fields(
+                        plan,
+                        lambda name: d_super if name == "d_super"
+                        else hier_fields.get(name, getattr(dix, name)),
+                        brow))
+                    if hub is not None:
+                        hub_fields = hub["fields"]
+                        hub_agent = hub["hub_agent"]
+                        if topgrp_frag is None:
+                            # hierarchical epoch without resident rows:
+                            # the hub gate's TOP-group map
+                            topgrp_frag = hub["topgrp_frag"]
+            _sync(dev)
+
+        # ---- pieces + dist-to-agent, through host copies -------------
+        with trace.timed("refresh.pieces", timings, "pieces",
+                         dirty=int(upd.dirty_gids.size)):
+            if upd.dirty_gids.size:
+                piece_flat = dix.piece_flat.cpu().numpy().copy()
+                piece_next = dix.piece_next.cpu().numpy().copy()
+                dist_to_agent = dix.dist_to_agent.cpu().numpy().copy()
+                refresh_piece_stage(plan, g_new, upd.dirty_gids,
+                                    piece_flat, piece_next,
+                                    dist_to_agent, dev, force=force)
+                piece_flat_t = _to(piece_flat, dev)
+                piece_next_t = _to(piece_next, dev)
+                dist_t = _to(dist_to_agent, dev)
+            else:
+                piece_flat_t = dix.piece_flat
+                piece_next_t = dix.piece_next
+                dist_t = dix.dist_to_agent
+            _sync(dev)
+    except BaseException:
+        # roll the weight caches back: the caller never published a new
+        # epoch, so the plan must keep describing the old one
+        plan.frag_adj[upd.frag_fi, upd.frag_pu,
+                      upd.frag_pv] = frag_w_before
+        plan.frag_adj[upd.frag_fi, upd.frag_pv,
+                      upd.frag_pu] = frag_w_before
+        plan.sup_w[:] = sup_w_before
+        for lv in hier_undo.get("levels", []):
+            lv["hier"].sf_adj[lv["sfs"]] = lv["sf_adj"]
+            lv["hier"].l2_w[:] = lv["l2_w"]
+        raise
+
+    # batch direction: against the edges' previous weights when the
+    # caller provides them; the overlay delta alone cannot see
+    # piece-internal changes
+    if w_old is not None:
+        delta = np.asarray(w, np.float64) - np.asarray(w_old, np.float64)
+        total_increase = float(np.maximum(0.0, delta).sum())
+    else:
+        fin = np.isfinite(slot_w_old) & np.isfinite(slot_w_new)
+        total_increase = float(np.maximum(
+            0.0, slot_w_new[fin] - slot_w_old[fin]).sum())
+
+    timings["total"] = time.perf_counter() - t_all
+    trace.event("refresh.apply", t_all, t_all + timings["total"],
+                n_updates=len(u), top_closure=top_closure,
+                dirty_frags=int(upd.dirty_frags.size))
+    new_dix = dataclasses.replace(
+        dix, frag_apsp=frag_apsp, frag_next=frag_next, brow=brow,
+        d_super=d_super, super_next=super_next,
+        piece_flat=piece_flat_t, piece_next=piece_next_t,
+        dist_to_agent=dist_t, **hier_fields, **hub_fields,
+        host_ov_slot=ov_slot, host_l2_slot=l2_slot,
+        host_res_frag=res_frag, host_topgrp_frag=topgrp_frag,
+        host_hub_agent=hub_agent)
+    stats = RefreshStats(
+        n_updates=int(np.asarray(u).size),
+        n_dirty_frags=int(upd.dirty_frags.size), n_frags=plan.k,
+        n_dirty_pieces=int(upd.dirty_gids.size),
+        n_pieces=plan.n_pieces,
+        n_eb_slots=int(upd.eb_slots.size), n_inert=upd.n_inert,
+        total_increase=total_increase,
+        decrease_only=total_increase == 0.0, timings=timings,
+        top_closure=top_closure)
+    return new_dix, stats
 
 
 # ---------------------------------------------------------------------------

@@ -3,16 +3,17 @@
 
 CSR adjacency on the host (numpy) for the one-shot preprocessing passes
 (BCC, BC-SKETCH, partitioning) plus a flat edge-list view the index build
-consumes directly.  The port keeps the subset its main path runs: the
-shared-memory views (parallel host build) and the live-traffic weight
-updates stay in the reference package until those slices are ported;
-``edge_ids`` is here for path validation (``paths.path_weight``).
+consumes directly.  The port keeps the subset its paths run: the
+shared-memory views (parallel host build) stay in the reference package
+until that slice is ported; ``edge_ids`` serves path validation
+(``paths.path_weight``), and ``with_edge_weights`` / ``traffic_updates``
+the live-traffic refresh (``device_engine.refresh_index``).
 
 All graphs are simple, undirected, positive-weighted, as in the paper
 (Section II-A). Node ids are dense ints [0, n).
 
 Owned invariant (DESIGN.md §6): every weight this module produces —
-the ``road_like`` generator — is
+the ``road_like`` generator and ``traffic_updates`` — is
 a positive *integer*, small enough that any shortest-distance sum
 stays below 2**24 and is therefore exactly representable in f32.  The
 whole stack's bit-for-bit exactness story (serve == refresh == scratch
@@ -168,6 +169,35 @@ class Graph:
         idx = np.clip(np.searchsorted(ekey, key), 0, ekey.size - 1)
         return np.where(ekey[idx] == key, idx, -1).astype(np.int64)
 
+    # copied from src/repro/core/graph.py:168
+    def with_edge_weights(self, u, v, w) -> "Graph":
+        """New Graph with the weights of existing edges (u, v) replaced.
+
+        Topology is untouched — this is the live-traffic update primitive:
+        edge orderings, CSR layout, and ids are all preserved, so
+        downstream index structures built against this graph stay
+        position-stable.  Raises on unknown edges or non-positive
+        weights; duplicate updates to one edge keep the last value.
+        """
+        w = np.asarray(w, dtype=np.float64)
+        if w.size and (w <= 0).any():
+            raise ValueError("weights must be positive")
+        idx = self.edge_ids(u, v)
+        if (idx < 0).any():
+            bad = np.nonzero(idx < 0)[0][:3]
+            raise ValueError(
+                f"no such edge(s): {[(int(np.asarray(u)[i]), int(np.asarray(v)[i])) for i in bad]}")
+        edge_w = self.edge_w.copy()
+        edge_w[idx] = w
+        # CSR stores each edge twice; rebuild its weight view in place
+        # using the same doubling + stable ordering as from_edges
+        src = np.concatenate([self.edge_u, self.edge_v])
+        ww = np.concatenate([edge_w, edge_w])
+        order = np.argsort(src, kind="stable")
+        return Graph(n=self.n, indptr=self.indptr, indices=self.indices,
+                     weights=ww[order], edge_u=self.edge_u,
+                     edge_v=self.edge_v, edge_w=edge_w)
+
     def connected_components(self) -> np.ndarray:
         """Label array [n] via iterative BFS (host, linear time)."""
         comp = -np.ones(self.n, dtype=np.int32)
@@ -230,3 +260,52 @@ def road_like(n_target: int, seed: int = 0, *, highway_frac: float = 0.01,
                          np.concatenate([v, hv]),
                          np.concatenate([w, hw]))
     return g.largest_component()
+
+
+# copied from src/repro/core/graph.py:342
+def traffic_updates(g: Graph, frac: float = 0.05, seed: int = 0, *,
+                    localized: bool = True,
+                    jam_frac: float = 0.5) -> tuple[np.ndarray, np.ndarray,
+                                                    np.ndarray]:
+    """Synthetic live-traffic weight-update batch: (u, v, new_w).
+
+    Picks ``round(frac * m)`` distinct edges and rescales their weights:
+    a ``jam_frac`` share jam (x2..x6) and the rest clear (/2../6), with
+    integer outputs so f32 index arithmetic stays exact.
+
+    ``localized=True`` samples edges from a BFS ball around a random
+    center instead of uniformly — traffic is spatially correlated, which
+    is what keeps the dirty-fragment set small and the incremental
+    refresh path cheap.
+    """
+    rng = np.random.default_rng(seed)
+    n_upd = max(1, int(round(frac * g.m)))
+    if localized and g.m > n_upd:
+        # grow a BFS ball until it touches enough incident edges
+        center = int(rng.integers(0, g.n))
+        in_ball = np.zeros(g.n, dtype=bool)
+        in_ball[center] = True
+        frontier = [center]
+        picked = np.zeros(g.m, dtype=bool)
+        while frontier and picked.sum() < n_upd:
+            nxt = []
+            for x in frontier:
+                s, e = g.indptr[x], g.indptr[x + 1]
+                for y in g.indices[s:e]:
+                    if not in_ball[y]:
+                        in_ball[y] = True
+                        nxt.append(int(y))
+            picked = in_ball[g.edge_u] & in_ball[g.edge_v]
+            frontier = nxt
+        cand = np.nonzero(picked)[0]
+        if cand.size < n_upd:       # ball swallowed a whole component
+            cand = np.arange(g.m)
+    else:
+        cand = np.arange(g.m)
+    idx = rng.choice(cand, size=min(n_upd, cand.size), replace=False)
+    jam = rng.random(idx.size) < jam_frac
+    factor = np.where(jam, rng.integers(2, 7, idx.size),
+                      1.0 / rng.integers(2, 7, idx.size))
+    new_w = np.maximum(1, np.round(g.edge_w[idx] * factor)).astype(
+        np.float64)
+    return g.edge_u[idx].copy(), g.edge_v[idx].copy(), new_w

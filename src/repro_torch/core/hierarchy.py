@@ -1,7 +1,6 @@
 """N-level SUPER overlay hierarchy, on PyTorch.
 
-Port of ``repro/core/hierarchy.py`` (everything but the refresh path's
-``l2_decrease_stage``).  The dense overlay closure
+Port of ``repro/core/hierarchy.py``.  The dense overlay closure
 (``device_engine.super_stage``) is O(S^2) memory and O(S^3) work in the
 boundary count S; the hierarchy keeps every per-level closure small.
 One *grouping level* takes an overlay (S nodes, a slot list with
@@ -23,6 +22,8 @@ min-merged weights) and
 enough to close densely: the top closure ``d2`` (``l2_stage``, the
 blocked FW of ``ops.fw_apsp``), whose first-hop witnesses come from the
 host function ``first_hops``.  ``hierarchy_levels = 1 + len(levels)``.
+A refresh whose top slot weights only went down re-closes the top with
+``l2_decrease_stage`` (a bounded (min,+) relaxation on the host) instead.
 
 The host-side planner and weight caches are numpy, copied from the
 reference and marked with their source lines there; keep the two in
@@ -598,6 +599,94 @@ def l2_stage(hier: HierPlan, device: torch.device, *, force=None,
             n_s = first_hops(adj, d_s)
         d2[:S2, :S2] = to_device(d_s, device)
         d2_next[:S2, :S2] = to_device(n_s, device)
+        return d2, d2_next
+
+
+# copied from src/repro/core/hierarchy.py:586
+#: decrease fast path bail-out: above this fraction of S2 touched, the
+#: r x r seed closure + [S2, r, S2] relaxation stops beating full FW
+DECREASE_MAX_FRAC = 8
+
+
+# copied from src/repro/core/hierarchy.py:590 (host numpy, as there)
+def l2_decrease_stage(hier: HierPlan, d2_old: torch.Tensor,
+                      d2_next_old: torch.Tensor,
+                      changed_slots: np.ndarray
+                      ) -> Optional[tuple[torch.Tensor, torch.Tensor]]:
+    """Decrease-only incremental top closure.
+
+    Precondition (checked by the caller): every slot in
+    ``changed_slots`` carries a weight <= its previous one and no other
+    slot changed.  Then with U = the changed slots' endpoints and
+    M* = the closed [r, r] block of min(old closure on U, new changed
+    weights), the exact new closure is
+
+        D_new = min(D_old, D_old[:, U] (x) M* (x) D_old[U, :])
+
+    — candidates never undershoot (every old path survives a decrease
+    with weight >= its new true distance), and any strictly shorter new
+    path splits at its first/last changed-edge endpoints, both in U, so
+    the three-factor contraction reaches it.  Witnesses re-derive via
+    ``first_hops`` only on the rows/columns whose adjacency row or
+    closure column changed; everything else carries over.
+
+    The old epoch's tables are read on the host and never written: the
+    result is a new sentinel-padded (d2, d2_next) pair on ``d2_old``'s
+    device, or None when the touched endpoint set is too large for the
+    fast path to pay (the caller falls back to the full ``l2_stage``).
+    """
+    S2 = hier.S2
+    u_ids = np.unique(np.concatenate(
+        [hier.l2_src[changed_slots], hier.l2_dst[changed_slots]]
+    )).astype(np.int64)
+    r = int(u_ids.size)
+    if r == 0 or r > max(16, S2 // DECREASE_MAX_FRAC):
+        return None
+    with trace.span("hierarchy.l2_decrease_stage", S2=int(S2), r=r):
+        d_old = d2_old.cpu().numpy()[:S2, :S2]
+        nxt_old = d2_next_old.cpu().numpy()[:S2, :S2]
+        # seed block: old closure restricted to U, min-merged with the NEW
+        # changed-slot weights, then closed by a tiny r x r FW
+        m = d_old[np.ix_(u_ids, u_ids)].copy()
+        pos = np.full(S2, -1, np.int64)
+        pos[u_ids] = np.arange(r)
+        pa = pos[hier.l2_src[changed_slots]]
+        pb = pos[hier.l2_dst[changed_slots]]
+        wc = hier.l2_w[changed_slots].astype(np.float32)
+        np.minimum.at(m, (pa, pb), wc)
+        np.minimum.at(m, (pb, pa), wc)
+        np.fill_diagonal(m, 0.0)
+        for k in range(r):
+            np.minimum(m, m[:, k, None] + m[None, k, :], out=m)
+        # two-sided relaxation, chunked so [c, r, S2] stays ~64 MiB
+        left = d_old[:, u_ids]                        # [S2, r]
+        right = d_old[u_ids, :]                       # [r, S2]
+        lm = np.min(left[:, :, None] + m[None, :, :], axis=1)  # [S2, r]
+        d_new = d_old.copy()
+        chunk = max(1, (1 << 24) // max(1, r * S2))
+        for i0 in range(0, S2, chunk):
+            cand = np.min(lm[i0:i0 + chunk, :, None] + right[None, :, :],
+                          axis=1)
+            np.minimum(d_new[i0:i0 + chunk], cand,
+                       out=d_new[i0:i0 + chunk])
+        # canonical witnesses on the changed rows/columns only (D stays
+        # symmetric, so changed rows == changed columns)
+        touched = np.union1d(
+            u_ids, np.nonzero((d_new != d_old).any(axis=1))[0])
+        adj = l2_overlay(hier)
+        nxt_new = nxt_old.copy()
+        nxt_new[touched, :] = first_hops(adj, d_new, rows=touched)
+        rest = np.setdiff1d(np.arange(S2, dtype=np.int64), touched)
+        if rest.size and touched.size:
+            nxt_new[np.ix_(rest, touched)] = first_hops(
+                adj, d_new, rows=rest, cols=touched)
+        dev = d2_old.device
+        d2 = torch.full((S2 + 1, S2 + 1), _INF, dtype=torch.float32,
+                        device=dev)
+        d2_next = torch.full((S2 + 1, S2 + 1), -1, dtype=torch.int32,
+                             device=dev)
+        d2[:S2, :S2] = to_device(d_new, dev)          # fresh tensors
+        d2_next[:S2, :S2] = to_device(nxt_new, dev)
         return d2, d2_next
 
 

@@ -16,9 +16,11 @@ are padded tensors the device engine consumes (device_engine.py).
 
 The port carries the serial build only: the build is explicit stage
 functions over a ``HostBuildPlan`` run one after another in one
-process.  The reference's worker pool, its streaming handoff
-(``start_build``) and ``reweight_index`` are still to be ported
-(ROADMAP.md); the serial build is the one they are all held equal to.
+process.  The reference's worker pool and its streaming handoff
+(``start_build``) are still to be ported (ROADMAP.md); the serial build
+is the one they are held equal to.  ``reweight_index`` gives the same
+structure new weights: the from-scratch oracle of the incremental
+refresh (``device_engine.refresh_index``).
 """
 from __future__ import annotations
 
@@ -186,6 +188,120 @@ def build_index(g: Graph, c: int = 2, use_cost_model: bool = True,
         partition=plan.partition, fragments=plan.fragments,
         super_graph=plan.super_graph, frag_of=plan.frag_of,
         timings=plan.timings)
+
+
+# copied from src/repro/core/supergraph.py:347
+def _graph_equal(a: Graph, b: Graph) -> bool:
+    return (a.n == b.n and a.m == b.m
+            and np.array_equal(a.indptr, b.indptr)
+            and np.array_equal(a.indices, b.indices)
+            and np.array_equal(a.weights, b.weights)
+            and np.array_equal(a.edge_u, b.edge_u)
+            and np.array_equal(a.edge_v, b.edge_v)
+            and np.array_equal(a.edge_w, b.edge_w))
+
+
+# copied from src/repro/core/supergraph.py:357
+def index_arrays_equal(a: DislandIndex, b: DislandIndex) -> dict:
+    """Field-wise array equality of two host indices.  Returns
+    ``{field: bool}``; callers assert ``all(...values())`` so a failure
+    names the diverging field."""
+    out = {}
+    da, db = a.dras, b.dras
+    out["dras.arrays"] = (
+        np.array_equal(da.agent_of, db.agent_of)
+        and np.array_equal(da.dist_to_agent, db.dist_to_agent)
+        and np.array_equal(da.piece_of, db.piece_of)
+        and da.threshold == db.threshold)
+    out["dras.agents"] = (
+        len(da.agents) == len(db.agents)
+        and all(x.agent == y.agent
+                and len(x.pieces) == len(y.pieces)
+                and all(np.array_equal(p, q)
+                        for p, q in zip(x.pieces, y.pieces))
+                and np.array_equal(x.nodes, y.nodes)
+                and np.array_equal(x.dist_to_agent, y.dist_to_agent)
+                and np.array_equal(x.piece_of, y.piece_of)
+                for x, y in zip(da.agents, db.agents)))
+    out["shrink"] = (_graph_equal(a.shrink, b.shrink)
+                     and np.array_equal(a.shrink_ids, b.shrink_ids)
+                     and np.array_equal(a.shrink_id_of, b.shrink_id_of))
+    out["partition"] = (
+        a.partition.n_fragments == b.partition.n_fragments
+        and np.array_equal(a.partition.labels, b.partition.labels))
+    out["frag_of"] = np.array_equal(a.frag_of, b.frag_of)
+    frag_ok = cov_ok = len(a.fragments) == len(b.fragments)
+    for fa, fb in zip(a.fragments, b.fragments):
+        frag_ok = (frag_ok and np.array_equal(fa.nodes, fb.nodes)
+                   and _graph_equal(fa.graph, fb.graph)
+                   and np.array_equal(fa.boundary_local,
+                                      fb.boundary_local))
+        if (fa.cover is None) != (fb.cover is None):
+            cov_ok = False
+        elif fa.cover is not None:
+            ca, cb = fa.cover, fb.cover
+            cov_ok = (cov_ok
+                      and np.array_equal(ca.landmarks, cb.landmarks)
+                      and np.array_equal(ca.landmark_edges,
+                                         cb.landmark_edges)
+                      and np.array_equal(ca.direct_edges,
+                                         cb.direct_edges))
+    out["fragments"] = frag_ok
+    out["covers"] = cov_ok
+    sa, sb = a.super_graph, b.super_graph
+    if sa is None or sb is None:
+        out["super_graph"] = sa is None and sb is None
+    else:
+        out["super_graph"] = (
+            _graph_equal(sa.graph, sb.graph)
+            and np.array_equal(sa.node_ids, sb.node_ids)
+            and sa.id_of == sb.id_of)
+    return out
+
+
+# copied from src/repro/core/supergraph.py:418
+def reweight_index(ix: DislandIndex, g_new: Graph) -> DislandIndex:
+    """Same index *structure*, new edge weights.
+
+    Weight updates never change cut nodes, BCCs, DRAs, fragments, or
+    the SUPER node universe — all are purely topological — so a live
+    traffic batch only invalidates the weight-dependent products.  This
+    rebuilds exactly those on the host: per-DRA agent distances, the
+    shrink/fragment subgraph weights.  Covers and the SUPER graph are
+    carried over structurally; their cached enforced-edge *distances*
+    are stale, which the device build never reads (it regathers Upsilon
+    weights from the fragment APSP, device_engine.super_weights) — use
+    ``build_index(g_new)`` if a fully-consistent host index is needed.
+
+    ``build_device_index(reweight_index(ix, g_new))`` is therefore the
+    from-scratch reference the incremental ``refresh_index`` path is
+    held against, array for array.
+    """
+    from .agents import _sssp_within
+
+    if g_new.n != ix.g.n or g_new.m != ix.g.m:
+        raise ValueError("reweight_index requires identical topology")
+    dist_to_agent = ix.dras.dist_to_agent.copy()
+    agents = []
+    for a in ix.dras.agents:
+        allp = np.unique(np.concatenate(a.pieces))
+        dmap = _sssp_within(g_new, a.agent, allp)
+        d = np.array([dmap.get(int(x), np.inf) for x in a.nodes])
+        agents.append(dataclasses.replace(a, dist_to_agent=d))
+        dist_to_agent[a.nodes] = d
+    dras = dataclasses.replace(ix.dras, agents=agents,
+                               dist_to_agent=dist_to_agent)
+
+    shrink, shrink_ids = g_new.subgraph(ix.shrink_ids)
+    fragments = []
+    for i, f in enumerate(ix.fragments):
+        loc = ix.partition.fragment_nodes(i)
+        fg, _fids = shrink.subgraph(loc)
+        fragments.append(dataclasses.replace(f, graph=fg))
+
+    return dataclasses.replace(
+        ix, g=g_new, dras=dras, shrink=shrink, fragments=fragments,
+        timings=dict(ix.timings, reweighted=True))
 
 
 def _assemble_super(g: Graph, shrink: Graph, shrink_ids: np.ndarray,

@@ -22,6 +22,21 @@ median batch ms, µs/path, paths/s and mean hops, and validates
 ``path_weight == served distance == Dijkstra`` (any mismatch exits
 non-zero).
 
+``--update-batches N`` then absorbs N rounds of localized live-traffic
+weight updates (``--update-frac`` of the edges each, ``traffic_updates``)
+through an ``EpochedEngine``: each round refreshes the index
+incrementally and publishes the next epoch, serves a batch on it and
+validates ``--validate`` answers against Dijkstra, then rebuilds from
+scratch twice (the full pipeline, and ``reweight_index`` + device build)
+and checks that the refreshed epoch is array-equal to the reweight
+rebuild on ``REFRESHED_FIELDS`` and the host sidecars; it prints the
+refresh seconds by stage beside both rebuilds' and ``match=``.  With
+``--paths`` the path loop runs again on the last epoch.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --nodes 900 --batches 1 --batch-size 64 --validate 16 \\
+        --update-batches 2 --update-frac 0.02
+
 ``--hierarchy-levels`` picks the overlay closure (1 dense, 2..5 the
 N-level hierarchy, auto; default the preset's, else auto) and
 ``--resident-mb`` the resident pre-lifted row budget on hierarchical
@@ -39,14 +54,27 @@ import numpy as np
 import torch
 
 from ..core import dijkstra
-from ..core.device_engine import (build_device_index_with_plan,
-                                  resolve_device)
+from ..core.device_engine import (build_device_index,
+                                  build_device_index_with_plan,
+                                  index_fields_equal, resolve_device,
+                                  sidecars_equal)
 from ..core.hierarchy import hier_overlay_stats
-from ..core.dist_engine import QueryPlanner
-from ..core.graph import road_like
+from ..core.dist_engine import EpochedEngine, QueryPlanner
+from ..core.graph import road_like, traffic_updates
 from ..core.paths import PathUnwinder, path_weight
-from ..core.supergraph import build_index
+from ..core.supergraph import build_index, reweight_index
 from ..data.roads import road_preset
+
+# copied from src/repro/launch/serve.py:54
+#: the tables a refresh re-derives; the refresh == rebuild check compares
+#: them array for array (per-level tuples leaf by leaf; the hierarchical,
+#: resident and hub ones are dummies where the index has none)
+REFRESHED_FIELDS = ("frag_apsp", "frag_next", "brow", "d_super",
+                    "super_next", "piece_flat", "piece_next",
+                    "dist_to_agent",
+                    "sf_closure", "sf_next", "l2row", "d2", "d2_next",
+                    "res_rows", "res_of_frag",
+                    "hub_rows", "hub_of_agent")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -75,6 +103,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="batches of the --paths loop (default --batches)")
     ap.add_argument("--path-batch-size", type=int, default=None,
                     help="pairs per --paths batch (default --batch-size)")
+    ap.add_argument("--update-batches", type=int, default=0,
+                    help="rounds of live-traffic weight updates, each "
+                         "refreshed into a new epoch, served, validated "
+                         "and checked against a scratch rebuild")
+    ap.add_argument("--update-frac", type=float, default=0.02,
+                    help="share of the edges each update round changes")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return ap.parse_args(argv)
@@ -96,11 +130,9 @@ def _overlay_record(dix, plan) -> dict:
             "overlay_bytes": dense, "overlay_dense_bytes": dense}
 
 
-def build(args: argparse.Namespace, hub_nodes=None) -> tuple:
-    """Graph, host index and device index of the run ->
-    (graph, DeviceIndex, BuildPlan, summary of the build).
-    ``hub_nodes`` pins the hub-label tier's node set (the CLI builds
-    without one)."""
+def _build_knobs(args: argparse.Namespace) -> tuple:
+    """(device, hierarchy levels, resident budget) of the run; a named
+    preset sets ``args.nodes``."""
     device = resolve_device(args.device)
     levels = "auto"
     if args.graph:
@@ -110,21 +142,24 @@ def build(args: argparse.Namespace, hub_nodes=None) -> tuple:
         levels = _levels_arg(args.hierarchy_levels)
     resident_mb = (args.resident_mb if args.resident_mb == "auto"
                    else float(args.resident_mb))
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+    return device, levels, resident_mb
+
+
+def build_host(args: argparse.Namespace) -> tuple:
+    """The run's graph and host index -> (graph, DislandIndex)."""
+    _build_knobs(args)
     t0 = time.perf_counter()
     g = road_like(args.nodes, seed=args.seed)
-    graph_s = time.perf_counter() - t0
-    print(f"graph: n={g.n} m={g.m} ({graph_s:.2f}s)")
+    print(f"graph: n={g.n} m={g.m} ({time.perf_counter() - t0:.2f}s)")
     t0 = time.perf_counter()
     ix = build_index(g)
-    host_s = time.perf_counter() - t0
-    print(f"host index: {ix.timings} ({host_s:.2f}s)")
-    t0 = time.perf_counter()
-    dix, plan = build_device_index_with_plan(
-        ix, device=device, hierarchy_levels=levels,
-        resident_mb=resident_mb, hub_nodes=hub_nodes)
-    device_s = time.perf_counter() - t0
+    ix.timings["host_build_s"] = time.perf_counter() - t0
+    print(f"host index: {ix.timings}")
+    return g, ix
+
+
+def _summary(args, g, ix, dix, plan, device, device_s: float) -> dict:
+    """Print the device build and return the run's summary."""
     stages = {k: round(v, 3) for k, v in plan.build_timings.items()}
     print(f"device index on {device}: k={plan.k} maxf={plan.maxf} "
           f"mb={plan.mb} S={plan.S} pieces={plan.n_pieces} "
@@ -141,13 +176,31 @@ def build(args: argparse.Namespace, hub_nodes=None) -> tuple:
     if hub_labels:
         print(f"hub labels: {hub_labels} agents x {dix.hub_rows.shape[1]} "
               f"columns")
-    return g, dix, plan, {
+    return {
         "graph": args.graph or f"road{args.nodes}", "n": g.n,
         "device": str(device), "S": plan.S, "k": plan.k,
         "maxf": plan.maxf, "mb": plan.mb, "overlay": overlay,
         "hub_labels": hub_labels,
-        "host_build_s": host_s, "device_build_s": device_s,
-        "stages_s": dict(plan.build_timings)}
+        "host_build_s": ix.timings["host_build_s"],
+        "device_build_s": device_s, "stages_s": dict(plan.build_timings)}
+
+
+def build(args: argparse.Namespace, hub_nodes=None, host=None) -> tuple:
+    """Graph, host index and device index of the run ->
+    (graph, DeviceIndex, BuildPlan, summary of the build).
+    ``hub_nodes`` pins the hub-label tier's node set (the CLI builds
+    without one); ``host`` = (graph, host index) from ``build_host``
+    skips building those again."""
+    device, levels, resident_mb = _build_knobs(args)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    g, ix = build_host(args) if host is None else host
+    t0 = time.perf_counter()
+    dix, plan = build_device_index_with_plan(
+        ix, device=device, hierarchy_levels=levels,
+        resident_mb=resident_mb, hub_nodes=hub_nodes)
+    device_s = time.perf_counter() - t0
+    return g, dix, plan, _summary(args, g, ix, dix, plan, device, device_s)
 
 
 def _path_shape(args: argparse.Namespace) -> tuple[int, int]:
@@ -247,7 +300,7 @@ def serve_paths(args: argparse.Namespace, g, dix, plan,
         s = rng.integers(0, g.n, size)
         t = rng.integers(0, g.n, size)
         t0 = time.perf_counter()
-        dist, wit = planner.query_witness(s, t)
+        dist, wit = planner.query_witness(s, t, dix=dix)
         t1 = time.perf_counter()
         paths = uw.unwind_many(s, t, dist, wit)
         times.append(time.perf_counter() - t0)
@@ -276,19 +329,117 @@ def serve_paths(args: argparse.Namespace, g, dix, plan,
             "mean_hops": mean_hops, "mismatches": bad, "validated": n_check}
 
 
+def update_loop(engine: EpochedEngine, args: argparse.Namespace) -> list:
+    """Absorb ``--update-batches`` rounds of localized traffic, serving
+    and validating on each new epoch and checking it against scratch
+    rebuilds; returns one record per round (refresh seconds by stage,
+    both rebuilds' seconds, the mismatch count, ``scratch_match``)."""
+    records = []
+    plan = engine.plan
+    rng = np.random.default_rng(args.seed + 2)
+    for r in range(args.update_batches):
+        u, v, w = traffic_updates(engine.g, args.update_frac,
+                                  seed=args.seed + 10 + r)
+        t0 = time.perf_counter()
+        stats = engine.apply_updates(u, v, w)      # synchronised
+        apply_s = time.perf_counter() - t0
+        s = rng.integers(0, engine.g.n, args.batch_size)
+        t = rng.integers(0, engine.g.n, args.batch_size)
+        t0 = time.perf_counter()
+        out = engine.query(s, t)                   # ends in a host copy
+        serve_s = time.perf_counter() - t0
+        n_check = min(args.validate, len(s))
+        bad = sum(dijkstra.mismatches_oracle(
+            dijkstra.pair(engine.g, int(s[i]), int(t[i])), float(out[i]))
+            for i in range(n_check))
+        # two from-scratch baselines on the updated graph: the full
+        # pipeline (host build + device build), and the same structure
+        # reweighted + device build, the refresh's exactness reference
+        # (same depth, resident budget and hub set as the live plan)
+        t0 = time.perf_counter()
+        build_device_index(build_index(engine.g), device=engine.device,
+                           hierarchy_levels=plan.hierarchy_levels)
+        pipeline_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sdix = build_device_index(
+            reweight_index(engine.ix, engine.g), device=engine.device,
+            hierarchy_levels=plan.hierarchy_levels,
+            resident_mb=plan.resident_mb, hub_nodes=plan.hub_nodes)
+        reweight_s = time.perf_counter() - t0
+        fields = index_fields_equal(engine.dix, sdix, REFRESHED_FIELDS)
+        sides = sidecars_equal(engine.dix, sdix)
+        differ = sorted(k for k, ok in {**fields, **sides}.items()
+                        if not ok)
+        # apply_s: the whole apply_updates (new graph, refresh, swap);
+        # the record's refresh_s and stage_timings are refresh_index's
+        rec = {"epoch": engine.epoch, "update_frac": args.update_frac,
+               "apply_s": apply_s, "scratch_pipeline_s": pipeline_s,
+               "scratch_reweight_s": reweight_s,
+               "refresh_over_scratch": apply_s / pipeline_s,
+               "refresh_over_reweight": apply_s / reweight_s,
+               "post_refresh_mismatches": bad, "validated": n_check,
+               "scratch_match": not differ, "differ": differ,
+               "serve_batch_ms": serve_s * 1e3, **stats.as_record()}
+        records.append(rec)
+        print(f"epoch {engine.epoch}: refresh {apply_s * 1e3:.1f}ms "
+              f"({rec['dirty_frags']} frags, {rec['dirty_pieces']} pieces, "
+              f"decrease_only={stats.decrease_only}, "
+              f"top_closure={stats.top_closure}, stages "
+              f"{rec['stage_timings']}) -> "
+              f"{apply_s / pipeline_s:.1%} of full pipeline "
+              f"({pipeline_s:.2f}s), {apply_s / reweight_s:.1%} of "
+              f"reweight rebuild ({reweight_s:.2f}s); validation {bad} "
+              f"mismatches of {n_check}; match={not differ}"
+              + (f" (differ: {differ})" if differ else ""))
+    return records
+
+
+def run_epoched(args: argparse.Namespace) -> tuple:
+    """The run with ``--update-batches``: build through an
+    ``EpochedEngine``, serve epoch 0 (``serve``), then ``update_loop``
+    and, with ``--paths``, the path loop again on the last epoch.
+    Returns (engine, summary)."""
+    device, levels, resident_mb = _build_knobs(args)
+    g, ix = build_host(args)
+    t0 = time.perf_counter()
+    engine = EpochedEngine(g, ix=ix, device=device, paths=args.paths,
+                           hierarchy_levels=levels,
+                           resident_mb=resident_mb)
+    device_s = time.perf_counter() - t0
+    summary = _summary(args, g, ix, engine.dix, engine.plan, device,
+                       device_s)
+    res = serve(args, g, engine.dix, summary, engine.plan)
+    res["refresh"] = update_loop(engine, args)
+    if args.paths:
+        print(f"paths on epoch {engine.epoch}:")
+        res["paths_last_epoch"] = serve_paths(
+            args, engine.g, engine.dix, engine.plan, engine.planner)
+    return engine, res
+
+
 def run(args: argparse.Namespace) -> dict:
     """Build, warm up, serve and validate (and the path loop with
-    ``--paths``); returns the run's summary (stage seconds, overlay
-    shapes, median batch ms, µs/query, planner buckets, the validation
-    mismatch counts)."""
+    ``--paths``, the update rounds with ``--update-batches``); returns
+    the run's summary (stage seconds, overlay shapes, median batch ms,
+    µs/query, planner buckets, the validation mismatch counts)."""
+    if args.update_batches:
+        return run_epoched(args)[1]
     g, dix, plan, summary = build(args)
     return serve(args, g, dix, summary, plan)
 
 
+def failures(res: dict) -> int:
+    """Mismatches of every check a run made, plus refreshed epochs that
+    differ from their scratch rebuild."""
+    return (res["mismatches"]
+            + res.get("paths", {}).get("mismatches", 0)
+            + res.get("paths_last_epoch", {}).get("mismatches", 0)
+            + sum(r["post_refresh_mismatches"] + (not r["scratch_match"])
+                  for r in res.get("refresh", ())))
+
+
 def main(argv=None) -> int:
-    res = run(parse_args(argv))
-    bad = res["mismatches"] + res.get("paths", {}).get("mismatches", 0)
-    return 1 if bad else 0
+    return 1 if failures(run(parse_args(argv))) else 0
 
 
 if __name__ == "__main__":
