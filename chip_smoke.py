@@ -86,16 +86,35 @@ prints no result.  Phases, each of which must pass:
      the jam re-closes the top (``full_fw``: kernels 3 and 4); each
      epoch's ``RefreshStats`` (synchronised stage seconds, top closure)
      and the rebuild's seconds are printed;
-  8. the ``kernels`` JSON line (launches summed over the main paths of
-     phases 4 and 6 and the refresh epochs of phases 5 and 7, which must
-     launch both witness FW kernels, the grouped twoside and the in-place
-     accumulate, and never the per-pivot FW or the fresh-output
-     accumulate; times and bounds from phases 2 and 7), the card's name
-     and power limit from nvidia-smi, and the ``{"ok": true, ...}`` line
-     last.
+  8. the live serving runtime through ``repro_torch.launch.serve``'s
+     ``build_engine`` and ``live_loop`` (``serve --live``): road4000
+     with a 4-worker parallel host build (== serial) streamed into the
+     device build, 3 s of Zipf traffic at 4,000 qps through the cache,
+     the hub tier (256 nodes) and the planner while 3 refresh rounds run
+     on the engine's refresh stream (0 mismatches against each
+     response's epoch oracle, more than one epoch served, the longest
+     serving gap under ``ROAD4000_MAX_GAP_S``), then 2,000, 8,000 and
+     32,000 qps offered without refresh; road64k on phase 6's host index
+     with 2,048 Zipf-pool hub nodes: cache off (the label tier serves
+     exactly the ``ROAD64K_LIVE_GATED`` pairs the hub gate admits),
+     cache on, and 12 s beside one refresh epoch (its ``top_closure``
+     and the serving gap beside it are recorded: a top re-close runs
+     ``first_hops`` on the host);
+     counters zeroed around each run, and no kernel library built or
+     loaded during one;
+  9. the ``kernels`` JSON line (launches summed over the main paths of
+     phases 4 and 6, the refresh epochs of phases 5 and 7 and the live
+     runs of phase 8, those of phase 8 also apart as ``live_launches``;
+     together they must launch both witness FW kernels, the
+     grouped twoside, the label merge and the in-place accumulate, and
+     never the per-pivot FW or the fresh-output accumulate; times and
+     bounds from phases 2 and 7), the card's name and power limit from
+     nvidia-smi, and the ``{"ok": true, ...}`` line last.
 
 Details of every case go to ``chiprun_out/chip_smoke.json``, with the
-tally of the profiler windows behind every device time.  The old
+tally of the profiler windows behind every device time; the road4000
+live run's metrics snapshot and Chrome trace to
+``chiprun_out/live_road4000_{metrics,trace}.json``.  The old
 twoside path (rows scattered at their ids, then the first dense kernel)
 is timed against the grouped kernel by ``scripts/kernel_ab.py
 --twoside`` on a parent checkout.
@@ -1157,10 +1176,11 @@ def _level_differential() -> dict:
     return res
 
 
-def _count_refreshes(record: list):
+def _count_refreshes(record: list, stats: list | None = None):
     """Make every ``refresh_index`` call an ``EpochedEngine`` makes
     append its kernel launches (the counters' difference across the
-    call) to ``record``; returns the function that undoes it."""
+    call) to ``record``, and its ``RefreshStats`` record to ``stats``;
+    returns the function that undoes it."""
     from repro_torch.core import dist_engine
     inner = dist_engine.refresh_index
 
@@ -1169,6 +1189,8 @@ def _count_refreshes(record: list):
         out = inner(*args, **kwargs)
         after = _read_counts()
         record.append({k: after[k] - before[k] for k in after})
+        if stats is not None:
+            stats.append(out[1].as_record())
         return out
     dist_engine.refresh_index = counted
     return lambda: setattr(dist_engine, "refresh_index", inner)
@@ -1360,6 +1382,209 @@ def _road64k_refresh() -> dict:
     return res
 
 
+#: kernels a refresh launches; serving launches none of them, so their
+#: counts across a refresh call are the refresh's own even while a
+#: serving thread launches its kernels beside it
+REFRESH_KERNELS = ("fw_next_reg", "fw_next_blocked", "fw_next_global",
+                   "fw_batch", "minplus_accum", "minplus_accum_into",
+                   "minplus_accum_panels", "minplus")
+
+#: road4000_live's bound on the longest stretch with no response while
+#: three refresh rounds run beside serving (``--max-serving-gap``): 2.5x
+#: the 202 ms the first card run measured (H100, 700 W), whose longest
+#: stalls came with and without refresh alike
+ROAD4000_MAX_GAP_S = 0.5
+
+#: of road64k_live's 6,000 Zipf pairs, the hub gate admits this many
+#: (computed from the host build on the CPU and pinned by
+#: ``tests/test_torch_serving.py::test_road64k_live_hub_share_pinned``)
+ROAD64K_LIVE_GATED = 3209
+
+
+def _live(engine, args, refresh_stats: list | None = None) -> dict:
+    """One ``serve.live_loop`` with the launch counters zeroed just
+    before and read just after, and each refresh call's own launches
+    and stats; fails on a mismatch, a failed gate, or a kernel library
+    built or loaded during the run (everything was loaded before it).
+    Records the process's full (generation-2) garbage collections
+    during the run: each stops every thread, the flusher included."""
+    import gc
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    libs, builds = set(_build._LIBS), []
+    inner_build = _build.build
+    _build.build = lambda *a, **k: builds.append(a) or inner_build(*a, **k)
+    pauses, started = [], [0.0]
+
+    def on_gc(phase, info):
+        if info["generation"] == 2:
+            if phase == "start":
+                started[0] = time.perf_counter()
+            else:
+                pauses.append((time.perf_counter() - started[0]) * 1e3)
+    per_call: list = []
+    undo = _count_refreshes(per_call, refresh_stats)
+    gc.callbacks.append(on_gc)
+    _reset_counts()
+    try:
+        live = serve.live_loop(engine, args)
+    finally:
+        gc.callbacks.remove(on_gc)
+        undo()
+        _build.build = inner_build
+    live["gc_gen2_ms"] = pauses
+    live["launches"] = _read_counts()
+    live["refresh_launches"] = [{k: c[k] for k in REFRESH_KERNELS}
+                                for c in per_call]
+    rec = live["serve_live"]
+    if rec["oracle_bad"] or live["gate_failures"] or builds \
+            or set(_build._LIBS) != libs:
+        raise AssertionError(
+            f"live at {rec['rate_qps']} qps: {rec['oracle_bad']} "
+            f"mismatches, gates {live['gate_failures']}, builds {builds}, "
+            f"libraries loaded {sorted(set(_build._LIBS) - libs)}")
+    return live
+
+
+def _live_numbers(live: dict) -> dict:
+    """The numbers PERF.md keeps of one live run (with the longest full
+    garbage collection inside it)."""
+    rec = live["serve_live"]
+    return {"gc_gen2": len(live["gc_gen2_ms"]),
+            "gc_gen2_max_ms": max(live["gc_gen2_ms"], default=0.0),
+            **{k: rec.get(k) for k in (
+        "rate_qps", "n_requests", "offered_qps", "achieved_qps", "p50_ms",
+        "p95_ms", "p99_ms", "max_ms", "cache_hits", "label_hits",
+        "planner_dispatches", "mean_occupancy", "flushes",
+        "max_serving_gap_ms", "epochs_served", "oracle_checked",
+        "label_us_per_query", "planner_us_per_query", "refresh_items",
+        "refresh_mean_s", "refresh_max_s")}}
+
+
+def _sum_launches(runs) -> dict:
+    return {name: sum(r["launches"][name] for r in runs)
+            for name, _m, _a in KERNELS}
+
+
+def _road4000_live() -> dict:
+    """``serve --nodes 4000 --live`` on the card: a parallel host build
+    (4 spawned workers) held to the serial one, streamed into the device
+    build; 3 s of Zipf traffic at 4,000 qps through the cache, the hub
+    tier (256 nodes) and the planner while 3 refresh rounds run beside
+    it on the refresh stream; 256 responses against the Dijkstra oracle
+    of their epochs; metrics and a Chrome trace to ``chiprun_out/``.
+    Then the same engine without refresh at 2,000, 8,000 and 32,000 qps
+    offered, each run validated."""
+    from repro_torch.launch import serve
+    from repro_torch.obs import trace
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    base = ["--nodes", "4000", "--live", "--mix", "zipf", "--live-seconds",
+            "3", "--hub-budget", "256", "--validate", "256",
+            "--build-workers", "4", "--device", "cuda"]
+    args = serve.parse_args(base + [
+        "--rate", "4000", "--live-update-batches", "3", "--update-frac",
+        "0.02", "--check-build-parity",
+        "--max-serving-gap", str(ROAD4000_MAX_GAP_S),
+        "--metrics-out", str(out_dir / "live_road4000_metrics.json"),
+        "--trace-out", str(out_dir / "live_road4000_trace.json")])
+    tracer = trace.get_tracer()
+    tracer.clear()
+    tracer.enable()
+    try:
+        engine, res = serve.build_engine(args)
+        stats: list = []
+        res["live"] = _live(engine, args, stats)
+    finally:
+        tracer.enable(False)
+    serve._write_trace(args)
+    tracer.clear()
+    live = res["live"]
+    rec = live["serve_live"]
+    res["refresh_stats"] = stats
+    res["refresh_run"] = _live_numbers(live)
+    print(f"  road4000 live refresh launches per epoch: "
+          f"{live['refresh_launches']}")
+    rates = {}
+    for rate in (2000, 8000, 32000):
+        rates[rate] = _live(engine, serve.parse_args(
+            base + ["--rate", str(rate)]))
+    res["rates"] = {r: _live_numbers(x) for r, x in rates.items()}
+    sustained = [r for r, x in res["rates"].items()
+                 if x["achieved_qps"] >= 0.95 * r]
+    res["highest_sustained_qps"] = max(sustained, default=None)
+    print(f"  road4000 live: {res['rates']}; highest rate with >= 95% "
+          f"achieved: {res['highest_sustained_qps']}")
+    res["launches"] = _sum_launches([live, *rates.values()])
+    checks = {
+        "build_parity": not res["build_parity"]["differ"],
+        "epochs_served": rec["epochs_served"] > 1,
+        "refresh_rounds": rec["refresh_rounds"] == 3,
+        "fw_kernels_in_refresh": all(
+            sum(c[k] for c in live["refresh_launches"]) > 0
+            for k in ("fw_next_blocked", "fw_next_reg")),
+        "serving_kernels": all(live["launches"][k] > 0 for k in (
+            "label_merge", "minplus_twoside_grouped")),
+    }
+    res["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"road4000 live: {checks}")
+    return res
+
+
+def _road64k_live() -> dict:
+    """``serve --graph road64k --live`` on phase 6's host index (the
+    preset's 3 levels, 2,048 hub nodes from the Zipf pool): 3 s at 2,000
+    qps with the cache off, where the label tier must serve exactly the
+    pairs the hub gate admits (``ROAD64K_LIVE_GATED``), then with the
+    cache on, then 12 s beside one refresh round (0.1% of the edges, one
+    epoch; a top re-close runs ``first_hops`` on the host beside the
+    flusher): its longest serving gap and the epoch's ``top_closure``
+    are recorded, not bounded.  128
+    responses of each run against the oracle of their epochs."""
+    from repro_torch.data.queries import workload_pairs
+    from repro_torch.launch import serve
+    g = _BUILT["road64k"][0]
+    ix = _HOST["road64k"][0]
+    base = ["--graph", "road64k", "--live", "--mix", "zipf", "--rate",
+            "2000", "--hub-budget", "2048", "--validate", "128",
+            "--device", "cuda"]
+    off = serve.parse_args(base + ["--live-seconds", "3",
+                                   "--cache-size", "0"])
+    engine, res = serve.build_engine(off, host=(g, ix))
+    n = int(round(off.rate * off.live_seconds))
+    pairs = workload_pairs(engine.g, off.mix, n, seed=off.seed + 4,
+                           zipf_a=off.zipf_a)
+    gated = int(engine.planner.hub_mask(pairs[:, 0], pairs[:, 1]).sum())
+    runs = {"cache_off": _live(engine, off),
+            "cache_on": _live(engine, serve.parse_args(
+                base + ["--live-seconds", "3"]))}
+    stats: list = []
+    runs["refresh"] = _live(engine, serve.parse_args(base + [
+        "--live-seconds", "12", "--live-update-batches", "1",
+        "--update-frac", "0.001", "--no-live-pipelined"]), stats)
+    res["runs"] = {k: _live_numbers(x) for k, x in runs.items()}
+    res["refresh_stats"] = stats
+    res["refresh_launches"] = runs["refresh"]["refresh_launches"]
+    res["gated_pairs"] = gated
+    res["launches"] = _sum_launches(runs.values())
+    label = runs["cache_off"]["serve_live"]["label_hits"]
+    print(f"  road64k live: {res['runs']}; cache off: label tier "
+          f"{label} of {n}, hub gate admits {gated} (pinned "
+          f"{ROAD64K_LIVE_GATED}); refresh {stats}")
+    checks = {
+        "label_share_is_gate_share": label == gated == ROAD64K_LIVE_GATED,
+        "refresh_epoch_published": len(stats) == 1,
+        "serving_kernels": all(runs["cache_off"]["launches"][k] > 0 for k in (
+            "label_merge", "minplus_twoside_grouped")),
+    }
+    res["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"road64k live: {checks}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1515,6 +1740,8 @@ def main() -> int:
     phase("twoside_grouped", lambda: _check_twoside_grouped(
         _grouped_cases(), grouped_cases))
     phase("road64k_refresh", _road64k_refresh)
+    phase("road4000_live", _road4000_live)
+    phase("road64k_live", _road64k_live)
 
     report["fw_cases"], report["ts_cases"] = fw_cases, ts_cases
     report["new_cases"], report["slice3_cases"] = new_cases, slice3_cases
@@ -1552,10 +1779,15 @@ def main() -> int:
                            "minplus_accum_into", "minplus",
                            "fw_next_blocked", "minplus_twoside_grouped",
                            "minplus_twoside_argmin", "label_merge"))
-        # the main paths and the refresh epochs (each counted from zero
-        # just before it, read just after)
+        for path in ("road4000_live", "road64k_live"):
+            _require_launched(report[path], path,
+                              ("label_merge", "minplus_twoside_grouped",
+                               "fw_next_reg", "fw_next_blocked"))
+        # the main paths, the refresh epochs and the live runs (each
+        # counted from zero just before it, read just after)
         launches = {name: sum(report[path]["launches"][name] for path in (
-            "road4000", "road64k", "road4000_refresh", "road64k_refresh"))
+            "road4000", "road64k", "road4000_refresh", "road64k_refresh",
+            "road4000_live", "road64k_live"))
             for name, _m, _a in KERNELS}
         # the per-pivot FW and the fresh-output accumulate left the main
         # paths (for the blocked FW and the in-place accumulate): timed
@@ -1571,6 +1803,8 @@ def main() -> int:
         print("chip_smoke: FAILED launch counts", file=sys.stderr)
         return 1
     report["launches_main_paths"] = launches
+    live_launches = {name: sum(report[path]["launches"][name] for path in (
+        "road4000_live", "road64k_live")) for name, _m, _a in KERNELS}
     (out_dir / "chip_smoke.json").write_text(
         json.dumps(report, indent=1, default=str))
     rows = [
@@ -1619,6 +1853,7 @@ def main() -> int:
     kernels = [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],
+        "live_launches": live_launches[name],
         "max_abs_err": c["max_abs_err"], "ms": c["ms"],
         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,

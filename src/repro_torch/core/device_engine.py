@@ -97,9 +97,11 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _sync(device: torch.device) -> None:
-    """Wait for the card, so a stage's wall time covers its kernels."""
+    """Wait for the card's current stream, so a stage's wall time covers
+    its kernels (and only its own: a refresh on its own stream does not
+    wait for a serving thread's batches)."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 def _dummy(shape, fill, dtype):
@@ -657,9 +659,7 @@ def resident_stage(plan: BuildPlan, fields: dict) -> dict | None:
     rmap = np.full(h0.nsf, R, np.int32)
     rmap[hot] = np.arange(R, dtype=np.int32)
     res_of_frag = rmap[h0.sf_of_frag.astype(np.int64)]
-    top = h0.sf_of_frag.astype(np.int64)
-    for li in range(1, L):
-        top = levels[li].sf_of_frag.astype(np.int64)[top]
+    top = topgrp_of_frag(levels)
     return {
         "fields": {"res_rows": res_rows,
                    "res_of_frag": _to(res_of_frag, dev),
@@ -668,8 +668,32 @@ def resident_stage(plan: BuildPlan, fields: dict) -> dict | None:
         # fragment -> TOP group (the exactness gate)
         "res_frag": np.where(res_of_frag < R, res_of_frag,
                              -1).astype(np.int32),
-        "topgrp_frag": top.astype(np.int32),
+        "topgrp_frag": top,
     }
+
+
+def topgrp_of_frag(levels) -> np.ndarray:
+    """fragment -> TOP group of a hierarchy plan (int32): the exactness
+    gate of the cross_res bucket and of the hub tier."""
+    top = levels[0].sf_of_frag.astype(np.int64)
+    for li in range(1, len(levels)):
+        top = levels[li].sf_of_frag.astype(np.int64)[top]
+    return top.astype(np.int32)
+
+
+def hub_agents(plan: BuildPlan) -> np.ndarray:
+    """The agents the hub tier labels, in label-row order (by fragment,
+    then agent): the agents of ``plan.hub_nodes`` that lie in a
+    fragment.  Empty without hub nodes.  Host data only, so the tier's
+    gate (``dist_engine.hub_gate``) can be computed before, or without,
+    a device build."""
+    nodes = plan.hub_nodes
+    if nodes is None or len(nodes) == 0:
+        return np.zeros(0, np.int64)
+    agents = np.unique(plan.agent_of[np.asarray(nodes, np.int64)]
+                       .astype(np.int64))
+    agents = agents[plan.frag_of[agents] >= 0]
+    return agents[np.lexsort((agents, plan.frag_of[agents]))]
 
 
 def _group_chain(levels, l2rows, sids, poss, g: int
@@ -713,12 +737,9 @@ def hub_stage(plan: BuildPlan, fields: dict) -> dict | None:
     DeviceIndex field dict plus the planner's host sidecars, or None
     when there is no hub set or no labeled agent.
     """
-    nodes = plan.hub_nodes
-    if nodes is None or len(nodes) == 0:
-        return None
-    nodes = np.asarray(nodes, np.int64)
-    agents = np.unique(plan.agent_of[nodes].astype(np.int64))
-    agents = agents[plan.frag_of[agents] >= 0]
+    # fragment-batched construction; (fragment, agent) order is the
+    # label row order
+    agents = hub_agents(plan)
     if agents.size == 0:
         return None
     brow = fields["brow"]
@@ -726,10 +747,6 @@ def hub_stage(plan: BuildPlan, fields: dict) -> dict | None:
     levels = plan.hier
     frag_a = plan.frag_of[agents]
     pos_a = plan.pos_in_frag[agents]
-    # fragment-batched construction; (fragment, agent) order is the
-    # label row order
-    order = np.lexsort((agents, frag_a))
-    agents, frag_a, pos_a = agents[order], frag_a[order], pos_a[order]
     H = int(agents.size)
     rows_out = []
     topgrp_frag = None
@@ -752,10 +769,7 @@ def hub_stage(plan: BuildPlan, fields: dict) -> dict | None:
             # sentinel ids land on d2's +inf row: absorbing, no mask
             rows_out.append(_compose_minplus(conf,
                                              d2[_to(ids, dev).long()]))
-        top = h0.sf_of_frag.astype(np.int64)
-        for li in range(1, len(levels)):
-            top = levels[li].sf_of_frag.astype(np.int64)[top]
-        topgrp_frag = top.astype(np.int32)
+        topgrp_frag = topgrp_of_frag(levels)
     else:
         d_super = fields["d_super"]
         width = int(d_super.shape[0])

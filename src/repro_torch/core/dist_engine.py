@@ -23,11 +23,13 @@ another's sidecars.
 
 ``EpochedEngine`` serves batched queries while it absorbs live
 edge-weight updates: ``apply_updates`` runs the incremental refresh
-(``device_engine.refresh_index``) beside the serving epoch and publishes
-its result as the next one with a single pointer swap.
+(``device_engine.refresh_index``) beside the serving epoch, on a CUDA
+stream of its own, and publishes its result as the next one with a
+single pointer swap.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 
@@ -41,9 +43,35 @@ from .device_engine import (DeviceIndex, RefreshStats, _sync,
                             serve_cross_w, serve_hub, serve_same_dra,
                             serve_same_dra_w, warmup_refresh)
 from .paths import PathUnwinder
-from .supergraph import DislandIndex, build_index
+from .supergraph import DislandIndex, start_build
 
 _pad_pow2 = padding.pad_pow2
+
+
+def hub_gate(s, t, agent_of: np.ndarray, frag_of: np.ndarray,
+             hub_agent: np.ndarray | None, topgrp: np.ndarray | None, *,
+             hierarchical: bool) -> np.ndarray:
+    """The hub tier's exactness gate over host maps (``QueryPlanner.
+    hub_mask`` on an epoch's sidecars): True where s != t, both agents
+    lie in different fragments and carry labels (``hub_agent >= 0``),
+    and on hierarchical indices (``hierarchical``) the fragments lie in
+    different TOP groups (``topgrp``), so every route touches the top
+    boundary the labels enumerate."""
+    s = np.asarray(s, np.int64)
+    t = np.asarray(t, np.int64)
+    if hub_agent is None:
+        return np.zeros(s.shape, bool)
+    us, ut = agent_of[s], agent_of[t]
+    fs, ft = frag_of[us], frag_of[ut]
+    ok = ((s != t) & (fs >= 0) & (ft >= 0) & (fs != ft)
+          & (hub_agent[us] >= 0) & (hub_agent[ut] >= 0))
+    if hierarchical:
+        # same-top-group routes may never touch the top boundary
+        if topgrp is None:
+            return np.zeros(s.shape, bool)
+        ok &= (topgrp[np.where(ok, fs, 0)]
+               != topgrp[np.where(ok, ft, 0)])
+    return ok
 
 
 class QueryPlanner:
@@ -189,21 +217,8 @@ class QueryPlanner:
         planner.  Gates with ``dix``'s labels (default: the current
         epoch's)."""
         dix, agent_of, frag_of, _res, topgrp, hub_agent = self._maps_of(dix)
-        s = np.asarray(s, np.int64)
-        t = np.asarray(t, np.int64)
-        if hub_agent is None:
-            return np.zeros(s.shape, bool)
-        us, ut = agent_of[s], agent_of[t]
-        fs, ft = frag_of[us], frag_of[ut]
-        ok = ((s != t) & (fs >= 0) & (ft >= 0) & (fs != ft)
-              & (hub_agent[us] >= 0) & (hub_agent[ut] >= 0))
-        if len(dix.sf_of) > 0:
-            # same-top-group routes may never touch the top boundary
-            if topgrp is None:
-                return np.zeros(s.shape, bool)
-            ok &= (topgrp[np.where(ok, fs, 0)]
-                   != topgrp[np.where(ok, ft, 0)])
-        return ok
+        return hub_gate(s, t, agent_of, frag_of, hub_agent, topgrp,
+                        hierarchical=len(dix.sf_of) > 0)
 
     def query_hub(self, s, t, *, dix: DeviceIndex | None = None
                   ) -> np.ndarray:
@@ -299,27 +314,43 @@ class EpochedEngine:
     alive as long as something references them.
 
     The index is built on ``device`` (default ``cuda``; ``"cpu"`` runs
-    the plain PyTorch versions) by the serial host build
-    (``supergraph.build_index``; the reference's worker pool and its
-    ``build_workers`` are not ported yet) unless ``ix`` is given.
-    ``force`` passes through to the planner's programs and the
-    refresh's kernels.  Before it returns, the engine launches each
-    refresh shape once (``warmup_refresh``) and runs the delta path on
-    a no-op batch (``_warm_refresh_path``), so the first live refresh
-    pays no kernel load.
+    the plain PyTorch versions) unless ``ix`` is given, through the
+    host build's streaming handoff (``supergraph.start_build``): with
+    ``build_workers > 1`` the fragment covers run in a spawned process
+    pool while the device build's kernels run on the structural index,
+    and ``finish`` joins them before the engine returns.  ``force``
+    passes through to the planner's programs and the refresh's kernels.
+    With ``warm_refresh`` (default) the engine launches each refresh
+    shape once (``warmup_refresh``) and runs the delta path on a no-op
+    batch (``_warm_refresh_path``) before it returns, so the first live
+    refresh pays no kernel load; a run that applies no update can skip
+    it.
     """
 
     def __init__(self, g, *, c: int = 2, seed: int = 0, device=None,
                  force=None, ix: DislandIndex | None = None,
-                 paths: bool = False, hierarchy_levels: int | str = "auto",
-                 resident_mb: float | str = "auto", hub_nodes=None):
+                 warm_refresh: bool = True, paths: bool = False,
+                 hierarchy_levels: int | str = "auto",
+                 resident_mb: float | str = "auto", hub_nodes=None,
+                 build_workers: int = 1):
         self.g = g
         self.device = resolve_device(device)
-        self.ix = build_index(g, c=c, seed=seed) if ix is None else ix
-        self.dix, self.plan = build_device_index_with_plan(
-            self.ix, device=self.device, force=force,
-            hierarchy_levels=hierarchy_levels, resident_mb=resident_mb,
-            hub_nodes=hub_nodes)
+        host_build = None
+        if ix is None:
+            host_build = start_build(g, c=c, seed=seed,
+                                     build_workers=build_workers)
+            ix = host_build.structural_index()
+        self.ix = ix
+        try:
+            self.dix, self.plan = build_device_index_with_plan(
+                self.ix, device=self.device, force=force,
+                hierarchy_levels=hierarchy_levels,
+                resident_mb=resident_mb, hub_nodes=hub_nodes)
+        finally:
+            # joins (or reaps) the cover workers even when the device
+            # build failed: no orphaned pool, no leaked shared block
+            if host_build is not None:
+                host_build.finish()
         self.planner = QueryPlanner(self.dix, force=force, paths=paths)
         self.epoch = 0
         # one-tuple publish (epoch, dix, graph, staleness): snapshot()
@@ -331,8 +362,14 @@ class EpochedEngine:
         # (dix, PathUnwinder) pair, replaced as one tuple (unwinder())
         self._unwinder: tuple | None = None
         self._lock = threading.Lock()
-        warmup_refresh(self.plan, self.device, force=force)
-        self._warm_refresh_path()
+        # every refresh runs on this stream (apply_updates): a serving
+        # thread's batches, on its own current stream, never queue
+        # behind a refresh's kernels
+        self._refresh_stream = (torch.cuda.Stream(self.device)
+                                if self.device.type == "cuda" else None)
+        if warm_refresh:
+            warmup_refresh(self.plan, self.device, force=force)
+            self._warm_refresh_path()
 
     def _warm_refresh_path(self) -> None:
         """Run the full delta path once with a no-op update batch
@@ -415,8 +452,22 @@ class EpochedEngine:
         ``staleness`` is the recency descriptor a staged caller
         (``refresh_pipeline.RefreshPipeline``) attaches to the published
         epoch; a direct call publishes a complete one.
+
+        On the card the refresh runs on the engine's refresh stream, so
+        its kernels never sit in front of a serving batch, and every
+        synchronise inside it (``RefreshStats`` are completed seconds)
+        waits for that stream alone.  The new epoch's tensors are
+        allocated on the refresh stream and read on the serving
+        threads' streams without ``record_stream``: a serving batch
+        holds its pinned index until the batch's answers are copied to
+        the host, which waits for every kernel that read it, so no block
+        of an epoch returns to the refresh stream's pool while a serving
+        kernel may still read it.
         """
-        with self._lock:
+        stream = (torch.cuda.stream(self._refresh_stream)
+                  if self._refresh_stream is not None
+                  else contextlib.nullcontext())
+        with self._lock, stream:
             w_old = self.g.edge_w[self.g.edge_ids(u, v)]
             g_new = self.g.with_edge_weights(u, v, w)
             new_dix, stats = refresh_index(self.dix, self.plan, g_new,

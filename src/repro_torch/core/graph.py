@@ -4,8 +4,8 @@
 CSR adjacency on the host (numpy) for the one-shot preprocessing passes
 (BCC, BC-SKETCH, partitioning) plus a flat edge-list view the index build
 consumes directly.  The port keeps the subset its paths run: the
-shared-memory views (parallel host build) stay in the reference package
-until that slice is ported; ``edge_ids`` serves path validation
+shared-memory views serve the parallel host build
+(``supergraph.start_build``), ``edge_ids`` path validation
 (``paths.path_weight``), and ``with_edge_weights`` / ``traffic_updates``
 the live-traffic refresh (``device_engine.refresh_index``).
 
@@ -24,6 +24,9 @@ float-weight source here without revisiting it.
 from __future__ import annotations
 
 import dataclasses
+import os
+import secrets
+from multiprocessing import shared_memory
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -224,6 +227,99 @@ class Graph:
         big = np.bincount(comp).argmax()
         g, _ = self.subgraph(np.nonzero(comp == big)[0])
         return g
+
+    # copied from src/repro/core/graph.py:224
+    def to_shared(self) -> "SharedGraph":
+        """Export all six CSR/edge arrays into one shared-memory block.
+
+        Worker processes attach with ``Graph.from_shared(handle.meta)``
+        and get zero-copy read-only views — nothing but the small
+        ``meta`` dict ever crosses the pickle boundary.  The caller owns
+        the block: call ``close()`` in every attached process and
+        ``unlink()`` exactly once (the creator) when the build is done.
+        """
+        arrays = [self.indptr, self.indices, self.weights,
+                  self.edge_u, self.edge_v, self.edge_w]
+        offsets, total = [], 0
+        for a in arrays:
+            total = (total + 7) & ~7          # 8-byte alignment
+            offsets.append(total)
+            total += a.nbytes
+        # named by this process (``shared_block_prefix``), where the
+        # reference takes the library's anonymous ``psm_`` names: a
+        # leaked block is told apart from other programs' blocks
+        shm = shared_memory.SharedMemory(
+            create=True, size=max(total, 1),
+            name=shared_block_prefix() + secrets.token_hex(6))
+        for a, off in zip(arrays, offsets):
+            view = np.ndarray(a.shape, dtype=a.dtype, buffer=shm.buf,
+                              offset=off)
+            view[:] = a
+        meta = {
+            "name": shm.name,
+            "n": int(self.n),
+            "shapes": [tuple(a.shape) for a in arrays],
+            "dtypes": [str(a.dtype) for a in arrays],
+            "offsets": offsets,
+        }
+        return SharedGraph(shm=shm, meta=meta)
+
+    @staticmethod
+    def from_shared(meta: dict) -> "SharedGraph":
+        """Attach to a block exported by ``to_shared``; zero-copy views.
+
+        The views are marked read-only: the shared CSR is a broadcast
+        input, never a communication channel.  Keep the returned handle
+        alive as long as ``handle.graph`` is in use (the buffer dies
+        with it), and ``close()`` when done.
+        """
+        shm = shared_memory.SharedMemory(name=meta["name"])
+        views = []
+        for shape, dtype, off in zip(meta["shapes"], meta["dtypes"],
+                                     meta["offsets"]):
+            v = np.ndarray(shape, dtype=np.dtype(dtype), buffer=shm.buf,
+                           offset=off)
+            v.flags.writeable = False
+            views.append(v)
+        g = Graph(n=meta["n"], indptr=views[0], indices=views[1],
+                  weights=views[2], edge_u=views[3], edge_v=views[4],
+                  edge_w=views[5])
+        return SharedGraph(shm=shm, meta=dict(meta), graph=g)
+
+
+def shared_block_prefix(pid: int | None = None) -> str:
+    """Name prefix of the shared-memory blocks ``Graph.to_shared``
+    creates in process ``pid`` (default: this one)."""
+    return f"repro_torch_{os.getpid() if pid is None else pid}_"
+
+
+# copied from src/repro/core/graph.py:278
+@dataclasses.dataclass
+class SharedGraph:
+    """Handle for a Graph living in a shared-memory block.
+
+    ``meta`` is the picklable attach token (block name + array layout);
+    ``graph`` is set on the attach side (``from_shared``).  Lifecycle:
+    every process that holds the handle calls ``close()``; the creating
+    process additionally calls ``unlink()`` once to free the block.
+    """
+    shm: shared_memory.SharedMemory
+    meta: dict
+    graph: "Graph | None" = None
+
+    def close(self) -> None:
+        try:
+            self.shm.close()
+        except BufferError:
+            # numpy views still alive in this process; the block is
+            # freed by unlink regardless, so this is not a leak
+            pass
+
+    def unlink(self) -> None:
+        try:
+            self.shm.unlink()
+        except FileNotFoundError:
+            pass
 
 
 # ---- synthetic road-network generators --------------------------------

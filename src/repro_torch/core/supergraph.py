@@ -14,26 +14,45 @@ Preprocessing (paper §VI-A, Fig. 7):
 Everything here is host-side numpy (one-shot, linear-ish); the *products*
 are padded tensors the device engine consumes (device_engine.py).
 
-The port carries the serial build only: the build is explicit stage
-functions over a ``HostBuildPlan`` run one after another in one
-process.  The reference's worker pool and its streaming handoff
-(``start_build``) are still to be ported (ROADMAP.md); the serial build
-is the one they are held equal to.  ``reweight_index`` gives the same
-structure new weights: the from-scratch oracle of the incremental
-refresh (``device_engine.refresh_index``).
+The build is explicit stage functions over a ``HostBuildPlan`` with a
+``build_workers`` knob: per-fragment covers run process-parallel over a
+shared read-only CSR, and ``start_build``/``HostBuild.finish`` expose
+the structural index *before* the covers land so the device build can
+overlap them (the device stages never read covers; only
+``_assemble_super`` does).  ``build_workers <= 1`` runs the covers
+serially in fragment order (``cover_stage``), and every parallel build
+is array-equal to that serial one (``index_arrays_equal``).
+``reweight_index`` gives the same structure new weights: the
+from-scratch oracle of the incremental refresh
+(``device_engine.refresh_index``).
+
+The module and everything it imports are numpy and the standard
+library only, so a cover worker never imports torch on its own.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+import multiprocessing as mp
+from concurrent.futures import ProcessPoolExecutor, as_completed
+from typing import Callable, List, Optional
 
 import numpy as np
 
 from ..obs import trace
 from .agents import DRAResult, compute_dras
-from .graph import Graph
+from .graph import Graph, SharedGraph
 from .landmarks import HybridCover, hybrid_cover
 from .partition import PartitionResult, partition_bgp
+
+#: the reference forks where it can (``src/repro/core/supergraph.py:53``);
+#: the port spawns: the pool may start after the parent holds a CUDA
+#: context and runs other threads (a serving flusher, a refresh), and a
+#: child forked from a multithreaded parent can deadlock on a lock
+#: another thread held at the fork.  A spawned worker imports this
+#: module (numpy only) and, where the parent's main module is a file or
+#: a package module, that module too: run from the serve CLI, each
+#: worker imports torch once at start.
+_MP_START = "spawn"
 
 
 @dataclasses.dataclass
@@ -95,6 +114,8 @@ class HostBuildPlan:
     c: int = 2
     use_cost_model: bool = True
     seed: int = 0
+    build_workers: int = 1
+    cover_fn: Optional[Callable] = None   # hybrid_cover override (tests)
     timings: dict = dataclasses.field(default_factory=dict)
     # stage products
     dras: Optional[DRAResult] = None
@@ -135,8 +156,10 @@ def partition_stage(plan: HostBuildPlan) -> None:
 def fragment_stage(plan: HostBuildPlan) -> None:
     """Batched fragment extraction; covers stay None until cover_stage.
 
-    After this stage the index is *structurally* complete: everything
-    the device build reads exists.
+    After this stage the index is *structurally* complete — everything
+    the device build reads exists — which is the streaming handoff
+    point: ``HostBuild.structural_index`` hands the device stages their
+    input while the covers are still computing.
     """
     with trace.timed("build.fragments", plan.timings, "fragments",
                      k=plan.partition.n_fragments):
@@ -155,12 +178,13 @@ def fragment_stage(plan: HostBuildPlan) -> None:
 
 
 def cover_stage(plan: HostBuildPlan) -> None:
-    """Per-fragment hybrid landmark covers, serially in fragment order."""
+    """Per-fragment hybrid landmark covers, serially in fragment order
+    (the ``build_workers <= 1`` route)."""
+    fn = plan.cover_fn or hybrid_cover
     with trace.timed("build.hybrid_covers", plan.timings,
                      "hybrid_covers", k=len(plan.fragments), workers=1):
         for f in plan.fragments:
-            f.cover = hybrid_cover(f.graph, f.boundary_local,
-                                   plan.use_cost_model)
+            f.cover = fn(f.graph, f.boundary_local, plan.use_cost_model)
 
 
 def super_stage(plan: HostBuildPlan) -> None:
@@ -171,23 +195,166 @@ def super_stage(plan: HostBuildPlan) -> None:
             plan.fragments)
 
 
-def build_index(g: Graph, c: int = 2, use_cost_model: bool = True,
-                seed: int = 0) -> DislandIndex:
-    """Run the full preprocessing module (paper Fig. 7), serially."""
+# -- worker-side cover computation (copied from
+#    src/repro/core/supergraph.py:186-211) ----------------------------------
+# Workers attach the shared shrink CSR once (initializer), then each
+# task ships only a fragment id and returns only the cover arrays.  The
+# worker re-derives its fragment subgraph from the shared CSR — bit-
+# identical to the parent's extract_fragments product because
+# from_edges canonicalizes — so nothing graph-sized is ever pickled.
+_WORKER_STATE: dict = {}
+
+
+def _cover_worker_init(meta: dict, labels: np.ndarray,
+                       boundary: np.ndarray, use_cost_model: bool,
+                       cover_fn: Optional[Callable]) -> None:
+    shared = Graph.from_shared(meta)
+    _WORKER_STATE.update(
+        shared=shared, shrink=shared.graph, labels=labels,
+        boundary=boundary, use_cost_model=use_cost_model,
+        cover_fn=cover_fn or hybrid_cover)
+
+
+def _cover_worker_task(frag_id: int):
+    st = _WORKER_STATE
+    loc = np.nonzero(st["labels"] == frag_id)[0].astype(np.int32)
+    fg, fids = st["shrink"].subgraph(loc)
+    bl = np.nonzero(st["boundary"][fids])[0].astype(np.int32)
+    cov = st["cover_fn"](fg, bl, st["use_cost_model"])
+    return frag_id, cov.landmarks, cov.landmark_edges, cov.direct_edges
+
+
+class HostBuild:
+    """An in-flight host build: structural stages done, covers pending
+    (copied from src/repro/core/supergraph.py:214).
+
+    ``start_build`` runs agents/shrink/partition/fragment stages
+    synchronously and (for ``build_workers > 1``) submits every
+    fragment cover to a spawned process pool over the shared shrink
+    CSR.  ``structural_index`` is then immediately available for the
+    device build — its stages never read covers — and ``finish`` joins
+    the covers (or, with no pool, runs ``cover_stage``), assembles the
+    SUPER graph, and returns the completed index (the same object
+    ``structural_index`` returned, covers filled in place).
+
+    Failure contract: if any fragment cover raises, ``finish`` cancels
+    all outstanding futures, shuts the pool down, releases the shared
+    block, and re-raises the original exception — no orphaned workers,
+    no hang.
+    """
+
+    def __init__(self, plan: HostBuildPlan, ix: DislandIndex,
+                 pool: Optional[ProcessPoolExecutor] = None,
+                 futures: Optional[dict] = None,
+                 shared: Optional[SharedGraph] = None):
+        self.plan = plan
+        self._ix = ix
+        self._pool = pool
+        self._futures = futures
+        self._shared = shared
+        self._done = False
+
+    def structural_index(self) -> DislandIndex:
+        """The index with every device-build input present (covers and
+        super_graph still pending — call ``finish`` before using the
+        host-side SUPER graph)."""
+        return self._ix
+
+    def finish(self) -> DislandIndex:
+        """Join covers, assemble the SUPER graph, return the index."""
+        if self._done:
+            return self._ix
+        plan = self.plan
+        if self._pool is None:
+            cover_stage(plan)
+        else:
+            with trace.timed("build.hybrid_covers", plan.timings,
+                             "hybrid_covers", k=len(plan.fragments),
+                             workers=plan.build_workers):
+                self._collect_covers()
+        super_stage(plan)
+        self._ix.super_graph = plan.super_graph
+        self._done = True
+        return self._ix
+
+    def _collect_covers(self) -> None:
+        try:
+            for fut in as_completed(self._futures):
+                fid, lms, ledges, dedges = fut.result()
+                self.plan.fragments[fid].cover = HybridCover(
+                    landmarks=lms, landmark_edges=ledges,
+                    direct_edges=dedges)
+        except BaseException:
+            # surface the *original* failure: cancel everything still
+            # queued, reap the pool, then re-raise (no hang, no orphans)
+            for f in self._futures:
+                f.cancel()
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            raise
+        else:
+            self._pool.shutdown(wait=True)
+        finally:
+            self._pool = None
+            self._futures = None
+            self._shared.close()
+            self._shared.unlink()
+            self._shared = None
+
+
+def start_build(g: Graph, c: int = 2, use_cost_model: bool = True,
+                seed: int = 0, build_workers: int = 1,
+                cover_fn: Optional[Callable] = None) -> HostBuild:
+    """Run the structural stages now; kick covers off in the background
+    (copied from src/repro/core/supergraph.py:293).
+
+    The returned ``HostBuild`` is the streaming handoff: feed
+    ``structural_index()`` to the device build immediately, then call
+    ``finish()`` (which blocks on the covers) before the index is used
+    host-side.  ``build_workers <= 1`` keeps everything in-process —
+    covers then run inside ``finish()``, still after the device build
+    had a chance to start.
+    """
     plan = HostBuildPlan(g=g, c=c, use_cost_model=use_cost_model,
-                         seed=seed)
+                         seed=seed, build_workers=build_workers,
+                         cover_fn=cover_fn)
     agents_stage(plan)
     shrink_stage(plan)
     partition_stage(plan)
     fragment_stage(plan)
-    cover_stage(plan)
-    super_stage(plan)
-    return DislandIndex(
+    ix = DislandIndex(
         g=g, dras=plan.dras, shrink=plan.shrink,
         shrink_ids=plan.shrink_ids, shrink_id_of=plan.shrink_id_of,
         partition=plan.partition, fragments=plan.fragments,
-        super_graph=plan.super_graph, frag_of=plan.frag_of,
-        timings=plan.timings)
+        super_graph=None, frag_of=plan.frag_of, timings=plan.timings)
+    nfrag = plan.partition.n_fragments
+    if build_workers > 1 and nfrag > 1:
+        shared = plan.shrink.to_shared()
+        try:
+            pool = ProcessPoolExecutor(
+                max_workers=min(build_workers, nfrag),
+                mp_context=mp.get_context(_MP_START),
+                initializer=_cover_worker_init,
+                initargs=(shared.meta, plan.partition.labels,
+                          plan.boundary, use_cost_model, cover_fn))
+            futures = {pool.submit(_cover_worker_task, i): i
+                       for i in range(nfrag)}
+        except BaseException:
+            shared.close()
+            shared.unlink()
+            raise
+        return HostBuild(plan, ix, pool=pool, futures=futures,
+                         shared=shared)
+    return HostBuild(plan, ix)
+
+
+def build_index(g: Graph, c: int = 2, use_cost_model: bool = True,
+                seed: int = 0, build_workers: int = 1,
+                cover_fn: Optional[Callable] = None) -> DislandIndex:
+    """Run the full preprocessing module (paper Fig. 7): serially with
+    ``build_workers <= 1``, else with the covers in a process pool."""
+    return start_build(g, c=c, use_cost_model=use_cost_model, seed=seed,
+                       build_workers=build_workers,
+                       cover_fn=cover_fn).finish()
 
 
 # copied from src/repro/core/supergraph.py:347

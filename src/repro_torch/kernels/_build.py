@@ -7,7 +7,9 @@ shared headers (``csrc/*.cuh``) and the flags, so an edited source or
 header rebuilds and a stale library is never loaded.  ``build`` starts
 one ``nvcc`` per missing library, all at once, and waits for them.
 Nothing here runs at import time: the CPU path and the tests never
-touch ``nvcc``.
+touch ``nvcc``.  ``load`` holds one lock over its check, build and
+load, so threads that first use a library at once (a serving flusher
+beside a refresh thread) build and load it once.
 
 The flags hold the exactness contract: no ``--use_fast_math``, so adds
 stay plain IEEE adds and ``inf`` stays ``inf``.
@@ -19,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -30,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -68,7 +72,10 @@ def build(names=SOURCES) -> dict[str, float]:
         out = lib_path(name)
         if out.exists():
             continue
-        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        # named by process and thread: two threads of one process share
+        # a pid, and each nvcc needs an output file of its own
+        tmp = out.with_suffix(
+            f".tmp{os.getpid()}-{threading.get_ident()}.so")
         procs[name] = (out, tmp, subprocess.Popen(
             nvcc_command(name, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
@@ -89,11 +96,13 @@ def build(names=SOURCES) -> dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        path = lib_path(name)
-        if not path.exists():
-            build((name,))
-        lib = _LIBS[name] = ctypes.CDLL(str(path))
-    return lib
+    """The loaded library of ``csrc/<name>.cu``, built on first use,
+    once per process whichever threads ask for it."""
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = lib_path(name)
+            if not path.exists():
+                build((name,))
+            lib = _LIBS[name] = ctypes.CDLL(str(path))
+        return lib

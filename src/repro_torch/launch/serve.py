@@ -42,11 +42,38 @@ N-level hierarchy, auto; default the preset's, else auto) and
 ``--resident-mb`` the resident pre-lifted row budget on hierarchical
 indices (0 disables).  On a hierarchical index the run prints the
 per-level overlay shapes and memory (``hier_overlay_stats``) and the
-resident group count.
+resident group count.  ``--build-workers N`` computes the host build's
+fragment covers in N spawned processes (array-equal to the serial
+build; ``--check-build-parity`` rebuilds serially and counts any table
+that differs as a failure).
+
+``--live`` replaces the offline batch loop with the online serving
+runtime (``repro_torch.serving``): an open-loop Poisson stream of
+``--rate`` single requests for ``--live-seconds`` (a ``--mix`` of
+uniform, Zipf or geo-local pairs) flows through the deadline-aware
+micro-batcher, the epoch-tagged result cache, the hub-label hot tier
+(``--hub-budget`` traffic-head nodes) and the planner, while a
+background thread absorbs ``--live-update-batches`` refresh rounds; the
+run prints p50/p95/p99 latency, offered and achieved qps, the tier
+split, the batch occupancy and the longest serving gap, validates
+``--validate`` responses against the Dijkstra oracle of the epoch that
+served each, and prints its ``serve_live`` (and ``serve_refresh``)
+record as one JSON line each.  The engine is built through the host
+build's streaming handoff (``EpochedEngine(build_workers=)``).
+``--metrics-out``/``--metrics-port`` export the runtime's registry,
+``--trace-out`` writes the build, refresh and per-request spans as a
+Chrome trace.  The port writes no ``BENCH_*.json`` (the reference's
+``--json`` and ``perflog`` do not carry over).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --nodes 900 --live --rate 500 --live-seconds 1 \
+        --live-update-batches 2 --hub-budget 64 --build-workers 2 \
+        --check-build-parity
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -62,8 +89,9 @@ from ..core.hierarchy import hier_overlay_stats
 from ..core.dist_engine import EpochedEngine, QueryPlanner
 from ..core.graph import road_like, traffic_updates
 from ..core.paths import PathUnwinder, path_weight
-from ..core.supergraph import build_index, reweight_index
+from ..core.supergraph import build_index, index_arrays_equal, reweight_index
 from ..data.roads import road_preset
+from ..obs import trace
 
 # copied from src/repro/launch/serve.py:54
 #: the tables a refresh re-derives; the refresh == rebuild check compares
@@ -109,9 +137,99 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "and checked against a scratch rebuild")
     ap.add_argument("--update-frac", type=float, default=0.02,
                     help="share of the edges each update round changes")
+    ap.add_argument("--build-workers", type=int, default=1,
+                    help="processes computing the host build's fragment "
+                         "covers (array-equal to --build-workers 1)")
+    ap.add_argument("--check-build-parity", action="store_true",
+                    help="rebuild the host index serially and fail "
+                         "unless the --build-workers build is array-"
+                         "equal on every index table")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    return ap.parse_args(argv)
+    # copied from src/repro/launch/serve.py:596-671 (live and
+    # observability flags)
+    live = ap.add_argument_group("live serving (--live)")
+    live.add_argument("--live", action="store_true",
+                      help="replace the offline batch loop with the "
+                           "online serving runtime: open-loop arrivals "
+                           "through micro-batching + result cache")
+    live.add_argument("--rate", type=float, default=1500.0,
+                      help="offered arrival rate, queries/sec")
+    live.add_argument("--live-seconds", type=float, default=4.0,
+                      help="load duration (requests = rate * seconds)")
+    live.add_argument("--mix", choices=("uniform", "zipf", "geo"),
+                      default="zipf", help="query mix")
+    live.add_argument("--zipf-a", type=float, default=1.2,
+                      help="Zipf exponent for --mix zipf")
+    live.add_argument("--deadline-ms", type=float, default=2.0,
+                      help="micro-batch flush deadline")
+    live.add_argument("--live-batch", type=int, default=256,
+                      help="micro-batch size cap (snapped to a planner "
+                           "bucket size)")
+    live.add_argument("--cache-size", type=int, default=65536,
+                      help="result-cache capacity (0 disables)")
+    live.add_argument("--hub-budget", type=int, default=0,
+                      help="pin hub labels for up to this many "
+                           "traffic-head nodes (the Zipf pool's top-"
+                           "ranked endpoints); 0 disables the label "
+                           "hot tier")
+    live.add_argument("--hot-tier", type=float, default=0.0,
+                      help="fail unless the label tier served at "
+                           "least this fraction of cache misses "
+                           "(requires --hub-budget)")
+    live.add_argument("--live-update-batches", type=int, default=0,
+                      help="concurrent background refresh rounds "
+                           "during the load run")
+    live.add_argument("--live-pipelined",
+                      action=argparse.BooleanOptionalAction,
+                      default=True,
+                      help="stage each refresh round through the "
+                           "prioritized pipeline (one epoch per work "
+                           "item, traffic-weighted order, staleness "
+                           "tags); --no-live-pipelined applies each "
+                           "round as one epoch")
+    live.add_argument("--max-serving-gap", type=float, default=0.0,
+                      help="fail if no response completes for longer "
+                           "than this many seconds during the live "
+                           "run (0 disables)")
+    live.add_argument("--live-wait-timeout", type=float, default=60.0,
+                      help="seconds to wait for every response after "
+                           "the load phase")
+    live.add_argument("--live-join-timeout", type=float, default=900.0,
+                      help="seconds to wait for background refresh "
+                           "rounds to finish after the load phase")
+    live.add_argument("--live-update-every", type=float, default=0.25,
+                      help="seconds between background refresh rounds")
+    obs = ap.add_argument_group("observability")
+    obs.add_argument("--metrics-out", default="",
+                     help="write periodic metrics snapshots (JSON + "
+                          "Prometheus .prom sidecar) to this path "
+                          "during --live ('' disables)")
+    obs.add_argument("--metrics-every", type=float, default=2.0,
+                     help="seconds between metrics snapshots")
+    obs.add_argument("--metrics-port", type=int, default=0,
+                     help="serve live Prometheus text at "
+                          "127.0.0.1:PORT/metrics during --live "
+                          "(0 disables)")
+    obs.add_argument("--trace-out", default="",
+                     help="enable tracing spans and write the Chrome-"
+                          "trace JSON here at exit (build, refresh, "
+                          "and per-request serve spans)")
+    args = ap.parse_args(argv)
+    # copied from src/repro/launch/serve.py:700-711
+    if args.live and args.paths:
+        ap.error("--paths is not supported with --live (the live "
+                 "runtime serves distances only)")
+    if args.hub_budget and not args.live:
+        ap.error("--hub-budget requires --live (the label hot tier "
+                 "is a serving-runtime tier)")
+    if args.hot_tier and not args.hub_budget:
+        ap.error("--hot-tier requires --hub-budget (no labels, no "
+                 "label hits to gate on)")
+    if (args.metrics_out or args.metrics_port) and not args.live:
+        ap.error("--metrics-out/--metrics-port require --live (the "
+                 "metrics registry lives on the serving runtime)")
+    return args
 
 
 def _levels_arg(value):
@@ -145,17 +263,38 @@ def _build_knobs(args: argparse.Namespace) -> tuple:
     return device, levels, resident_mb
 
 
-def build_host(args: argparse.Namespace) -> tuple:
-    """The run's graph and host index -> (graph, DislandIndex)."""
-    _build_knobs(args)
+def _graph(args: argparse.Namespace):
     t0 = time.perf_counter()
     g = road_like(args.nodes, seed=args.seed)
     print(f"graph: n={g.n} m={g.m} ({time.perf_counter() - t0:.2f}s)")
+    return g
+
+
+def build_host(args: argparse.Namespace) -> tuple:
+    """The run's graph and host index -> (graph, DislandIndex), the
+    covers computed by ``--build-workers`` processes."""
+    _build_knobs(args)
+    g = _graph(args)
     t0 = time.perf_counter()
-    ix = build_index(g)
+    ix = build_index(g, build_workers=args.build_workers)
     ix.timings["host_build_s"] = time.perf_counter() - t0
-    print(f"host index: {ix.timings}")
+    print(f"host index: {ix.timings} (workers={args.build_workers})")
     return g, ix
+
+
+def build_parity(args: argparse.Namespace, g, ix) -> dict:
+    """``--check-build-parity``: the host index rebuilt serially must be
+    array-equal to ``ix`` on every table (``index_arrays_equal``);
+    returns the workers, the tables that differ and the seconds."""
+    t0 = time.perf_counter()
+    eq = index_arrays_equal(ix, build_index(g))
+    took = time.perf_counter() - t0
+    differ = sorted(k for k, ok in eq.items() if not ok)
+    print(f"build parity: workers={args.build_workers} "
+          + (f"DIFFERS from the serial build on {differ}" if differ
+             else "== serial on all index tables")
+          + f" ({took:.2f}s)")
+    return {"workers": args.build_workers, "differ": differ, "s": took}
 
 
 def _summary(args, g, ix, dix, plan, device, device_s: float) -> dict:
@@ -188,9 +327,9 @@ def _summary(args, g, ix, dix, plan, device, device_s: float) -> dict:
 def build(args: argparse.Namespace, hub_nodes=None, host=None) -> tuple:
     """Graph, host index and device index of the run ->
     (graph, DeviceIndex, BuildPlan, summary of the build).
-    ``hub_nodes`` pins the hub-label tier's node set (the CLI builds
-    without one); ``host`` = (graph, host index) from ``build_host``
-    skips building those again."""
+    ``hub_nodes`` pins the hub-label tier's node set (the offline CLI
+    builds without one); ``host`` = (graph, host index) from
+    ``build_host`` skips building those again."""
     device, levels, resident_mb = _build_knobs(args)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -200,7 +339,10 @@ def build(args: argparse.Namespace, hub_nodes=None, host=None) -> tuple:
         ix, device=device, hierarchy_levels=levels,
         resident_mb=resident_mb, hub_nodes=hub_nodes)
     device_s = time.perf_counter() - t0
-    return g, dix, plan, _summary(args, g, ix, dix, plan, device, device_s)
+    summary = _summary(args, g, ix, dix, plan, device, device_s)
+    if args.check_build_parity:
+        summary["build_parity"] = build_parity(args, g, ix)
+    return g, dix, plan, summary
 
 
 def _path_shape(args: argparse.Namespace) -> tuple[int, int]:
@@ -394,21 +536,71 @@ def update_loop(engine: EpochedEngine, args: argparse.Namespace) -> list:
     return records
 
 
+# copied from src/repro/launch/serve.py:94
+def _hub_selection(g, args) -> np.ndarray | None:
+    """Traffic-head hub set for the label hot tier: the endpoints of the
+    top-ranked rows of the Zipf pool the live workload draws from (same
+    seed => bit-identical pool), first seen in rank order, capped at
+    ``--hub-budget`` nodes.  Returns None when the budget is 0 (tier
+    off)."""
+    budget = args.hub_budget
+    if not budget:
+        return None
+    from ..data.queries import zipf_pool
+
+    pairs = zipf_pool(g, seed=args.seed + 4)
+    flat = pairs.ravel()        # rank-interleaved (s1, t1, s2, t2, ...)
+    _, first = np.unique(flat, return_index=True)
+    return flat[np.sort(first)][:budget]
+
+
+def build_engine(args: argparse.Namespace, host=None) -> tuple:
+    """The run's ``EpochedEngine`` and the build's summary ->
+    (engine, summary).  Without ``host`` the host build runs inside the
+    engine through the streaming handoff, its covers in
+    ``--build-workers`` processes beside the device build; ``host`` =
+    (graph, host index) skips it.  ``--hub-budget`` pins the hub set
+    (``_hub_selection``); the refresh warmup runs only when the run
+    applies updates.  With ``--check-build-parity`` the summary gains
+    ``build_parity``."""
+    device, levels, resident_mb = _build_knobs(args)
+    g, ix = (_graph(args), None) if host is None else host
+    hub_nodes = _hub_selection(g, args)
+    warm = bool(args.update_batches
+                or (args.live and args.live_update_batches))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    with trace.span("build.device_engine",
+                    build_workers=args.build_workers, warm_refresh=warm):
+        engine = EpochedEngine(
+            g, ix=ix, device=device, paths=args.paths,
+            hierarchy_levels=levels, resident_mb=resident_mb,
+            hub_nodes=hub_nodes, warm_refresh=warm,
+            build_workers=args.build_workers)
+    engine_s = time.perf_counter() - t0
+    timings = engine.ix.timings
+    if "host_build_s" not in timings:        # streamed into the engine
+        timings["host_build_s"] = sum(timings.values())
+        print(f"host index: {timings} (workers={args.build_workers}, "
+              f"covers beside the device build)")
+    summary = _summary(args, g, engine.ix, engine.dix, engine.plan,
+                       device, sum(engine.plan.build_timings.values()))
+    summary["engine_s"] = engine_s
+    print(f"engine: {engine_s:.2f}s (host build, device build"
+          + (", refresh warmup" if warm else "") + ")")
+    if args.check_build_parity:
+        summary["build_parity"] = build_parity(args, g, engine.ix)
+    return engine, summary
+
+
 def run_epoched(args: argparse.Namespace) -> tuple:
     """The run with ``--update-batches``: build through an
     ``EpochedEngine``, serve epoch 0 (``serve``), then ``update_loop``
     and, with ``--paths``, the path loop again on the last epoch.
     Returns (engine, summary)."""
-    device, levels, resident_mb = _build_knobs(args)
-    g, ix = build_host(args)
-    t0 = time.perf_counter()
-    engine = EpochedEngine(g, ix=ix, device=device, paths=args.paths,
-                           hierarchy_levels=levels,
-                           resident_mb=resident_mb)
-    device_s = time.perf_counter() - t0
-    summary = _summary(args, g, ix, engine.dix, engine.plan, device,
-                       device_s)
-    res = serve(args, g, engine.dix, summary, engine.plan)
+    engine, summary = build_engine(args, host=build_host(args))
+    res = serve(args, engine.g, engine.dix, summary, engine.plan)
     res["refresh"] = update_loop(engine, args)
     if args.paths:
         print(f"paths on epoch {engine.epoch}:")
@@ -417,25 +609,238 @@ def run_epoched(args: argparse.Namespace) -> tuple:
     return engine, res
 
 
+# copied from src/repro/launch/serve.py:361-407
+def _start_obs(args, runtime) -> dict:
+    """Wire the live runtime's registry to the exporters the CLI asked
+    for (--metrics-out periodic snapshots + Prometheus text sidecar,
+    --metrics-port HTTP endpoint).  Returns the handles to stop."""
+    handles: dict = {}
+    if args.metrics_out:
+        from ..obs import MetricsExporter
+
+        handles["exporter"] = MetricsExporter(
+            runtime.registry, args.metrics_out,
+            interval_s=args.metrics_every,
+            extra=lambda: {
+                "slow_queries": runtime.slow_log.records()}).start()
+    if args.metrics_port:
+        from ..obs import MetricsServer
+
+        srv = MetricsServer(runtime.registry, args.metrics_port).start()
+        handles["server"] = srv
+        print(f"metrics: http://127.0.0.1:{srv.port}/metrics")
+    return handles
+
+
+def _stop_obs(args, handles: dict) -> None:
+    exporter = handles.get("exporter")
+    if exporter is not None:
+        exporter.stop()
+        print(f"metrics: {exporter.writes} snapshot(s) -> "
+              f"{args.metrics_out} (+ .prom exposition)")
+    server = handles.get("server")
+    if server is not None:
+        server.stop()
+
+
+def _write_trace(args) -> None:
+    """Drain the default tracer into a Chrome-trace file
+    (--trace-out; load it in chrome://tracing or Perfetto)."""
+    if not args.trace_out:
+        return
+    from ..obs.export import write_chrome_trace
+
+    tr = trace.get_tracer()
+    events = tr.events()
+    write_chrome_trace(args.trace_out, events)
+    dropped = f" ({tr.dropped} dropped)" if tr.dropped else ""
+    print(f"trace: {len(events)} event(s) -> {args.trace_out}"
+          f"{dropped}")
+
+
+def live_loop(engine: EpochedEngine, args: argparse.Namespace) -> dict:
+    """The online serving runtime under open-loop load, with
+    ``--live-update-batches`` concurrent refresh rounds (copied from
+    src/repro/launch/serve.py:410).  Returns ``{"serve_live": record,
+    "serve_refresh": record or None, "gate_failures": [...]}``; each
+    record is also printed as one JSON line.  The reference's asserts
+    and exits (oracle mismatches, ``--max-serving-gap``,
+    ``--hot-tier``) become the record's ``oracle_bad`` and the
+    ``gate_failures`` messages, which ``failures`` counts."""
+    from ..serving import (ServingRuntime, run_load_with_refresh,
+                           validate_against_epochs, workload_pairs)
+
+    runtime = ServingRuntime(engine, max_batch=args.live_batch,
+                             deadline_s=args.deadline_ms * 1e-3,
+                             cache_size=args.cache_size)
+    tm: dict = {}
+    with trace.timed("serve.warmup", tm, "warmup"):
+        runtime.warmup()
+    print(f"live: warmed {runtime.max_batch}-cap buckets in "
+          f"{tm['warmup']:.1f}s; deadline "
+          f"{args.deadline_ms}ms, cache "
+          f"{args.cache_size or 'off'}, mix {args.mix}")
+    n = max(1, int(round(args.rate * args.live_seconds)))
+    pairs = workload_pairs(engine.g, args.mix, n, seed=args.seed + 4,
+                           zipf_a=args.zipf_a)
+    obs_handles = _start_obs(args, runtime)
+    try:
+        report, graphs, driver = run_load_with_refresh(
+            runtime, pairs, rate_qps=args.rate, seed=args.seed + 5,
+            refresh_rounds=args.live_update_batches,
+            refresh_frac=args.update_frac,
+            refresh_interval_s=args.live_update_every,
+            refresh_seed=args.seed,
+            refresh_pipelined=args.live_pipelined,
+            wait_timeout_s=args.live_wait_timeout,
+            join_timeout_s=args.live_join_timeout)
+        runtime.close()
+    finally:
+        _stop_obs(args, obs_handles)
+    epochs = sorted({r.epoch for r in report.requests})
+    stats = runtime.stats()
+    # per-tier resolution split: every response came from exactly one
+    # of cache / label merge / planner dispatch
+    label_rate = stats["label_hits"] / max(
+        1, stats["label_hits"] + stats["planner_dispatches"])
+    print(f"live: {report.n_requests} requests at "
+          f"{report.offered_qps:.0f} qps offered / "
+          f"{report.achieved_qps:.0f} achieved; latency p50 "
+          f"{report.p50_ms}ms p95 {report.p95_ms}ms p99 "
+          f"{report.p99_ms}ms "
+          f"({report.latency_source}, n={report.latency_n}); "
+          f"tiers: {stats['cache_hits']} cache / "
+          f"{stats['label_hits']} label / "
+          f"{stats['planner_dispatches']} planner "
+          f"({stats.get('cache_hit_rate', 0.0):.1%} cache hit rate, "
+          f"{stats.get('cache_stale', 0)} stale rejected; label tier "
+          f"took {label_rate:.1%} of misses at "
+          f"{stats['label_us_per_query']:.0f}us/q vs planner "
+          f"{stats['planner_us_per_query']:.0f}us/q); "
+          f"{stats['flushes']} flushes, mean occupancy "
+          f"{stats['mean_occupancy']:.1%} "
+          f"(full={stats['flush_full']} "
+          f"deadline={stats['flush_deadline']}); epochs served "
+          f"{epochs}")
+    slow = runtime.slow_log.records()
+    if slow:
+        w0 = slow[0]
+        print(f"slow queries: worst {w0['latency_ms']:.0f}ms "
+              f"(tier {w0['tier']}, epoch {w0['epoch']}, waited "
+              f"{w0['batch_wait_ms']:.0f}ms in a "
+              f"{w0['batch_size']}-request batch); {len(slow)} logged "
+              f"of {runtime.slow_log.offered}")
+    if args.live_update_batches:
+        print(f"live staleness: max serving gap "
+              f"{report.max_serving_gap_ms:.0f}ms, "
+              f"{report.stale_responses} responses from mid-pipeline "
+              f"epochs, max lag {report.max_staleness_batches} "
+              "batch(es)")
+    evicted = driver.evicted_epochs if driver is not None else ()
+    checked, bad = validate_against_epochs(
+        report.requests, graphs, sample=args.validate, seed=args.seed,
+        evicted=evicted)
+    print(f"live validation: {bad} mismatches of {checked} vs the "
+          "host oracle of each response's serving epoch")
+    gate_failures = []
+    if args.max_serving_gap and \
+            report.max_serving_gap_ms > args.max_serving_gap * 1e3:
+        gate_failures.append(
+            f"serving stalled: max gap {report.max_serving_gap_ms:.0f}"
+            f"ms > --max-serving-gap {args.max_serving_gap}s")
+    if args.hot_tier and label_rate < args.hot_tier:
+        gate_failures.append(
+            f"hot tier underused: label tier served {label_rate:.1%} "
+            f"of cache misses < --hot-tier {args.hot_tier:.1%}")
+    for msg in gate_failures:
+        print(f"live gate FAILED: {msg}")
+    rec = {
+        "section": "serve_live",
+        "graph": args.graph or f"road{args.nodes}",
+        "device": str(engine.device),
+        "mix": args.mix,
+        "rate_qps": args.rate,
+        "deadline_ms": args.deadline_ms,
+        "max_batch": runtime.max_batch,
+        "cache": "on" if args.cache_size else "off",
+        "refresh": "on" if args.live_update_batches else "off",
+        "hub_budget": args.hub_budget,
+        "label_hit_rate": round(label_rate, 4),
+        "epochs_served": len(epochs),
+        "oracle_checked": checked,
+        "oracle_bad": bad,
+        **report.as_record(),
+    }
+    refresh_rec = None
+    if driver is not None:
+        rec.update(driver.as_record())
+        refresh_rec = {
+            "section": "serve_refresh",
+            "graph": rec["graph"],
+            "device": rec["device"],
+            "mix": args.mix,
+            "rate_qps": args.rate,
+            "update_frac": args.update_frac,
+            "pipelined": args.live_pipelined,
+            "max_serving_gap_ms": report.max_serving_gap_ms,
+            "stale_responses": report.stale_responses,
+            "max_staleness_batches": report.max_staleness_batches,
+            "epochs_served": len(epochs),
+            **driver.as_record(),
+        }
+    for r in (rec, refresh_rec):
+        if r is not None:
+            print(json.dumps(r))
+    return {"serve_live": rec, "serve_refresh": refresh_rec,
+            "gate_failures": gate_failures}
+
+
+def run_live(args: argparse.Namespace, host=None) -> tuple:
+    """The run with ``--live``: ``build_engine``, ``live_loop`` and,
+    with ``--update-batches``, ``update_loop`` after it.  Returns
+    (engine, summary)."""
+    engine, res = build_engine(args, host)
+    res["live"] = live_loop(engine, args)
+    if args.update_batches:
+        res["refresh"] = update_loop(engine, args)
+    return engine, res
+
+
 def run(args: argparse.Namespace) -> dict:
     """Build, warm up, serve and validate (and the path loop with
-    ``--paths``, the update rounds with ``--update-batches``); returns
-    the run's summary (stage seconds, overlay shapes, median batch ms,
-    µs/query, planner buckets, the validation mismatch counts)."""
-    if args.update_batches:
-        return run_epoched(args)[1]
-    g, dix, plan, summary = build(args)
-    return serve(args, g, dix, summary, plan)
+    ``--paths``, the update rounds with ``--update-batches``, the live
+    runtime with ``--live``); returns the run's summary (stage seconds,
+    overlay shapes, median batch ms, µs/query, planner buckets, the
+    validation mismatch counts, the live records).  ``--trace-out``
+    traces the whole run."""
+    if args.trace_out:
+        # on before the build, so build and refresh spans land in the
+        # same trace as the serve lifecycle events
+        trace.get_tracer().enable()
+    if args.live:
+        res = run_live(args)[1]
+    elif args.update_batches:
+        res = run_epoched(args)[1]
+    else:
+        g, dix, plan, summary = build(args)
+        res = serve(args, g, dix, summary, plan)
+    _write_trace(args)
+    return res
 
 
 def failures(res: dict) -> int:
-    """Mismatches of every check a run made, plus refreshed epochs that
-    differ from their scratch rebuild."""
-    return (res["mismatches"]
+    """Mismatches of every check a run made, refreshed epochs that
+    differ from their scratch rebuild, a parallel host build that
+    differs from the serial one, and failed live gates."""
+    live = res.get("live")
+    return (res.get("mismatches", 0)
             + res.get("paths", {}).get("mismatches", 0)
             + res.get("paths_last_epoch", {}).get("mismatches", 0)
             + sum(r["post_refresh_mismatches"] + (not r["scratch_match"])
-                  for r in res.get("refresh", ())))
+                  for r in res.get("refresh", ()))
+            + bool(res.get("build_parity", {}).get("differ"))
+            + (live["serve_live"]["oracle_bad"]
+               + len(live["gate_failures"]) if live else 0))
 
 
 def main(argv=None) -> int:

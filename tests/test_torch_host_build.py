@@ -2,9 +2,14 @@
 
 Same graphs in both, every index table array-equal: the DislandIndex
 (DRAs, shrink graph, partition, fragments, covers, SUPER graph) and the
-device BuildPlan assembled from it.
+device BuildPlan assembled from it.  The parallel build (covers in a
+spawned process pool over a shared CSR) equals the serial one and the
+reference's, streams its structural index before the covers land, and
+fails with the original exception and no orphaned worker.
 """
 import dataclasses
+import multiprocessing
+import os
 
 import numpy as np
 import pytest
@@ -17,7 +22,9 @@ from repro.core.supergraph import index_arrays_equal
 from repro.data import roads as jroads
 from repro_torch.core import device_engine as tde
 from repro_torch.core import graph as tgraph
+from repro_torch.core import landmarks as tlandmarks
 from repro_torch.core import padding as tpadding
+from repro_torch.core import supergraph as tsupergraph
 from repro_torch.core.supergraph import build_index as tbuild_index
 from repro_torch.data import roads as troads
 
@@ -109,3 +116,100 @@ def test_presets_match_reference_but_road64k_closes_densely():
 def test_resolve_hierarchy_levels_matches_reference(S, levels):
     assert (tde.resolve_hierarchy_levels(S, levels)
             == jde.resolve_hierarchy_levels(S, levels))
+
+
+# ---------------------------------------------------------------------------
+# the parallel host build: workers == serial == the reference
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("workers", [1, 2])
+@pytest.mark.parametrize("name", ["road_like_900", "random_graph"])
+def test_parallel_build_equals_serial_and_reference(name, workers):
+    g = GRAPHS[name]()
+    tg = _port_graph(g)
+    par = tbuild_index(tg, build_workers=workers)
+    for other in (tbuild_index(tg), jbuild_index(g)):
+        eq = index_arrays_equal(par, other)
+        assert all(eq.values()), {k: v for k, v in eq.items() if not v}
+    assert sorted(par.timings) == sorted(jbuild_index(g).timings)
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_streaming_handoff_fills_index_in_place(workers):
+    """start_build exposes a structurally complete index before the
+    covers land; finish fills the same object in place, idempotently,
+    equal to the one-shot build."""
+    g = tgraph.road_like(1000, seed=1)
+    hb = tsupergraph.start_build(g, build_workers=workers)
+    six = hb.structural_index()
+    assert six.super_graph is None
+    assert six.fragments and all(f.cover is None for f in six.fragments)
+    ix = hb.finish()
+    assert ix is six and ix.super_graph is not None
+    assert all(f.cover is not None for f in ix.fragments)
+    assert "hybrid_covers" in ix.timings
+    assert hb.finish() is ix
+    eq = index_arrays_equal(ix, tbuild_index(g))
+    assert all(eq.values())
+
+
+class _InjectedCoverFailure(RuntimeError):
+    pass
+
+
+def _boom_cover(fg, boundary_local, use_cost_model):
+    # every fragment with a real boundary fails, so the first completed
+    # future raises whatever the scheduling order
+    if boundary_local.size >= 2:
+        raise _InjectedCoverFailure(
+            f"injected cover failure ({boundary_local.size} boundary)")
+    return tlandmarks.hybrid_cover(fg, boundary_local, use_cost_model)
+
+
+def _own_shm_blocks():
+    """This process's shared-memory blocks (the port names them by pid,
+    so blocks of other test workers never count)."""
+    prefix = tgraph.shared_block_prefix()
+    try:
+        return {f for f in os.listdir("/dev/shm") if f.startswith(prefix)}
+    except FileNotFoundError:
+        return set()
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+def test_failed_cover_surfaces_original_exception(workers):
+    """A raising fragment cover fails the build with the original
+    exception, the pool reaped (no live child process) and the shared
+    block released, for the serial and the pool routes."""
+    g = tgraph.road_like(1000, seed=2)
+    assert _own_shm_blocks() == set()
+    with pytest.raises(_InjectedCoverFailure, match="injected"):
+        tbuild_index(g, build_workers=workers, cover_fn=_boom_cover)
+    assert _own_shm_blocks() == set()
+    assert multiprocessing.active_children() == []
+
+
+def test_shared_graph_round_trip():
+    """to_shared/from_shared: read-only zero-copy views equal to the
+    source arrays, supporting the worker-side re-extraction."""
+    g = _port_graph(jgraph.random_graph(40, 60, seed=3))
+    handle = g.to_shared()
+    assert _own_shm_blocks() == {handle.shm.name.lstrip("/")}
+    try:
+        attached = tgraph.Graph.from_shared(handle.meta)
+        try:
+            sg = attached.graph
+            for a, b in zip(_graph_arrays(sg), _graph_arrays(g)):
+                np.testing.assert_array_equal(a, b)
+            assert not sg.indices.flags.writeable
+            with pytest.raises(ValueError):
+                sg.edge_w[0] = 99.0
+            nodes = np.arange(0, g.n, 2, dtype=np.int32)
+            for a, b in zip(_graph_arrays(g.subgraph(nodes)[0]),
+                            _graph_arrays(sg.subgraph(nodes)[0])):
+                np.testing.assert_array_equal(a, b)
+        finally:
+            attached.close()
+    finally:
+        handle.close()
+        handle.unlink()
+    assert _own_shm_blocks() == set()

@@ -357,6 +357,78 @@ def test_nvcc_command_keeps_exact_arithmetic():
         assert _build.lib_path(name).parent == _build.BUILD_DIR
 
 
+def test_library_is_built_and_loaded_once_across_threads(monkeypatch,
+                                                         tmp_path):
+    """Eight threads that first use one library at once (a serving
+    flusher beside a refresh thread) build it once and share one
+    loaded library; every thread joins in bounded time."""
+    import threading
+    import time
+
+    builds, loads = [], []
+
+    def fake_build(names):
+        builds.append(tuple(names))
+        time.sleep(0.05)                 # widen the race window
+        for name in names:
+            _build.lib_path(name).write_bytes(b"")
+
+    def fake_cdll(path):
+        loads.append(path)
+        return object()
+
+    monkeypatch.setattr(_build, "build", fake_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", fake_cdll)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "lib_path",
+                        lambda name: tmp_path / f"{name}.so")
+    barrier = threading.Barrier(8)
+    got = []
+
+    def first_use():
+        barrier.wait(timeout=30)
+        got.append(_build.load("label_merge"))
+
+    threads = [threading.Thread(target=first_use) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    assert builds == [("label_merge",)]
+    assert len(loads) == 1
+    assert len(got) == 8 and all(lib is got[0] for lib in got)
+
+
+def test_build_names_temporaries_by_process_and_thread(monkeypatch,
+                                                       tmp_path):
+    """Each nvcc of ``build`` writes a temporary file named by the pid
+    and the thread id, so two threads of one process never share one."""
+    import os
+    import threading
+
+    outs = []
+
+    class FakeProc:
+        returncode = 0
+
+        def __init__(self, cmd, **kw):
+            outs.append(cmd[cmd.index("-o") + 1])
+            open(outs[-1], "wb").close()
+
+        def communicate(self):
+            return "", None
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "lib_path",
+                        lambda name: tmp_path / f"{name}.so")
+    monkeypatch.setattr(_build.subprocess, "Popen", FakeProc)
+    _build.build(("label_merge",))
+    assert outs[0].endswith(
+        f".tmp{os.getpid()}-{threading.get_ident()}.so")
+    assert (tmp_path / "label_merge.so").exists()
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
