@@ -102,14 +102,30 @@ prints no result.  Phases, each of which must pass:
      ``first_hops`` on the host);
      counters zeroed around each run, and no kernel library built or
      loaded during one;
-  9. the ``kernels`` JSON line (launches summed over the main paths of
-     phases 4 and 6, the refresh epochs of phases 5 and 7 and the live
-     runs of phase 8, those of phase 8 also apart as ``live_launches``;
+  9. the sharded path (``_sharded``) on phases 4 and 6's indices:
+     road4000 through ``serve --mode fused`` and ``--mode sharded`` (5
+     batches of 1,024, 64 validated, 0 mismatches); road64k through ``serve_sharded`` on a one-card mesh
+     and on ``cuda:0`` repeated four times, batches of 1,024 and 1,000
+     (ragged), == ``serve_step`` == the planner, 32 == Dijkstra; 64
+     road4000 answers == the port's ``DislandEngine``, also served from
+     a copy of the index on the CPU (replicas copied to the card, and on
+     a mesh of the CPU and the card); the sharded build
+     (``fw_fragments_sharded`` == ``frag_apsp``, ``super_apsp_sharded``
+     == the dense ``d_super`` at road4000 and == ``ops.fw_apsp`` of the
+     overlay at road64k); counters zeroed around it (it must launch the
+     grouped twoside, kernel 3 and kernel 3's per-pivot variant
+     ``fw_dist_global``), then the sharded build and kernel 3 at
+     [130, 496, 496] timed;
+ 10. the ``kernels`` JSON line (launches summed over the main paths of
+     phases 4 and 6, the refresh epochs of phases 5 and 7, the live
+     runs of phase 8 and the sharded path of phase 9, those of phases 8
+     and 9 also apart as ``live_launches`` and ``sharded_launches``;
      together they must launch both witness FW kernels, the
-     grouped twoside, the label merge and the in-place accumulate, and
-     never the per-pivot FW or the fresh-output accumulate; times and
-     bounds from phases 2 and 7), the card's name and power limit from
-     nvidia-smi, and the ``{"ok": true, ...}`` line last.
+     grouped twoside, the label merge, the in-place accumulate and
+     ``fw_dist_global``, and never the per-pivot witness FW or the
+     fresh-output accumulate; times and bounds from phases 2, 7 and 9),
+     the card's name and power limit from nvidia-smi, and the
+     ``{"ok": true, ...}`` line last.
 
 Details of every case go to ``chiprun_out/chip_smoke.json``, with the
 tally of the profiler windows behind every device time; the road4000
@@ -869,6 +885,7 @@ KERNELS = (("fw_next_reg", "floyd_warshall", "fw_next_reg_cuda"),
            ("minplus_twoside_grouped", "minplus_twoside",
             "minplus_twoside_grouped_cuda"),
            ("fw_batch", "floyd_warshall", "fw_batch_cuda"),
+           ("fw_dist_global", "floyd_warshall", "fw_dist_global_cuda"),
            ("minplus_accum", "minplus", "minplus_accum_cuda"),
            ("minplus_accum_into", "minplus", "minplus_accum_into_cuda"),
            ("minplus_accum_panels", "minplus", "minplus_accum_panels_cuda"),
@@ -1585,6 +1602,184 @@ def _road64k_live() -> dict:
     return res
 
 
+def _events_ms(fn) -> tuple:
+    """One call of ``fn``, synchronised, timed with CUDA events: (its
+    result, ms).  Host work inside the call (a fixpoint test) counts."""
+    import torch
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def _sharded() -> dict:
+    """The multi-device serving and build path on one card, on the
+    indices phases 4 and 6 built (no new road64k build): road4000
+    through ``serve --mode fused`` and ``--mode sharded`` (5 batches of
+    1,024, 64 validated each, 0 mismatches);
+    road64k (3 levels) through ``serve_sharded`` on a one-card mesh and on
+    ``cuda:0`` repeated four times, a batch of 1,024 and a ragged one of
+    1,000, each == ``serve_step`` == the planner, 32 == Dijkstra; 64
+    road4000 answers of ``serve_sharded`` == the port's
+    ``DislandEngine`` on ``cuda:0`` x 4, and from copies of the index:
+    one on the CPU served on the one-card mesh (its replica copied to
+    the card) and on a mesh of the CPU and the card (from the CPU copy
+    and from the card's index); the sharded build: ``fw_fragments_sharded`` ==
+    ``frag_apsp`` and ``super_apsp_sharded`` (Bellman-Ford) == the
+    dense ``d_super[:S, :S]`` at road4000 and == ``ops.fw_apsp`` of the
+    overlay at road64k (n = 4,613), each on a plan made afresh from the
+    host index (a refresh phase moved the stored plan's weights on).
+    The references are computed first; the counters are zeroed just
+    before the path and read just after.  Then both sharded build
+    functions, the blocked FW closure of each overlay (``ops.fw_apsp``,
+    the Bellman-Ford's dense counterpart) and kernel 3 at road64k's
+    fragments ([130, 496, 496], ``fw_dist_global``) are timed with CUDA
+    events (kernel 3 also by device time, beside its plain version and
+    its bound)."""
+    import functools
+
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.core import dijkstra
+    from repro_torch.core.device_engine import (make_build_plan, serve_step,
+                                                super_overlay, super_weights)
+    from repro_torch.core.dist_engine import (QueryPlanner,
+                                              fw_fragments_sharded,
+                                              serve_sharded,
+                                              super_apsp_sharded)
+    from repro_torch.core.engine import DislandEngine
+    from repro_torch.kernels import floyd_warshall as fw
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    one = make_host_mesh((1,), ("data",))
+    meshes = {"one_card": one,
+              "cuda0_x4": Mesh((one.devices[0],) * 4, (4,), ("data",))}
+    rng = np.random.default_rng(21)
+    # -- references, before the count
+    g64, dix64 = _BUILT["road64k"]
+    batches = []
+    for q in (1024, 1000):
+        s, t = rng.integers(0, g64.n, q), rng.integers(0, g64.n, q)
+        step = serve_step(dix64, torch.from_numpy(s).cuda(),
+                          torch.from_numpy(t).cuda()).cpu().numpy()
+        oracle = np.array([dijkstra.pair(g64, int(a), int(b))
+                           for a, b in zip(s[:32], t[:32])], np.float32)
+        batches.append((s, t, step, QueryPlanner(dix64).query(s, t),
+                        oracle))
+    g4, dix4 = _BUILT["road4000"]
+    s4, t4 = rng.integers(0, g4.n, 64), rng.integers(0, g4.n, 64)
+    engine4 = DislandEngine(_HOST["road4000"][0]).query_many(
+        np.stack([s4, t4], 1)).astype(np.float32)
+    dix4_cpu = convert.device_index_from_numpy(
+        convert.device_index_to_numpy(dix4), "cpu")
+    mixed = Mesh((torch.device("cpu"), one.devices[0]), (2,), ("data",))
+    copied = {"card_from_cpu": (one, dix4_cpu),
+              "cpu_and_card_from_cpu": (mixed, dix4_cpu),
+              "cpu_and_card_from_card": (mixed, dix4)}
+    builds = {}
+    for graph in ("road4000", "road64k"):
+        dix = _BUILT[graph][1]
+        plan = make_build_plan(_HOST[graph][0])
+        super_weights(plan, dix.frag_apsp.cpu().numpy())
+        S = plan.S
+        want = (dix.d_super[:S, :S] if dix.hierarchy_levels == 1 else
+                ops.fw_apsp(torch.from_numpy(super_overlay(plan)).cuda()))
+        edges = (np.concatenate([plan.sup_src, plan.sup_dst]),
+                 np.concatenate([plan.sup_dst, plan.sup_src]),
+                 np.concatenate([plan.sup_w, plan.sup_w]))
+        builds[graph] = (dix, plan, want, edges)
+    # -- the path, counted
+    torch.cuda.synchronize()
+    _reset_counts()
+    cli = {}
+    for mode in ("fused", "sharded"):
+        cli[mode] = serve.run(serve.parse_args([
+            "--graph", "road4000", "--batches", "5", "--batch-size",
+            "1024", "--validate", "64", "--device", "cuda", "--mode",
+            mode]))
+    served = {name: [serve_sharded(mesh, dix64, s, t).cpu().numpy()
+                     for s, t, *_ in batches]
+              for name, mesh in meshes.items()}
+    got4 = serve_sharded(meshes["cuda0_x4"], dix4, s4, t4).cpu().numpy()
+    got4_copied = {name: serve_sharded(mesh, dix, s4, t4)
+                   for name, (mesh, dix) in copied.items()}
+    built = {graph: {
+        "frag": {name: fw_fragments_sharded(mesh, plan.frag_adj)
+                 for name, mesh in meshes.items()},
+        "bf": super_apsp_sharded(one, *edges, plan.S)}
+        for graph, (dix, plan, want, edges) in builds.items()}
+    torch.cuda.synchronize()
+    res = {"launches": _read_counts()}
+    # -- checks
+    checks = {
+        "cli_validated": all(cli[m]["mismatches"] == 0
+                             and serve.failures(cli[m]) == 0
+                             for m in cli),
+        "road4000_engine": bool(np.array_equal(got4, engine4)),
+    }
+    for name, got in got4_copied.items():
+        checks[f"road4000_engine_{name}"] = bool(
+            got.device == copied[name][0].devices[0]
+            and np.array_equal(got.cpu().numpy(), engine4))
+    for name in meshes:
+        for (s, t, step, planned, oracle), got in zip(batches,
+                                                      served[name]):
+            key = f"road64k_{name}_q{s.size}"
+            checks[key] = bool(np.array_equal(got, step)
+                               and np.array_equal(got, planned)
+                               and np.array_equal(got[:32], oracle))
+    for graph, (dix, plan, want, edges) in builds.items():
+        for name, frag in built[graph]["frag"].items():
+            checks[f"{graph}_frag_{name}"] = bool(torch.equal(
+                frag, dix.frag_apsp))
+        checks[f"{graph}_super_bf"] = bool(torch.equal(built[graph]["bf"],
+                                                       want))
+    res["cli"] = {m: {k: cli[m][k] for k in (
+        "mode", "median_batch_ms", "us_per_query", "warmup_s",
+        "mismatches", "peak_device_mb")} for m in cli}
+    # -- timings (after the count)
+    timing = {}
+    for graph, (dix, plan, want, edges) in builds.items():
+        adj = torch.from_numpy(plan.frag_adj).cuda()
+        ov = torch.from_numpy(super_overlay(plan)).cuda()
+        _, cold = _events_ms(lambda: super_apsp_sharded(one, *edges, plan.S))
+        _, warm = _events_ms(lambda: super_apsp_sharded(one, *edges, plan.S))
+        timing[graph] = {
+            "S": plan.S, "directed_edges": int(edges[0].size),
+            "frag_shape": list(plan.frag_adj.shape),
+            "fw_fragments_sharded_ms": _time_ms(
+                lambda: fw_fragments_sharded(one, adj), 5),
+            "super_apsp_sharded_ms": warm,
+            "super_apsp_sharded_first_ms": cold,
+            "fw_apsp_overlay_ms": _time_ms(lambda: ops.fw_apsp(ov), 5)}
+    adj = torch.from_numpy(builds["road64k"][1].frag_adj).cuda()
+    b, n = adj.shape[0], adj.shape[1]
+    kern = functools.partial(fw.fw_batch_cuda, adj)
+    got, want = kern(), ops.fw_batch(adj, force="ref")
+    bound, by = _bound_ms(8.0 * b * n * n, 2.0 * b * n ** 3)
+    res["kernel3"] = {
+        "case": f"fw_dist_global b={b} n={n} (road64k fw_fragments_sharded)",
+        "kernel": "fw_dist_global_cuda", "b": b, "n": n,
+        "equal": bool(torch.equal(got, want)),
+        "max_abs_err": _max_abs_err(got, want), "ms": _time_ms(kern, 5),
+        "device_ms": _device_ms(kern, 3),
+        "plain_ms": _time_ms(lambda: ops.fw_batch(adj, force="ref"), 1),
+        "bound_ms": bound, "bound_by": by}
+    checks["kernel3_equal"] = res["kernel3"]["equal"]
+    res["timing"], res["checks"] = timing, checks
+    print(f"  sharded: cli {res['cli']}; build {timing}; kernel 3 "
+          f"{res['kernel3']}; launches {res['launches']}")
+    if not all(checks.values()):
+        raise AssertionError(f"sharded: {checks}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1742,6 +1937,7 @@ def main() -> int:
     phase("road64k_refresh", _road64k_refresh)
     phase("road4000_live", _road4000_live)
     phase("road64k_live", _road64k_live)
+    phase("sharded", _sharded)
 
     report["fw_cases"], report["ts_cases"] = fw_cases, ts_cases
     report["new_cases"], report["slice3_cases"] = new_cases, slice3_cases
@@ -1783,11 +1979,15 @@ def main() -> int:
             _require_launched(report[path], path,
                               ("label_merge", "minplus_twoside_grouped",
                                "fw_next_reg", "fw_next_blocked"))
-        # the main paths, the refresh epochs and the live runs (each
-        # counted from zero just before it, read just after)
+        _require_launched(report["sharded"], "sharded",
+                          ("minplus_twoside_grouped", "fw_batch",
+                           "fw_dist_global"))
+        # the main paths, the refresh epochs, the live runs and the
+        # sharded path (each counted from zero just before it, read just
+        # after)
         launches = {name: sum(report[path]["launches"][name] for path in (
             "road4000", "road64k", "road4000_refresh", "road64k_refresh",
-            "road4000_live", "road64k_live"))
+            "road4000_live", "road64k_live", "sharded"))
             for name, _m, _a in KERNELS}
         # the per-pivot FW and the fresh-output accumulate left the main
         # paths (for the blocked FW and the in-place accumulate): timed
@@ -1805,6 +2005,7 @@ def main() -> int:
     report["launches_main_paths"] = launches
     live_launches = {name: sum(report[path]["launches"][name] for path in (
         "road4000_live", "road64k_live")) for name, _m, _a in KERNELS}
+    sharded_launches = report["sharded"]["launches"]
     (out_dir / "chip_smoke.json").write_text(
         json.dumps(report, indent=1, default=str))
     rows = [
@@ -1825,6 +2026,9 @@ def main() -> int:
          "src/repro_torch/csrc/minplus_twoside.cu",
          "src/repro/kernels/minplus_twoside.py:89"),
         ("fw_batch", pick(new_cases, "fw_batch b=1 n=64"),
+         "src/repro_torch/csrc/fw_dist.cu",
+         "src/repro/kernels/floyd_warshall.py:54"),
+        ("fw_dist_global", report["sharded"]["kernel3"],
          "src/repro_torch/csrc/fw_dist.cu",
          "src/repro/kernels/floyd_warshall.py:54"),
         ("minplus_accum", pick(
@@ -1854,6 +2058,7 @@ def main() -> int:
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],
         "live_launches": live_launches[name],
+        "sharded_launches": sharded_launches[name],
         "max_abs_err": c["max_abs_err"], "ms": c["ms"],
         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,

@@ -26,24 +26,36 @@ edge-weight updates: ``apply_updates`` runs the incremental refresh
 (``device_engine.refresh_index``) beside the serving epoch, on a CUDA
 stream of its own, and publishes its result as the next one with a
 single pointer swap.
+
+``serve_sharded``/``serve_jit`` serve a batch split over the devices of
+a ``launch.mesh.Mesh``, each shard through ``serve_step`` against a
+replica of the index; ``fw_fragments_sharded`` and
+``super_apsp_sharded`` split the offline build's fragment APSP and SUPER
+APSP the same way.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
 import threading
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
-from . import padding, refresh_pipeline
+from .. import convert
+from ..kernels import ops
+from . import padding, refresh_pipeline, sssp
 from .device_engine import (DeviceIndex, RefreshStats, _sync,
                             build_device_index_with_plan, refresh_index,
                             resolve_device, serve_cross, serve_cross_res,
                             serve_cross_w, serve_hub, serve_same_dra,
-                            serve_same_dra_w, warmup_refresh)
+                            serve_same_dra_w, serve_step, warmup_refresh)
 from .paths import PathUnwinder
 from .supergraph import DislandIndex, start_build
+
+if TYPE_CHECKING:
+    from ..launch.mesh import Mesh
 
 _pad_pow2 = padding.pad_pow2
 
@@ -488,3 +500,119 @@ class EpochedEngine:
             self._published = (self.epoch, new_dix, g_new, staleness)
             self.last_stats = stats
             return stats
+
+
+# ---------------------------------------------------------------------------
+# sharded serving and offline build (src/repro/core/dist_engine.py:514-576)
+# on one controller over a ``launch.mesh.Mesh``, as ``shard_map`` runs: each
+# shard's program launches on its device, shards that share a device run
+# one after another there, and the parts come back in order on the mesh's
+# first device.  Serving is pure data parallel over a replicated index, so
+# no shard talks to another.
+# ---------------------------------------------------------------------------
+def _replicas(dix: DeviceIndex, devices) -> dict:
+    """One index per distinct device of ``devices``: ``dix`` itself on
+    its own device, a copy (carried across as numpy arrays) on any
+    other."""
+    reps: dict = {}
+    for dev in devices:
+        if dev in reps:
+            continue
+        rep = dix if dev == dix.device else convert.device_index_from_numpy(
+            convert.device_index_to_numpy(dix), dev)
+        if rep.device != dev:
+            raise RuntimeError(f"replica of the index landed on "
+                               f"{rep.device}, not on {dev}")
+        reps[dev] = rep
+    return reps
+
+
+def _gather(parts: list, out_device: torch.device,
+            empty: torch.Tensor) -> torch.Tensor:
+    """The shards' results concatenated in shard order on
+    ``out_device`` (``empty``, moved there, when no shard had work)."""
+    if not parts:
+        return empty.to(out_device)
+    return torch.cat([p.to(out_device) for p in parts])
+
+
+def serve_jit(mesh: "Mesh", dix: DeviceIndex, *,
+              batch_axes=None):
+    """The sharded serve step with its index placed once: replicas of
+    ``dix`` on the devices of ``batch_axes`` (default: every axis), and a
+    ``step(s, t)`` that serves a batch as ``serve_sharded`` does.
+
+    The counterpart of the reference's ``jax.jit`` with explicit
+    replicated and batch shardings.  The reference also lowers that step
+    ahead of time from ``ShapeDtypeStruct``s (its dry runs); eager torch
+    has no analogue: the step runs only on real tensors."""
+    devices = mesh.shard_devices(batch_axes or mesh.axis_names)
+    reps = _replicas(dix, devices)
+    out_device = mesh.devices[0]
+
+    def step(s, t) -> torch.Tensor:
+        s, t = torch.as_tensor(s), torch.as_tensor(t)
+        if s.dim() != 1 or s.shape != t.shape:
+            raise ValueError(f"s and t must be [q] alike, got "
+                             f"{tuple(s.shape)} and {tuple(t.shape)}")
+        # every shard launches before any result is read back
+        parts = [serve_step(reps[dev], s_i.to(dev), t_i.to(dev))
+                 for dev, s_i, t_i in zip(
+                     devices, torch.tensor_split(s, len(devices)),
+                     torch.tensor_split(t, len(devices)))
+                 if s_i.numel()]
+        return _gather(parts, out_device, torch.empty(0))
+
+    return step
+
+
+def serve_sharded(mesh: "Mesh", dix: DeviceIndex, s, t, *,
+                  batch_axes=None) -> torch.Tensor:
+    """Batched queries sharded over ``batch_axes`` (default: every axis):
+    s, t integer [q] -> f32 [q] in query order on ``mesh.devices[0]``.
+
+    Each shard runs ``device_engine.serve_step`` on its device against a
+    replica of ``dix`` (``dix`` itself on its own device, a copy
+    elsewhere).  JAX needs the batch to divide the mesh; the port takes
+    any q, 0 included: ``torch.tensor_split`` gives the first q % shards
+    shards one query more, and a shard with no query launches nothing."""
+    return serve_jit(mesh, dix, batch_axes=batch_axes)(s, t)
+
+
+def fw_fragments_sharded(mesh: "Mesh", frag_adj,
+                         axis: str = "data") -> torch.Tensor:
+    """Offline per-fragment APSP with the fragment batch sharded:
+    ``frag_adj`` [k, n, n] float32 (a tensor, or ``BuildPlan.frag_adj``)
+    split over ``axis``, each part closed by ``ops.fw_batch`` (kernel 3
+    on the card) on its device, the parts gathered on
+    ``mesh.devices[0]``."""
+    devices = mesh.shard_devices((axis,))
+    adj = torch.as_tensor(frag_adj)
+    parts = [ops.fw_batch(part.to(dev))
+             for dev, part in zip(devices,
+                                  torch.tensor_split(adj, len(devices)))
+             if part.shape[0]]
+    return _gather(parts, mesh.devices[0], adj[:0])
+
+
+def super_apsp_sharded(mesh: "Mesh", src, dst, w, n_super: int,
+                       axis: str = "data") -> torch.Tensor:
+    """Offline SUPER APSP [n_super, n_super]: the Bellman-Ford sources
+    ``arange(n_super)`` split over ``axis``, the directed edge list
+    (each undirected edge passed both ways) replicated to each device,
+    ``sssp.apsp_from_sources`` on each part, the rows gathered on
+    ``mesh.devices[0]``."""
+    devices = mesh.shard_devices((axis,))
+    sources = torch.arange(n_super, dtype=torch.int32)
+    edges: dict = {}
+    parts = []
+    for dev, part in zip(devices,
+                         torch.tensor_split(sources, len(devices))):
+        if not part.numel():
+            continue
+        if dev not in edges:
+            edges[dev] = [torch.as_tensor(x).to(dev) for x in (src, dst, w)]
+        parts.append(sssp.apsp_from_sources(*edges[dev], part.to(dev),
+                                            n=n_super))
+    return _gather(parts, mesh.devices[0],
+                   torch.empty((0, n_super), dtype=torch.float32))

@@ -6,14 +6,15 @@ CSR adjacency on the host (numpy) for the one-shot preprocessing passes
 consumes directly.  The port keeps the subset its paths run: the
 shared-memory views serve the parallel host build
 (``supergraph.start_build``), ``edge_ids`` path validation
-(``paths.path_weight``), and ``with_edge_weights`` / ``traffic_updates``
-the live-traffic refresh (``device_engine.refresh_index``).
+(``paths.path_weight``), ``with_edge_weights`` / ``traffic_updates``
+the live-traffic refresh (``device_engine.refresh_index``), and
+``random_graph`` / ``tree_with_blobs`` the tests' graphs.
 
 All graphs are simple, undirected, positive-weighted, as in the paper
 (Section II-A). Node ids are dense ints [0, n).
 
 Owned invariant (DESIGN.md §6): every weight this module produces —
-the ``road_like`` generator and ``traffic_updates`` — is
+the generators and ``traffic_updates`` — is
 a positive *integer*, small enough that any shortest-distance sum
 stays below 2**24 and is therefore exactly representable in f32.  The
 whole stack's bit-for-bit exactness story (serve == refresh == scratch
@@ -405,3 +406,45 @@ def traffic_updates(g: Graph, frac: float = 0.05, seed: int = 0, *,
     new_w = np.maximum(1, np.round(g.edge_w[idx] * factor)).astype(
         np.float64)
     return g.edge_u[idx].copy(), g.edge_v[idx].copy(), new_w
+
+
+# copied from src/repro/core/graph.py:391
+def random_graph(n: int, m: int, seed: int = 0, max_w: int = 100) -> Graph:
+    """Erdos-Renyi-ish random connected-ish graph for property tests."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, n, size=m)
+    v = rng.integers(0, n, size=m)
+    ok = u != v
+    u, v = u[ok], v[ok]
+    w = rng.integers(1, max_w + 1, size=u.size).astype(np.float64)
+    # chain to keep it connected
+    cu = np.arange(n - 1)
+    cv = cu + 1
+    cw = rng.integers(1, max_w + 1, size=n - 1).astype(np.float64)
+    return Graph.from_edges(n, np.concatenate([u, cu]),
+                            np.concatenate([v, cv]),
+                            np.concatenate([w, cw]))
+
+
+# copied from src/repro/core/graph.py:408
+def tree_with_blobs(n_blobs: int, blob_size: int, seed: int = 0) -> Graph:
+    """Cut-node-heavy graph: blobs (cliques) strung on a path. Every blob
+    connector is a cut node -> exercises agents/DRAs densely."""
+    rng = np.random.default_rng(seed)
+    edges_u, edges_v = [], []
+    nid = 0
+    prev_anchor = None
+    for _ in range(n_blobs):
+        base = nid
+        nid += blob_size
+        for a in range(blob_size):
+            for b in range(a + 1, blob_size):
+                if rng.random() < 0.6 or b == a + 1:
+                    edges_u.append(base + a)
+                    edges_v.append(base + b)
+        if prev_anchor is not None:
+            edges_u.append(prev_anchor)
+            edges_v.append(base)
+        prev_anchor = base
+    w = rng.integers(1, 50, size=len(edges_u)).astype(np.float64)
+    return Graph.from_edges(nid, edges_u, edges_v, w)

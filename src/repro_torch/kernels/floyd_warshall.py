@@ -27,7 +27,10 @@ reference, run in place on one padded matrix: phase 1 through
 ``ops.fw_batch`` on the diagonal tile, phase 2 through
 ``ops.minplus_accum_panels`` and phase 3 through
 ``ops.minplus_accum_into`` on views of the matrix.  Each kernel wrapper
-counts its launches in ``.launches``.
+counts its launches in ``.launches``; ``fw_batch_cuda`` counts the
+distance-only FW's register and shared-memory variants, and
+``fw_dist_global_cuda``, which it calls above n = 240, the per-pivot
+one.
 """
 from __future__ import annotations
 
@@ -225,6 +228,8 @@ def fw_batch_cuda(d: torch.Tensor, out: torch.Tensor | None = None
                                    and out.is_contiguous()):
         raise ValueError(f"fw_dist kernel takes contiguous tensors above "
                          f"n = {DIST_REG_MAX_N}")
+    if n > DIST_SMEM_MAX_N:
+        return fw_dist_global_cuda(d, out)
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream().cuda_stream
         if n <= DIST_REG_MAX_N:
@@ -233,12 +238,28 @@ def fw_batch_cuda(d: torch.Tensor, out: torch.Tensor | None = None
                             bs_in=d.stride(0), bs_out=out.stride(0),
                             stream=stream)
             return out
-        entry = "fw_dist_smem" if n <= DIST_SMEM_MAX_N else "fw_dist_global"
-        err = getattr(_dist_lib(), entry)(d.data_ptr(), out.data_ptr(), b, n,
-                                          stream)
+        err = _dist_lib().fw_dist_smem(d.data_ptr(), out.data_ptr(), b, n,
+                                       stream)
     if err != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+        raise RuntimeError(f"fw_dist_smem launch failed: CUDA error {err}")
     fw_batch_cuda.launches += 1
+    return out
+
+
+def fw_dist_global_cuda(d: torch.Tensor, out: torch.Tensor
+                        ) -> torch.Tensor:
+    """The per-pivot variant of kernel 3 (one launch a pivot, any n):
+    ``fw_batch_cuda``'s route above DIST_SMEM_MAX_N, which checks the
+    operands (contiguous [b, n, n] float32 on one card) and calls this.
+    Its launches are counted here, apart from the other variants'."""
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _dist_lib().fw_dist_global(d.data_ptr(), out.data_ptr(),
+                                         d.shape[0], d.shape[1], stream)
+    if err != 0:
+        raise RuntimeError(f"fw_dist_global launch failed: CUDA error "
+                           f"{err}")
+    fw_dist_global_cuda.launches += 1
     return out
 
 
@@ -257,6 +278,7 @@ def launch_dist_reg(din: int, dout: int, b: int, n: int, *, ld_in: int,
 
 
 fw_batch_cuda.launches = 0
+fw_dist_global_cuda.launches = 0
 
 
 def blocked_steps(np_: int, block: int):

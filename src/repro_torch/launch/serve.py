@@ -1,17 +1,30 @@
-"""DISLAND serve CLI of the port (offline planner mode).
+"""DISLAND serve CLI of the port.
 
 Builds the index over a synthetic road graph (host build, then the
-device build on the card), warms the query planner up, serves
+device build on the card), warms the serving front end up, serves
 ``--batches`` batches of ``--batch-size`` uniform random queries, prints
-the build stage times, the median batch time, µs/query and the planner's
-buckets, and validates a sample of the last batch against host Dijkstra
-(any mismatch exits non-zero).
+the build stage times, the median batch time and µs/query (and the
+planner's buckets), and validates a sample of the last batch against
+host Dijkstra (any mismatch exits non-zero).
+
+``--mode`` picks the front end: ``planner`` (the default) buckets each
+batch by case (``QueryPlanner``); ``fused`` runs the monolithic
+``serve_step`` over the whole batch; ``sharded`` (alias ``--sharded``)
+splits the batch over ``make_host_mesh(device=--device)`` (every
+visible card, or the CPU) through ``serve_jit``, which is
+``serve_sharded`` with the index replicas placed once.  ``fused`` and
+``sharded`` warm up on a throwaway batch; every mode serves the same
+batches.  ``--paths``, ``--live``, ``--update-batches`` and
+``--check-build-parity`` need ``--mode planner``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --graph road4000
     PYTHONPATH=src python -m repro_torch.launch.serve --graph road64k \\
         --validate 32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --nodes 900 --batches 1 --batch-size 64 --validate 16 --paths
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --nodes 900 --batches 2 --batch-size 64 --validate 16 \\
+        --mode sharded
 
 ``--paths`` then serves ``--path-batches`` batches of
 ``--path-batch-size`` random pairs (default: ``--batches`` and
@@ -84,14 +97,15 @@ from ..core import dijkstra
 from ..core.device_engine import (build_device_index,
                                   build_device_index_with_plan,
                                   index_fields_equal, resolve_device,
-                                  sidecars_equal)
+                                  serve_step, sidecars_equal)
 from ..core.hierarchy import hier_overlay_stats
-from ..core.dist_engine import EpochedEngine, QueryPlanner
+from ..core.dist_engine import EpochedEngine, QueryPlanner, serve_jit
 from ..core.graph import road_like, traffic_updates
 from ..core.paths import PathUnwinder, path_weight
 from ..core.supergraph import build_index, index_arrays_equal, reweight_index
 from ..data.roads import road_preset
 from ..obs import trace
+from .mesh import make_host_mesh
 
 # copied from src/repro/launch/serve.py:54
 #: the tables a refresh re-derives; the refresh == rebuild check compares
@@ -103,6 +117,10 @@ REFRESHED_FIELDS = ("frag_apsp", "frag_next", "brow", "d_super",
                     "sf_closure", "sf_next", "l2row", "d2", "d2_next",
                     "res_rows", "res_of_frag",
                     "hub_rows", "hub_of_agent")
+
+
+#: the serving front ends of ``--mode``
+MODES = ("planner", "fused", "sharded")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -146,6 +164,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "equal on every index table")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--mode", choices=MODES, default="planner",
+                    help="serving front end: the bucketing planner, the "
+                         "monolithic serve_step, or serve_step sharded "
+                         "over every visible device")
+    ap.add_argument("--sharded", action="store_true",
+                    help="alias for --mode sharded")
     # copied from src/repro/launch/serve.py:596-671 (live and
     # observability flags)
     live = ap.add_argument_group("live serving (--live)")
@@ -216,7 +240,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                           "trace JSON here at exit (build, refresh, "
                           "and per-request serve spans)")
     args = ap.parse_args(argv)
-    # copied from src/repro/launch/serve.py:700-711
+    if args.sharded:
+        args.mode = "sharded"
+    # copied from src/repro/launch/serve.py:690-711, for the flags the
+    # port has
+    if args.update_batches and args.mode != "planner":
+        ap.error("--update-batches requires --mode planner")
+    if args.check_build_parity and args.mode != "planner":
+        ap.error("--check-build-parity requires --mode planner")
+    if args.paths and args.mode != "planner":
+        ap.error("--paths requires --mode planner")
+    if args.live and args.mode != "planner":
+        ap.error("--live requires --mode planner")
     if args.live and args.paths:
         ap.error("--paths is not supported with --live (the live "
                  "runtime serves distances only)")
@@ -352,38 +387,65 @@ def _path_shape(args: argparse.Namespace) -> tuple[int, int]:
             else args.path_batch_size)
 
 
+def _front_end(args: argparse.Namespace, g, dix):
+    """The ``--mode`` front end, warmed up -> (fn(s, t) -> numpy
+    answers, the planner or None, warmup seconds).  The planner warms
+    every padded bucket size a batch can produce; ``fused`` and
+    ``sharded`` serve one throwaway batch."""
+    t0 = time.perf_counter()
+    if args.mode == "planner":
+        planner = QueryPlanner(dix, paths=args.paths)
+        planner.warmup(max(args.batch_size, _path_shape(args)[1])
+                       if args.paths else args.batch_size)
+        return planner, planner, time.perf_counter() - t0
+    if args.mode == "fused":
+        def fn(s, t):
+            return serve_step(dix, torch.as_tensor(s, device=dix.device),
+                              torch.as_tensor(t, device=dix.device)
+                              ).cpu().numpy()
+    else:
+        step = serve_jit(make_host_mesh(device=args.device), dix)
+
+        def fn(s, t):
+            return step(s, t).cpu().numpy()
+    rng = np.random.default_rng(args.seed + 6)
+    fn(rng.integers(0, g.n, args.batch_size),
+       rng.integers(0, g.n, args.batch_size))
+    return fn, None, time.perf_counter() - t0
+
+
 def serve(args: argparse.Namespace, g, dix, summary: dict,
           plan=None) -> dict:
-    """Warm the planner up, serve the batches and validate against
-    Dijkstra (then, with ``--paths``, the path loop, which needs the
-    build's ``plan``); returns ``summary`` completed with the median
-    batch ms, µs/query, planner buckets, peak device memory, the
-    validation mismatch count and the path loop's record."""
+    """Warm the ``--mode`` front end up, serve the batches and validate
+    against Dijkstra (then, with ``--paths``, the path loop, which needs
+    the build's ``plan``); returns ``summary`` completed with the mode,
+    the median batch ms, µs/query, the planner's buckets, peak device
+    memory, the validation mismatch count and the path loop's record."""
     device = dix.device
-    planner = QueryPlanner(dix, paths=args.paths)
-    t0 = time.perf_counter()
-    planner.warmup(max(args.batch_size, _path_shape(args)[1]) if args.paths
-                   else args.batch_size)
-    warmup_s = time.perf_counter() - t0
+    fn, planner, warmup_s = _front_end(args, g, dix)
     rng = np.random.default_rng(args.seed + 1)
     times = []
     last = None
-    totals = dict.fromkeys(planner.CASES, 0)
+    totals = (None if planner is None
+              else dict.fromkeys(QueryPlanner.CASES, 0))
     for _ in range(args.batches):
         s = rng.integers(0, g.n, args.batch_size)
         t = rng.integers(0, g.n, args.batch_size)
         t0 = time.perf_counter()
-        out = planner(s, t)              # host copy: waits for the card
+        out = fn(s, t)                   # host copy: waits for the card
         times.append(time.perf_counter() - t0)
         last = (s, t, out)
-        for case, count in planner.last_counts.items():
-            totals[case] += count
+        if planner is not None:
+            for case, count in planner.last_counts.items():
+                totals[case] += count
     med = float(np.median(times)) if times else float("nan")
     per_q = med / args.batch_size
-    print(f"served {args.batches * args.batch_size} queries; median batch "
+    print(f"served {args.batches * args.batch_size} queries "
+          f"(--mode {args.mode}); median batch "
           f"{med * 1e3:.3f}ms -> {per_q * 1e6:.3f}us/query "
           f"({1 / per_q:,.0f} qps)")
-    print(f"planner buckets (all batches): {totals}")
+    if planner is not None:
+        print(f"planner buckets (all batches): {totals}")
     peak_mb = None
     if device.type == "cuda":
         peak_mb = torch.cuda.max_memory_allocated(device) / 2**20
@@ -399,9 +461,9 @@ def serve(args: argparse.Namespace, g, dix, summary: dict,
             bad += dijkstra.mismatches_oracle(want, float(got[i]))
         print(f"validation: {bad} mismatches of {n_check}")
     res = dict(
-        summary, warmup_s=warmup_s, median_batch_ms=med * 1e3,
-        us_per_query=per_q * 1e6, buckets=totals, peak_device_mb=peak_mb,
-        mismatches=bad,
+        summary, mode=args.mode, warmup_s=warmup_s,
+        median_batch_ms=med * 1e3, us_per_query=per_q * 1e6,
+        buckets=totals, peak_device_mb=peak_mb, mismatches=bad,
         answers_finite=bool(last is not None
                             and np.isfinite(last[2]).all()))
     if args.paths:

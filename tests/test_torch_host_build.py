@@ -28,16 +28,17 @@ from repro_torch.core import supergraph as tsupergraph
 from repro_torch.core.supergraph import build_index as tbuild_index
 from repro_torch.data import roads as troads
 
+#: each graph from the port's generator and from the reference's
 GRAPHS = {
-    "road_like_900": lambda: jgraph.road_like(900, seed=0),
-    "random_graph": lambda: jgraph.random_graph(300, 700, seed=4),
-    "tree_with_blobs": lambda: jgraph.tree_with_blobs(12, 6, seed=2),
+    "road_like_900": lambda m: m.road_like(900, seed=0),
+    "random_graph": lambda m: m.random_graph(300, 700, seed=4),
+    "tree_with_blobs": lambda m: m.tree_with_blobs(12, 6, seed=2),
 }
 
 
-def _port_graph(g) -> tgraph.Graph:
-    return tgraph.Graph(**{f.name: getattr(g, f.name)
-                           for f in dataclasses.fields(g)})
+def _graphs(name) -> tuple:
+    """(the port's graph, the reference's graph) of GRAPHS[name]."""
+    return GRAPHS[name](tgraph), GRAPHS[name](jgraph)
 
 
 def _graph_arrays(g):
@@ -54,9 +55,9 @@ def test_road_like_matches_reference(n, seed):
 
 @pytest.mark.parametrize("name", sorted(GRAPHS))
 def test_build_index_matches_reference(name):
-    g = GRAPHS[name]()
+    tg, g = _graphs(name)
     jix = jbuild_index(g)
-    tix = tbuild_index(_port_graph(g))
+    tix = tbuild_index(tg)
     eq = index_arrays_equal(tix, jix)
     assert all(eq.values()), {k: v for k, v in eq.items() if not v}
     assert sorted(tix.timings) == sorted(jix.timings)
@@ -64,9 +65,9 @@ def test_build_index_matches_reference(name):
 
 @pytest.mark.parametrize("name", sorted(GRAPHS))
 def test_build_plan_matches_reference(name):
-    g = GRAPHS[name]()
+    tg, g = _graphs(name)
     jplan = jde.make_build_plan(jbuild_index(g))
-    tplan = tde.make_build_plan(tbuild_index(_port_graph(g)))
+    tplan = tde.make_build_plan(tbuild_index(tg))
     for f in dataclasses.fields(tplan):
         a, b = getattr(tplan, f.name), getattr(jplan, f.name)
         if f.name == "piece_members":
@@ -124,8 +125,7 @@ def test_resolve_hierarchy_levels_matches_reference(S, levels):
 @pytest.mark.parametrize("workers", [1, 2])
 @pytest.mark.parametrize("name", ["road_like_900", "random_graph"])
 def test_parallel_build_equals_serial_and_reference(name, workers):
-    g = GRAPHS[name]()
-    tg = _port_graph(g)
+    tg, g = _graphs(name)
     par = tbuild_index(tg, build_workers=workers)
     for other in (tbuild_index(tg), jbuild_index(g)):
         eq = index_arrays_equal(par, other)
@@ -191,7 +191,7 @@ def test_failed_cover_surfaces_original_exception(workers):
 def test_shared_graph_round_trip():
     """to_shared/from_shared: read-only zero-copy views equal to the
     source arrays, supporting the worker-side re-extraction."""
-    g = _port_graph(jgraph.random_graph(40, 60, seed=3))
+    g = tgraph.random_graph(40, 60, seed=3)
     handle = g.to_shared()
     assert _own_shm_blocks() == {handle.shm.name.lstrip("/")}
     try:

@@ -20,12 +20,11 @@ import torch
 from repro.core import device_engine as jde
 from repro.core.dist_engine import QueryPlanner as JQueryPlanner
 from repro.core.graph import road_like as jroad_like
-from repro.core.graph import tree_with_blobs as jtree_with_blobs
 from repro.core.supergraph import build_index as jbuild_index
 from repro_torch.core import device_engine as tde
 from repro_torch.core import dijkstra
 from repro_torch.core.dist_engine import QueryPlanner
-from repro_torch.core.graph import Graph, road_like
+from repro_torch.core.graph import road_like, tree_with_blobs
 from repro_torch.core.paths import PathUnwinder, path_weight, unwind_path
 from repro_torch.core.supergraph import build_index
 
@@ -178,11 +177,10 @@ def test_cross_res_bucket_witnesses_unwind():
 
 
 def test_blob_graph_piece_witnesses():
-    """A piece-heavy graph (the reference's generator, carried across as
-    an edge list): same-DRA witnesses take both WIT_PIECE and
-    WIT_VIA_AGENT, and every one unwinds exactly."""
-    jg = jtree_with_blobs(25, 6, seed=9)
-    g = Graph.from_edges(jg.n, jg.edge_u, jg.edge_v, jg.edge_w)
+    """A piece-heavy graph (``tree_with_blobs``): same-DRA witnesses
+    take both WIT_PIECE and WIT_VIA_AGENT, and every one unwinds
+    exactly."""
+    g = tree_with_blobs(25, 6, seed=9)
     dix, plan = tde.build_device_index_with_plan(build_index(g),
                                                  device="cpu")
     pairs = _bucket_pairs(dix, np.random.default_rng(5), 200,

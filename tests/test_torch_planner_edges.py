@@ -23,13 +23,12 @@ import torch
 from repro.core import device_engine as jde
 from repro.core.dist_engine import QueryPlanner as JQueryPlanner
 from repro.core.graph import Graph as JGraph
-from repro.core.graph import road_like as jroad_like
-from repro.core.graph import tree_with_blobs as jtree_with_blobs
 from repro.core.supergraph import build_index as jbuild_index
 from repro_torch.core import device_engine as tde
 from repro_torch.core import dijkstra, padding
 from repro_torch.core.dist_engine import QueryPlanner
-from repro_torch.core.graph import Graph, road_like, traffic_updates
+from repro_torch.core.graph import (Graph, road_like, traffic_updates,
+                                    tree_with_blobs)
 from repro_torch.core.supergraph import build_index
 from repro_torch.launch.serve import REFRESHED_FIELDS
 
@@ -156,8 +155,8 @@ def _union():
     """(port graph, reference graph, component sizes, hub nodes) of the
     3-component union."""
     if "union" not in _BUILT:
-        parts = [jroad_like(1400, seed=23), jroad_like(400, seed=2),
-                 jtree_with_blobs(10, 5, seed=3)]
+        parts = [road_like(1400, seed=23), road_like(400, seed=2),
+                 tree_with_blobs(10, 5, seed=3)]
         us, vs, ws, off = [], [], [], 0
         for p in parts:
             us.append(p.edge_u.astype(np.int64) + off)

@@ -30,7 +30,6 @@ import torch
 from repro.core import device_engine as jde
 from repro.core import hierarchy as jhier
 from repro.core.dist_engine import EpochedEngine as JEpochedEngine
-from repro.core.graph import Graph as JGraph
 from repro.core.graph import road_like as jroad_like
 from repro.core.graph import traffic_updates as jtraffic_updates
 from repro.core.graph import tree_with_blobs as jtree_with_blobs
@@ -40,7 +39,7 @@ from repro.launch.serve import REFRESHED_FIELDS as JREFRESHED_FIELDS
 from repro_torch.core import device_engine as tde
 from repro_torch.core import dijkstra, hierarchy
 from repro_torch.core.dist_engine import EpochedEngine
-from repro_torch.core.graph import Graph, road_like, traffic_updates
+from repro_torch.core.graph import road_like, traffic_updates, tree_with_blobs
 from repro_torch.core.paths import path_weight
 from repro_torch.core.refresh_pipeline import (FRESH, RefreshPipeline,
                                                Staleness, UpdateQueue)
@@ -168,8 +167,7 @@ def test_reweight_index_matches_reference():
 # -- 3. classify_updates -----------------------------------------------------
 
 def _blob_graphs():
-    jg = jtree_with_blobs(25, 6, seed=9)
-    return Graph.from_edges(jg.n, jg.edge_u, jg.edge_v, jg.edge_w), jg
+    return tree_with_blobs(25, 6, seed=9), jtree_with_blobs(25, 6, seed=9)
 
 
 @pytest.mark.parametrize("graph", ["road", "blobs"])

@@ -171,7 +171,7 @@ _UNION: dict = {}
 def _union_edges():
     """road_like(1400, 23) + road_like(400, 2) + tree_with_blobs(10, 5,
     3), node ids offset: 3 components."""
-    from repro.core.graph import tree_with_blobs
+    from repro_torch.core.graph import tree_with_blobs
     parts = [road_like(1400, seed=23), road_like(400, seed=2),
              tree_with_blobs(10, 5, seed=3)]
     us, vs, ws, off = [], [], [], 0
