@@ -116,7 +116,21 @@ prints no result.  Phases, each of which must pass:
      grouped twoside, kernel 3 and kernel 3's per-pivot variant
      ``fw_dist_global``), then the sharded build and kernel 3 at
      [130, 496, 496] timed;
- 10. the ``kernels`` JSON line (launches summed over the main paths of
+ 10. the training path (``_train``; no kernel of the port runs in it:
+     counters zeroed around it must read 0): card == CPU on reduced
+     float32 granite-moe and granite-8b (loss, every gradient, one AdamW
+     step; ``allow_tf32`` off and printed); granite-moe-1b-a400m at its
+     published dims through ``repro_torch.launch.train`` at seq 4,096
+     (6 steps, a checkpoint every 3, the step-6 checkpoint == the run's
+     state bit for bit, then 2 more steps in a fresh process that
+     resumes it; finite losses, the last below the first), then prefill
+     of a 4,096-token prompt and 16 decode steps each == the prefill of
+     the extended prompt within ``DECODE_REL_TOL``; wide-deep at its
+     published dims (40 x 1,000,000-row tables) for 4 steps at the
+     ``train_batch`` shape of 65,536; each of the ten archs at
+     ``--reduced`` for 2 steps; median step seconds, rates and peak
+     device memory per run;
+ 11. the ``kernels`` JSON line (launches summed over the main paths of
      phases 4 and 6, the refresh epochs of phases 5 and 7, the live
      runs of phase 8 and the sharded path of phase 9, those of phases 8
      and 9 also apart as ``live_launches`` and ``sharded_launches``;
@@ -1780,6 +1794,298 @@ def _sharded() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the training path (no kernel of the port runs in it)
+# ---------------------------------------------------------------------------
+#: checkpoints of the full-width granite-moe run (git-ignored; removed
+#: after the phase)
+TRAIN_CKPT = ROOT / ".train_ckpt"
+#: decode == prefill tolerance on bf16 logits: max |dec - ref| over
+#: max |ref|, ~13 units of bf16 rounding (2**-8) gathered over 24 layers
+DECODE_REL_TOL = 0.05
+
+
+def _tree_bits_equal(a, b) -> bool:
+    """Same structure, dtypes, shapes and devices, every leaf equal bit
+    for bit (bf16 through its int16 view)."""
+    import torch
+    from repro_torch.checkpoint.manager import tree_flatten
+    (la, da), (lb, db) = tree_flatten(a), tree_flatten(b)
+    if repr(da) != repr(db) or len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if (x.dtype, x.shape, x.device) != (y.dtype, y.shape, y.device):
+            return False
+        if x.dtype == torch.bfloat16:
+            x, y = x.view(torch.int16), y.view(torch.int16)
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def _run_record(res: dict, per_step: int, unit: str, base: int) -> dict:
+    """Median step seconds after the first step, the rate, checkpoint
+    save seconds, and the peak device memory above what was allocated
+    before the run began (``base``)."""
+    import numpy as np
+    import torch
+    times = res["step_s"][1:] or res["step_s"]
+    med = float(np.median(times))
+    peak = torch.cuda.max_memory_allocated()
+    return {"steps": len(res["step_s"]), "median_step_s": med,
+            f"{unit}_per_s": per_step / med, "save_s": res["save_s"],
+            "peak_mib": (peak - base) / 2**20, "base_mib": base / 2**20,
+            "losses": res["losses"], "grad_norms": res["grad_norms"]}
+
+
+def _release() -> int:
+    """Collect garbage, return the cache to the card, reset the peak;
+    -> the bytes still allocated (the next run's base)."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _train_card_vs_cpu() -> dict:
+    """Reduced float32 granite-moe (MoE) and granite-8b (dense) at
+    ``tests/test_arch_smoke.py``'s dims: the same parameters and tokens
+    on the card and on the CPU give the same loss and gradients, and one
+    AdamW step from the same gradients the same new parameters."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.manager import tree_leaves, tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import transformer
+    from repro_torch.models.common import Shardings
+    from repro_torch.optim import adamw_init, adamw_update
+    sh = Shardings(mesh=None)
+    out = {}
+    for arch in ("granite-moe-1b-a400m", "granite-8b"):
+        base = get_arch(arch).model_cfg
+        cfg = dataclasses.replace(
+            base, n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+            d_ff=128, vocab=128, dtype=torch.float32, attn_chunk=16,
+            n_experts=4 if base.moe else 0, top_k=min(base.top_k, 2),
+            gather_fsdp_in_body=False, seq_shard_activations=False)
+        p_cpu = transformer.init_params(
+            cfg, torch.Generator().manual_seed(0), "cpu")
+        p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, (4, 32)).astype(np.int32))
+
+        def loss_fn(p, b):
+            return transformer.forward_loss(cfg, sh, p, b)
+        l_c, g_c = value_and_grad(loss_fn, p_cpu, toks)
+        l_g, g_g = value_and_grad(loss_fn, p_gpu, toks.cuda())
+        torch.testing.assert_close(l_g.cpu(), l_c, rtol=1e-5, atol=0)
+        grad_err = 0.0
+        for a, b in zip(tree_leaves(g_c), tree_leaves(g_g)):
+            torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-5)
+            grad_err = max(grad_err, float((b.cpu() - a).abs().max()))
+        g_same = tree_map(lambda t: t.cuda(), g_c)
+        n_c, _, _ = adamw_update(p_cpu, g_c, adamw_init(p_cpu), lr=3e-4)
+        n_g, _, _ = adamw_update(p_gpu, g_same, adamw_init(p_gpu),
+                                 lr=3e-4)
+        adam_err = 0.0
+        for a, b in zip(tree_leaves(n_c), tree_leaves(n_g)):
+            torch.testing.assert_close(b.cpu(), a, rtol=1e-6, atol=1e-7)
+            adam_err = max(adam_err, float((b.cpu() - a).abs().max()))
+        out[arch] = {"loss_cpu": float(l_c), "loss_card": float(l_g),
+                     "grad_max_abs_err": grad_err,
+                     "adamw_max_abs_err": adam_err}
+    print(f"  card vs CPU (allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}; loss rtol 1e-5, "
+          f"grads rtol 1e-4 atol 1e-5, AdamW step rtol 1e-6 atol 1e-7): "
+          f"{out}")
+    return out
+
+
+def _decode_check(params, n_steps: int = 16) -> dict:
+    """granite-moe's prefill on a 4,096-token prompt, then ``n_steps``
+    greedy decode steps, each held against the prefill of the extended
+    prompt.  The capacity factor is raised to E/K so no token is dropped
+    (cap >= N): drops differ between a prompt and one token and are
+    legitimate MoE behaviour, as in ``tests/test_models.py``."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batches
+    from repro_torch.models import transformer
+    from repro_torch.models.common import Shardings
+    base = get_arch("granite-moe-1b-a400m").model_cfg
+    cfg = dataclasses.replace(
+        base, capacity_factor=base.n_experts / base.top_k)
+    sh = Shardings(mesh=None)
+    toks = torch.from_numpy(next(lm_batches(1, 4096, cfg.vocab,
+                                            seed=7))).cuda()
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill(cfg, sh, params, toks)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pad = (0, 0, 0, 0, 0, n_steps)
+    cache = {"k": F.pad(cache["k"], pad), "v": F.pad(cache["v"], pad),
+             "len": cache["len"]}
+    tok = logits.argmax(-1)
+    rels, agree, dec_s = [], 0, []
+    for _ in range(n_steps):
+        toks = torch.cat([toks, tok[:, None].to(toks.dtype)], dim=1)
+        t0 = time.perf_counter()
+        dec, cache = transformer.decode_step(cfg, sh, params, cache, tok)
+        torch.cuda.synchronize()
+        dec_s.append(time.perf_counter() - t0)
+        ref, _ = transformer.prefill(cfg, sh, params, toks)
+        ref, dec = ref.float(), dec.float()
+        rels.append(float((dec - ref).abs().max() / ref.abs().max()))
+        agree += int(torch.equal(dec.argmax(-1), ref.argmax(-1)))
+        tok = ref.argmax(-1)
+    res = {"prompt": 4096, "steps": n_steps, "rel_err": rels,
+           "max_rel_err": max(rels), "tol": DECODE_REL_TOL,
+           "argmax_agree": agree, "prefill_4096_s": prefill_s,
+           "decode_step_s": dec_s}
+    print(f"  granite-moe decode vs prefill: max rel err {max(rels):.5f} "
+          f"(tolerance {DECODE_REL_TOL}), argmax agrees {agree}/{n_steps}"
+          f", prefill 4,096 {prefill_s:.3f}s")
+    if not max(rels) <= DECODE_REL_TOL:
+        raise AssertionError(f"decode != prefill: {rels}")
+    return res
+
+
+def _train_granite_moe(batch: int = 1) -> dict:
+    """granite-moe-1b-a400m at its published dims through
+    ``repro_torch.launch.train``: 6 steps at seq 4,096 with a checkpoint
+    every 3, the state on disk at step 6 == the run's own bit for bit,
+    then 2 more steps in a fresh process that resumes at step 6.  The
+    checkpoints (~13 GB each) are removed however the runs end."""
+    import shutil
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    try:
+        return _granite_moe_runs(batch)
+    finally:
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+
+
+def _granite_moe_runs(batch: int) -> dict:
+    import math
+    import os
+    import re
+
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train
+    args = ["--arch", "granite-moe-1b-a400m", "--batch", str(batch),
+            "--seq", "4096", "--ckpt", str(TRAIN_CKPT), "--ckpt-every", "3"]
+    base = _release()
+    t0 = time.perf_counter()
+    res = train.main(args + ["--steps", "6"])
+    run_s = time.perf_counter() - t0
+    rec = _run_record(res, batch * 4096, "tokens", base)
+    state = (res.pop("params"), res.pop("opt"))
+    mgr = CheckpointManager(str(TRAIN_CKPT))
+    rec["saved_steps"] = mgr.all_steps()
+    t0 = time.perf_counter()
+    step, restored = mgr.restore(state)
+    rec["restore_s"] = time.perf_counter() - t0
+    rec["restored_step"] = step
+    rec["restore_bit_equal"] = step == 6 and _tree_bits_equal(restored,
+                                                              state)
+    params = state[0]
+    del restored, state
+    _release()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *args,
+         "--steps", "8"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=600)
+    rec["resume_process_s"] = time.perf_counter() - t0
+    print("\n".join("  | " + ln for ln in proc.stdout.splitlines()))
+    if proc.returncode:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise RuntimeError(f"resumed train exited {proc.returncode}")
+    last = re.search(r"loss: first=(\S+) last=(\S+)", proc.stdout)
+    summ = re.search(r"straggler summary: \{'steps': (\d+), "
+                     r"'median_s': (\S+),", proc.stdout)
+    peak = re.search(r"peak device memory (\S+) MiB", proc.stdout)
+    rec["resume"] = {
+        "restored_step_6": "restored step 6" in proc.stdout,
+        "steps": int(summ.group(1)), "median_step_s": float(summ.group(2)),
+        "losses": [float(last.group(1)), float(last.group(2))],
+        "peak_mib": float(peak.group(1))}
+    losses = rec["losses"] + rec["resume"]["losses"]
+    rec["first_run_s"], rec["all_losses"] = run_s, losses
+    print(f"  granite-moe train (batch {batch}, seq 4,096): losses "
+          f"{[round(x, 4) for x in losses]}; median step "
+          f"{rec['median_step_s']:.4f}s, {rec['tokens_per_s']:,.0f} "
+          f"tokens/s, peak {rec['peak_mib']:,.0f} MiB; restore "
+          f"{rec['restore_s']:.1f}s bit-equal {rec['restore_bit_equal']}; "
+          f"resume {rec['resume']}")
+    ok = (rec["restore_bit_equal"] and rec["saved_steps"] == [3, 6]
+          and rec["resume"]["restored_step_6"]
+          and rec["resume"]["steps"] == 2
+          and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0])
+    if not ok:
+        raise AssertionError(f"granite-moe training: {rec}")
+    rec["decode"] = _decode_check(params)
+    return rec
+
+
+def _train() -> dict:
+    """Phase ``train``: card == CPU on reduced LMs; granite-moe-1b-a400m
+    at its published dims (train, checkpoint, resume in a fresh process,
+    decode == prefill); wide-deep at its published dims at the
+    ``train_batch`` shape; each of the ten archs at ``--reduced``.  No
+    kernel of the port runs in it: the counters are zeroed around it and
+    must read 0."""
+    import math
+
+    import torch
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.launch import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _reset_counts()
+    out = {"card_vs_cpu": _train_card_vs_cpu(),
+           "granite_moe": _train_granite_moe()}
+    base = _release()
+    res = train.main(["--arch", "wide-deep", "--steps", "4",
+                      "--batch", "65536"])
+    out["wide_deep"] = _run_record(res, 65536, "samples", base)
+    del res
+    print(f"  wide-deep train (batch 65,536, 40 x 1,000,000 rows): "
+          f"{out['wide_deep']}")
+    out["reduced"] = {}
+    for arch in list_archs():
+        base = _release()
+        res = train.main(["--arch", arch, "--steps", "2", "--reduced"])
+        # the driver's defaults: 8 x 128 tokens, one road_like(512)
+        # graph, 8 samples
+        family = get_arch(arch).family
+        out["reduced"][arch] = _run_record(
+            res, {"lm": 8 * 128, "gnn": 1, "recsys": 8}[family],
+            {"lm": "tokens", "gnn": "graphs", "recsys": "samples"}[family],
+            base)
+        del res
+    out["left_mib"] = _release() / 2**20
+    print(f"  reduced archs: {out['reduced']}")
+    out["launches"] = _read_counts()
+    finite = all(math.isfinite(x) for r in
+                 [out["wide_deep"]] + list(out["reduced"].values())
+                 for x in r["losses"])
+    if any(out["launches"].values()) or not finite:
+        raise AssertionError(f"train: launches {out['launches']}, "
+                             f"finite losses {finite}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1938,6 +2244,7 @@ def main() -> int:
     phase("road4000_live", _road4000_live)
     phase("road64k_live", _road64k_live)
     phase("sharded", _sharded)
+    phase("train", _train)
 
     report["fw_cases"], report["ts_cases"] = fw_cases, ts_cases
     report["new_cases"], report["slice3_cases"] = new_cases, slice3_cases

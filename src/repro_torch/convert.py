@@ -10,12 +10,21 @@ reverse.  The host sidecars (``host_ov_slot``, ``host_l2_slot``,
 through as they are.  The port can then serve from an index the
 reference built, and the tests can hold the serve side apart from the
 build side.
+
+``tree_from_numpy`` / ``tree_to_numpy`` do the same for model parameter
+trees and optimizer states (nested dicts, lists, tuples, ``AdamWState``)
+in the reference's leaf order: bfloat16 travels as its bits (a 2-byte
+void array, or an ``ml_dtypes`` bfloat16 array from the reference), so
+both packages can be given the same weights.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .checkpoint.manager import (dtype_name, leaf_from_numpy,
+                                 leaf_to_numpy, tree_flatten, tree_map,
+                                 tree_unflatten)
 from .core.device_engine import (FIELD_DTYPES, SIDECARS,
                                  TUPLE_FIELD_DTYPES, DeviceIndex,
                                  resolve_device)
@@ -64,3 +73,42 @@ def device_index_to_numpy(dix: DeviceIndex) -> dict:
         if getattr(dix, name) is not None:
             out[name] = getattr(dix, name)
     return out
+
+
+#: numpy leaf dtypes a tree may carry across (bfloat16 as its bits)
+TREE_DTYPES = ("float32", "int32", "bfloat16")
+
+
+def tree_from_numpy(tree, device=None, like=None):
+    """The tree of numpy arrays ``tree`` as tensors on ``device``
+    (default ``cuda``).  A leaf must be float32, int32 or bfloat16 bits;
+    with ``like`` (a tree of tensors of the same structure) each leaf
+    must also have its dtype and shape.  Raises otherwise."""
+    dev = resolve_device(device)
+    leaves, treedef = tree_flatten(tree)
+    want = None
+    if like is not None:
+        want, like_def = tree_flatten(like)
+        if len(want) != len(leaves) or repr(like_def) != repr(treedef):
+            raise ValueError("tree structure differs from like's")
+    out = []
+    for i, a in enumerate(leaves):
+        a = np.asarray(a)
+        name = dtype_name(a)
+        if name not in TREE_DTYPES:
+            raise TypeError(f"leaf {i} has dtype {a.dtype}; expected one "
+                            f"of {TREE_DTYPES}")
+        t = leaf_from_numpy(a, name, dev)
+        if want is not None and (t.dtype != want[i].dtype
+                                 or t.shape != want[i].shape):
+            raise TypeError(f"leaf {i} is {t.dtype}{tuple(t.shape)}, "
+                            f"expected {want[i].dtype}"
+                            f"{tuple(want[i].shape)}")
+        out.append(t)
+    return tree_unflatten(treedef, out)
+
+
+def tree_to_numpy(tree):
+    """Host numpy copies of every leaf (bfloat16 as a |V2 array of its
+    bits), in the same structure."""
+    return tree_map(leaf_to_numpy, tree)

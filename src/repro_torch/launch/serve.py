@@ -105,6 +105,7 @@ from ..core.paths import PathUnwinder, path_weight
 from ..core.supergraph import build_index, index_arrays_equal, reweight_index
 from ..data.roads import road_preset
 from ..obs import trace
+from ..runtime import StragglerMonitor
 from .mesh import make_host_mesh
 
 # copied from src/repro/launch/serve.py:54
@@ -414,6 +415,12 @@ def _front_end(args: argparse.Namespace, g, dix):
     return fn, None, time.perf_counter() - t0
 
 
+def _median_s(monitor: StragglerMonitor) -> float:
+    """The median of the batch times ``monitor`` recorded (NaN for no
+    batch), as the reference reads ``StragglerMonitor.summary()``."""
+    return monitor.summary()["median_s"] if monitor.times else float("nan")
+
+
 def serve(args: argparse.Namespace, g, dix, summary: dict,
           plan=None) -> dict:
     """Warm the ``--mode`` front end up, serve the batches and validate
@@ -424,21 +431,21 @@ def serve(args: argparse.Namespace, g, dix, summary: dict,
     device = dix.device
     fn, planner, warmup_s = _front_end(args, g, dix)
     rng = np.random.default_rng(args.seed + 1)
-    times = []
+    monitor = StragglerMonitor()
     last = None
     totals = (None if planner is None
               else dict.fromkeys(QueryPlanner.CASES, 0))
     for _ in range(args.batches):
         s = rng.integers(0, g.n, args.batch_size)
         t = rng.integers(0, g.n, args.batch_size)
-        t0 = time.perf_counter()
+        monitor.start()
         out = fn(s, t)                   # host copy: waits for the card
-        times.append(time.perf_counter() - t0)
+        monitor.stop()
         last = (s, t, out)
         if planner is not None:
             for case, count in planner.last_counts.items():
                 totals[case] += count
-    med = float(np.median(times)) if times else float("nan")
+    med = _median_s(monitor)
     per_q = med / args.batch_size
     print(f"served {args.batches * args.batch_size} queries "
           f"(--mode {args.mode}); median batch "
@@ -498,20 +505,19 @@ def serve_paths(args: argparse.Namespace, g, dix, plan,
     uw = PathUnwinder(dix, plan)
     unwinder_s = time.perf_counter() - t0
     rng = np.random.default_rng(args.seed + 3)
-    times, wit_times = [], []
+    monitor, wit_monitor = StragglerMonitor(), StragglerMonitor()
     last = None
     for _ in range(batches):
         s = rng.integers(0, g.n, size)
         t = rng.integers(0, g.n, size)
+        monitor.start()
         t0 = time.perf_counter()
         dist, wit = planner.query_witness(s, t, dix=dix)
-        t1 = time.perf_counter()
+        wit_monitor.observe(time.perf_counter() - t0)
         paths = uw.unwind_many(s, t, dist, wit)
-        times.append(time.perf_counter() - t0)
-        wit_times.append(t1 - t0)
+        monitor.stop()
         last = (s, t, dist, paths)
-    med = float(np.median(times)) if times else float("nan")
-    med_wit = float(np.median(wit_times)) if times else float("nan")
+    med, med_wit = _median_s(monitor), _median_s(wit_monitor)
     hops = [len(p) - 1 for p in last[3] if p is not None] if last else []
     mean_hops = float(np.mean(hops)) if hops else 0.0
     print(f"paths: {batches * size} unwound (unwinder {unwinder_s:.2f}s); "

@@ -64,7 +64,15 @@ def test_port_modules_import_no_jax_and_no_reference_package():
               "repro_torch.serving.scheduler",
               "repro_torch.serving.runtime", "repro_torch.serving.loadgen",
               "repro_torch.obs.metrics", "repro_torch.obs.export",
-              "repro_torch.data.queries"):
+              "repro_torch.data.queries", "repro_torch.data.pipelines",
+              "repro_torch.optim.adamw", "repro_torch.optim.compress",
+              "repro_torch.checkpoint.manager", "repro_torch.runtime.fault",
+              "repro_torch.models.common", "repro_torch.models.transformer",
+              "repro_torch.models.recsys", "repro_torch.models.gnn",
+              "repro_torch.configs", "repro_torch.configs.api",
+              "repro_torch.configs.granite_moe_1b_a400m",
+              "repro_torch.configs.wide_deep", "repro_torch.launch.steps",
+              "repro_torch.launch.train"):
         assert m in res["modules"]
 
 
