@@ -130,7 +130,31 @@ prints no result.  Phases, each of which must pass:
      ``train_batch`` shape of 65,536; each of the ten archs at
      ``--reduced`` for 2 steps; median step seconds, rates and peak
      device memory per run;
- 11. the ``kernels`` JSON line (launches summed over the main paths of
+ 11. the sharded GNN forwards (``_gnn_sharded``; no kernel of the port:
+     counters zeroed around it must read 0), at published widths:
+     graphcast (16 layers, d 512) at ``minibatch_lg`` (n 169,984, e
+     168,960, d_feat 602) and dimenet (6 blocks, d 128) at ``molecule``
+     (128 molecules, n 4,096, e 16,384, whole molecules per shard), each
+     in float32 through ``models.gnn.forward_loss`` with ``sharded`` on
+     the one-card mesh and on ``cuda:0`` x 4 (the owner layout: each
+     shard's nodes, their incoming edges, dst shard-local) == the dense
+     forward on the same graph (loss and every gradient leaf within
+     ``GNN_RTOL``), then 3 steps of the cell's bf16 step
+     (``launch.cells.build_cell``): step s, peak MiB, finite losses;
+ 12. the dry runs (``_dryrun``): ``repro_torch.launch.dryrun --all
+     --mesh both`` (40 cells x the single and multipod production meshes
+     on ``meta``), started before road64k's live run in its own processes
+     at nice 19 (``DRYRUN_WORKERS``; it needs no card), waited for here;
+     every
+     record ``ok``; then ``launch.dryrun_disland``; records in
+     ``chiprun_out/dryrun_torch/``; then ``dryrun_vs_card``: the ``meta``
+     peak (``launch.opanalysis``) over ``torch.cuda.max_memory_allocated``
+     above the bytes held before, for the wide-deep ``train_batch`` step
+     and road4000's ``serve_step`` at q = 1,024 (kernel 2 launched),
+     each within ``VS_CARD_RANGE``.  Phase 4's road4000 run also writes
+     its records with ``serve --json`` to a temporary history and reads
+     them back;
+ 13. the ``kernels`` JSON line (launches summed over the main paths of
      phases 4 and 6, the refresh epochs of phases 5 and 7, the live
      runs of phase 8 and the sharded path of phase 9, those of phases 8
      and 9 also apart as ``live_launches`` and ``sharded_launches``;
@@ -1099,21 +1123,28 @@ def _hub_check(g, dix, hubs, seed: int = 5) -> dict:
 
 
 def _main_path(graph: str, validate: int, sources=(), path_args=(),
-               n_hubs: int = 0) -> dict:
+               n_hubs: int = 0, json_out: bool = False) -> dict:
     """The main path through the serve CLI's entry points (build, then
-    warmup + batches + validation, then the ``--paths`` loop), then
+    warmup + batches + validation, then the ``--paths`` loop; with
+    ``json_out`` its records appended by ``--json`` to a temporary
+    history and read back), then
     ``serve_one_to_all`` from ``sources`` against Dijkstra and, with
     ``n_hubs`` seeded random hub nodes, the hub tier (``_hub_check``);
     kernel launches counted in between.  After the count, each
     one-to-all source is timed on its own (``_one_to_all_ms``)."""
+    import tempfile
+
     import numpy as np
+    from repro_torch import perflog
     from repro_torch.core import dijkstra
     from repro_torch.core.device_engine import serve_one_to_all
     from repro_torch.launch import serve
+    tmp = tempfile.TemporaryDirectory()
+    json_args = ("--json", f"{tmp.name}/serve.json") if json_out else ()
     args = serve.parse_args(["--graph", graph, "--batches", "5",
                              "--batch-size", "1024", "--validate",
                              str(validate), "--device", "cuda", "--paths",
-                             *path_args])
+                             *path_args, *json_args])
     g, ix = serve.build_host(args)
     hubs = (np.random.default_rng(11).choice(g.n, n_hubs, replace=False)
             if n_hubs else None)
@@ -1122,6 +1153,15 @@ def _main_path(graph: str, validate: int, sources=(), path_args=(),
     _BUILT[graph] = (g, dix)
     _HOST[graph] = (ix, plan, hubs)
     res = serve.serve(args, g, dix, summary, plan)
+    if args.json:
+        wrote = serve.write_records(args.json, serve.records(args, res))
+        back = perflog.read_records(args.json)
+        tmp.cleanup()
+        res["json_sections"] = [r["section"] for r in back]
+        if back != json.loads(json.dumps(wrote, default=str)) or res[
+                "json_sections"] != ["serve", "serve_paths"]:
+            raise AssertionError(f"{graph} --json: read back "
+                                 f"{res['json_sections']}")
     if n_hubs:
         res["hub"] = _hub_check(g, dix, hubs)
     bad_o2a = 0
@@ -2086,6 +2126,356 @@ def _train() -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phases 11-13: the sharded GNN forwards, the dry runs, meta against card
+# ---------------------------------------------------------------------------
+#: sharded == unsharded: at float32 the loss (tests/test_multidevice.py:113
+#: and :170); at float64 the loss and every gradient leaf (max |a - b|
+#: over max |b|), as the CPU tests hold them.  The float32 gradients are
+#: recorded against the float64 dense run, not held to the float32 dense
+#: run's bits: at these widths float32 rounding leaves some leaves only
+#: ~1e-4-1e-3 from float64 (dimenet's inner layers even on the CPU, where
+#: sharded and dense give the same bits), and the card sums its matmuls'
+#: and index_add's terms in another order in each layout
+GNN_RTOL = 1e-4
+
+#: the dry run's meta peak over the card's peak, both above the bytes
+#: held before the step
+VS_CARD_RANGE = (0.5, 2.0)
+#: processes of the background dry-run sweep (the host has 8 cores; the
+#: sweep runs at nice 19 beside the card phases)
+DRYRUN_WORKERS = 5
+DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun_torch"
+
+
+def _card():
+    """The card the phases run on (a CPU rehearsal patches this)."""
+    import torch
+    return torch.device("cuda", 0)
+
+
+def _gnn_layouts(arch: str, dims: dict, n_out: int, d_edge: int,
+                 seed: int = 17, shards: int = 4) -> tuple:
+    """(dense batch, owner batch for ``shards`` shards), numpy, at a
+    cell's dims.  graphcast: shard s owns nodes [s n/P, (s+1) n/P) and
+    e/P incoming edges, their sources uniform over all nodes.  dimenet:
+    molecules of n/G nodes, e/G edges (pairs both ways) and 2e/G
+    triplets within the molecule, whole molecules per shard.  The owner
+    batch is the dense one with ``edge_dst`` (and dimenet's triplets)
+    made shard-local; at one shard the two are the same."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n, e, df = dims["n_nodes"], dims["n_edges"], dims["d_feat"]
+    nl, el = n // shards, e // shards
+    f32, i32 = np.float32, np.int32
+    dense = {"node_feat": rng.standard_normal((n, df), f32)}
+    if arch == "graphcast":
+        dense["edge_src"] = rng.integers(0, n, e).astype(i32)
+        dense["edge_dst"] = (np.repeat(np.arange(shards), el) * nl
+                             + rng.integers(0, nl, e)).astype(i32)
+        dense["edge_feat"] = rng.standard_normal((e, d_edge), f32)
+        dense["target"] = rng.standard_normal((n, n_out), f32)
+        dense["loss_mask"] = (rng.random(n) < 0.9).astype(f32)
+    else:
+        g_ = dims["n_graphs"]
+        npg, epg = n // g_, e // g_
+        u = rng.integers(0, npg, (g_, epg // 2))
+        v = (u + 1 + rng.integers(0, npg - 1, (g_, epg // 2))) % npg
+        off = (np.arange(g_) * npg)[:, None]
+        dense["edge_src"] = (np.concatenate([u, v], 1) + off
+                             ).ravel().astype(i32)
+        dense["edge_dst"] = (np.concatenate([v, u], 1) + off
+                             ).ravel().astype(i32)
+        eoff = (np.arange(g_) * epg)[:, None]
+        tri = 2 * epg
+        dense["tri_edge_kj"] = (rng.integers(0, epg, (g_, tri)) + eoff
+                                ).ravel().astype(i32)
+        dense["tri_edge_ji"] = (rng.integers(0, epg, (g_, tri)) + eoff
+                                ).ravel().astype(i32)
+        dense["tri_angle"] = rng.uniform(0, np.pi, g_ * tri).astype(f32)
+        dense["edge_dist"] = rng.uniform(0.5, 3.0, e).astype(f32)
+        dense["graph_id"] = np.repeat(np.arange(g_), npg).astype(i32)
+        dense["target_g"] = rng.standard_normal(g_, f32)
+    owner = dict(dense)
+    owner["edge_dst"] = (dense["edge_dst"]
+                         - np.repeat(np.arange(shards), el) * nl).astype(i32)
+    if arch == "dimenet":
+        tl = dense["tri_edge_kj"].size // shards
+        for k in ("tri_edge_kj", "tri_edge_ji"):
+            owner[k] = (dense[k] - np.repeat(np.arange(shards), tl) * el
+                        ).astype(i32)
+    assert owner["edge_dst"].min() >= 0 and owner["edge_dst"].max() < nl
+    return dense, owner
+
+
+def _leaf_errs(got, want) -> list:
+    """Per gradient leaf: max |a - b| over max |b| (b's dtype)."""
+    from repro_torch.checkpoint.manager import tree_leaves
+    out = []
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        scale = float(b.abs().max()) or 1.0
+        out.append(float((a.to(b.dtype) - b).abs().max()) / scale)
+    return out
+
+
+def _gnn_case(arch: str, shape: str) -> dict:
+    """One published-width GNN cell on the card: the sharded loss and
+    gradients (owner layout, one-card mesh and ``cuda:0`` x 4) == the
+    unsharded ones (dense layout), at float32 the loss and at float64
+    the loss and every gradient (``GNN_RTOL``); then 3 steps of the cell's bf16 step
+    (``cells.build_cell`` on the one-card mesh): step s, peak MiB above
+    the bytes held before, finite losses."""
+    import dataclasses
+    import math
+
+    import torch
+    from repro_torch.checkpoint.manager import tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.cells import build_cell, gnn_cell_config
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import gnn
+    from repro_torch.models.common import Shardings
+    from repro_torch.optim import adamw_init
+    spec = get_arch(arch)
+    cell = spec.shape(shape)
+    cfg = gnn_cell_config(spec, cell)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    dense_np, owner_np = _gnn_layouts(arch, cell.dims, cfg.n_out,
+                                      cfg.d_edge)
+    dev = _card()
+
+    def on_card(b):
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    one = make_host_mesh((1, 1), device=dev.type)
+    x4 = Mesh((dev,) * 4, (2, 2), ("data", "model"))
+    res = {"arch": arch, "shape": shape, "dims": cell.dims,
+           "layers": cfg.n_layers, "d_hidden": cfg.d_hidden}
+    params = gnn.init_params(cfg32, torch.Generator(dev).manual_seed(3),
+                             dev)
+    runs = {}
+    dense_cfg = dataclasses.replace(cfg32, sharded=False)
+    for dt in (torch.float64, torch.float32):
+        for name, c, sh, batch in (
+                ("dense", dense_cfg, Shardings(None), dense_np),
+                ("one_card", cfg32, Shardings(one), dense_np),
+                ("cuda0_x4", cfg32, Shardings(x4), owner_np)):
+            base = _release()
+            b = on_card(batch)
+            p = params
+            if dt == torch.float64:
+                c = dataclasses.replace(c, dtype=dt)
+                b = {k: v.double() if v.is_floating_point() else v
+                     for k, v in b.items()}
+                p = tree_map(lambda w: w.double(), params)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = value_and_grad(
+                lambda pp, bb, c=c, sh=sh: gnn.forward_loss(c, sh, pp, bb),
+                p, b)
+            torch.cuda.synchronize()
+            runs[str(dt).removeprefix("torch."), name] = (
+                float(loss), grads, time.perf_counter() - t0,
+                (torch.cuda.max_memory_allocated() - base) / 2**20)
+            del b, p
+    truth_loss, truth = runs["float64", "dense"][:2]
+    for (dt, name), (loss, grads, sec, peak) in runs.items():
+        ref_loss, ref = runs[dt, "dense"][:2]
+        res.setdefault(dt, {})[name] = {
+            "loss": loss, "s": sec, "peak_mib": peak,
+            "loss_rel_err": abs(loss - ref_loss) / max(abs(ref_loss), 1e-30),
+            "grad_rel_err": max(_leaf_errs(grads, ref)),
+            "grad_rel_err_vs_float64": max(_leaf_errs(grads, truth))}
+    del runs, params, truth
+    # the cell's bf16 step, 3 times
+    bundle = build_cell(arch, shape, one)
+    params = gnn.init_params(cfg, torch.Generator(dev).manual_seed(4), dev)
+    opt = adamw_init(params)
+    b = on_card(dense_np)
+    steps_s, losses = [], []
+    base = _release()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = bundle.fn(params, opt, b)
+        losses.append(float(metrics["loss"]))
+        steps_s.append(time.perf_counter() - t0)
+    res["bf16_steps"] = {
+        "step_s": steps_s, "losses": losses,
+        "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20,
+        "base_mib": base / 2**20}
+    del params, opt, b
+    _release()
+    print(f"  {arch} {shape}: float64 {res['float64']}; float32 "
+          f"{res['float32']}; bf16 cell steps {res['bf16_steps']}")
+    bad = ([("float32", n) for n, r in res["float32"].items()
+            if r["loss_rel_err"] > GNN_RTOL]
+           + [("float64", n) for n, r in res["float64"].items()
+              if max(r["loss_rel_err"], r["grad_rel_err"]) > GNN_RTOL])
+    if bad or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{arch} {shape}: sharded != dense on {bad} "
+                             f"(rtol {GNN_RTOL}), or losses {losses}")
+    return res
+
+
+def _gnn_sharded() -> dict:
+    """Phase ``gnn_sharded``: graphcast (16 layers, d 512) at
+    ``minibatch_lg`` and dimenet (6 blocks, d 128) at ``molecule``
+    through ``_gnn_case``; no kernel of the port runs (counters zeroed
+    around it must read 0)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _reset_counts()
+    out = {"graphcast": _gnn_case("graphcast", "minibatch_lg"),
+           "dimenet": _gnn_case("dimenet", "molecule")}
+    out["launches"] = _read_counts()
+    if any(out["launches"].values()):
+        raise AssertionError(f"gnn_sharded launched kernels: "
+                             f"{out['launches']}")
+    return out
+
+
+def _start_dryrun():
+    """Start the dry-run sweep (``repro_torch.launch.dryrun --all --mesh
+    both``, every cell afresh into ``DRYRUN_OUT``) in its own session at
+    nice 19, with no card visible: it needs none (``meta``)."""
+    import os
+    import shutil
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    DRYRUN_OUT.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    log = open(DRYRUN_OUT / "sweep.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--mesh", "both", "--force", "--workers", str(DRYRUN_WORKERS),
+         "--out", str(DRYRUN_OUT)],
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+        start_new_session=True, preexec_fn=lambda: os.nice(19))
+    log.close()
+    return proc, time.perf_counter()
+
+
+def _stop(proc) -> None:
+    """Kill ``proc``'s session (the sweep and its pool) if it runs."""
+    import os
+    import signal
+    if proc is not None and proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def _dryrun(sweep) -> dict:
+    """Phase ``dryrun``: wait for the sweep (all 40 cells on the single
+    and multipod meshes); every record ``ok``; then
+    ``dryrun_disland`` on both meshes."""
+    import json as _json
+
+    from repro_torch.launch import dryrun, dryrun_disland
+    proc, t0 = sweep
+    rc = proc.wait(timeout=900)
+    wall = time.perf_counter() - t0
+    recs = []
+    for arch, shape in dryrun.all_cells():
+        for mesh in ("single", "multipod"):
+            path = DRYRUN_OUT / f"{arch}__{shape}__{mesh}.json"
+            recs.append(_json.loads(path.read_text()) if path.exists()
+                        else {"arch": arch, "shape": shape, "mesh": mesh,
+                              "ok": False, "error": "no record"})
+    disland = dryrun_disland.main(str(DRYRUN_OUT))
+    bad = [(r["arch"], r["shape"], r["mesh"], r.get("error"))
+           for r in recs if not r["ok"]]
+    longest = max(recs, key=lambda r: r.get("lower_s", 0))
+    out = {"rc": rc, "sweep_wall_s": wall, "cells": len(recs),
+           "ok": len(recs) - len(bad), "workers": DRYRUN_WORKERS,
+           "sum_run_s": sum(r.get("lower_s", 0) for r in recs),
+           "longest": [longest["arch"], longest["shape"], longest["mesh"],
+                       longest.get("lower_s")],
+           "disland": disland}
+    print(f"  dry run: {out['ok']}/{out['cells']} cells ok, sweep "
+          f"{wall:.1f}s wall ({DRYRUN_WORKERS} workers, nice 19, beside "
+          f"the phases since 'road64k_live'), {out['sum_run_s']:.1f}s of "
+          f"cell runs, longest {out['longest']}")
+    if rc or bad:
+        raise AssertionError(f"dry run: rc {rc}, failed cells {bad}")
+    return out
+
+
+def _peak_above(fn) -> int:
+    """Bytes ``fn()`` allocates at its peak on the card above what is
+    held before it (after one warm call)."""
+    import torch
+    fn()
+    base = _release()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _dryrun_vs_card() -> dict:
+    """Phase ``dryrun_vs_card``: the ``meta`` prediction of a step's
+    peak (``opanalysis``' ``peak_live_bytes``) against the card's
+    ``max_memory_allocated`` above the bytes held before the step, for
+    the wide-deep ``train_batch`` step (``cells.build_cell`` on a
+    one-card mesh) and road4000's ``serve_step`` at q = 1,024 (which
+    launches kernel 2, ``minplus_twoside_grouped``, counted); each
+    ratio within ``VS_CARD_RANGE``."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.core.device_engine import serve_step
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.opanalysis import analyze
+    from repro_torch.models import recsys
+    from repro_torch.optim import adamw_init
+    dev = _card()
+    out = {}
+    # wide-deep train_batch
+    bundle = build_cell("wide-deep", "train_batch",
+                        make_host_mesh((1, 1), device=dev.type))
+    meta = analyze(bundle.fn, *bundle.args).peak_live_bytes
+    cfg = get_arch("wide-deep").model_cfg
+    b = get_arch("wide-deep").shape("train_batch").dims["batch"]
+    params = recsys.init_params(cfg, torch.Generator(dev).manual_seed(5),
+                                dev)
+    opt = adamw_init(params)
+    gen = torch.Generator(dev).manual_seed(6)
+    batch = {"sparse_ids": torch.randint(
+        0, cfg.rows_per_field, (b, cfg.n_sparse, cfg.hots_per_field),
+        generator=gen, device=dev, dtype=torch.int32),
+        "dense": torch.randn((b, cfg.n_dense), generator=gen, device=dev),
+        "labels": torch.randint(0, 2, (b,), generator=gen, device=dev,
+                                dtype=torch.int32)}
+    card = _peak_above(lambda: bundle.fn(params, opt, batch))
+    out["wide_deep_train_batch"] = {"meta_bytes": meta, "card_bytes": card,
+                                    "ratio": meta / card}
+    del params, opt, batch, bundle
+    _release()
+    # road4000 serve_step at q = 1,024
+    g4, dix4 = _BUILT["road4000"]
+    dixm = convert.device_index_from_numpy(
+        convert.device_index_to_numpy(dix4), "meta")
+    rng = np.random.default_rng(8)
+    s = torch.from_numpy(rng.integers(0, g4.n, 1024)).to(dev)
+    t = torch.from_numpy(rng.integers(0, g4.n, 1024)).to(dev)
+    meta = analyze(serve_step, dixm, s.to("meta"), t.to("meta"))
+    _reset_counts()
+    card = _peak_above(lambda: serve_step(dix4, s, t))
+    launches = _read_counts()
+    out["road4000_serve_q1024"] = {
+        "meta_bytes": meta.peak_live_bytes, "card_bytes": card,
+        "ratio": meta.peak_live_bytes / card, "launches": launches}
+    print(f"  meta vs card: {out}")
+    bad = [k for k, r in out.items()
+           if not VS_CARD_RANGE[0] <= r["ratio"] <= VS_CARD_RANGE[1]]
+    if bad or not launches["minplus_twoside_grouped"]:
+        raise AssertionError(f"meta/card outside {VS_CARD_RANGE}: {bad}, "
+                             f"or kernel 2 not launched: {launches}")
+    return out
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2229,7 +2619,7 @@ def main() -> int:
         ("merge q=33 W=299 (scalar loads)", 33, 299, 0),
     ], slice3_cases))
     phase("small_reference", _small_reference)
-    phase("road4000", lambda: _main_path("road4000", 64))
+    phase("road4000", lambda: _main_path("road4000", 64, json_out=True))
     phase("road4000_levels", _level_differential)
     phase("road4000_refresh", _road4000_refresh)
     # road64k's path loop is one batch of 16: the host unwinder takes
@@ -2242,9 +2632,19 @@ def main() -> int:
         _grouped_cases(), grouped_cases))
     phase("road64k_refresh", _road64k_refresh)
     phase("road4000_live", _road4000_live)
-    phase("road64k_live", _road64k_live)
-    phase("sharded", _sharded)
-    phase("train", _train)
+    # the dry-run sweep needs no card: it runs at nice 19 in its own
+    # processes beside the phases from here on (none of them gated on
+    # time), and phase dryrun waits for it
+    sweep = _start_dryrun()
+    try:
+        phase("road64k_live", _road64k_live)
+        phase("sharded", _sharded)
+        phase("train", _train)
+        phase("gnn_sharded", _gnn_sharded)
+        phase("dryrun", lambda: _dryrun(sweep))
+    finally:
+        _stop(sweep[0])
+    phase("dryrun_vs_card", _dryrun_vs_card)
 
     report["fw_cases"], report["ts_cases"] = fw_cases, ts_cases
     report["new_cases"], report["slice3_cases"] = new_cases, slice3_cases

@@ -1602,12 +1602,13 @@ _CHUNK_BYTES = 64 << 20
 def _chunk(row: torch.Tensor, width: int) -> int:
     """Columns of ``row`` [q, mb] per step of the chunked gather loops.
     The CPU keeps the reference's 8, which bounds its intermediates; on
-    the card each step costs a handful of launches whatever its size,
-    so a step takes as many columns (a multiple of 8) as keep the
-    gathered [q, c, width] block under _CHUNK_BYTES.  The chunking only
-    regroups a min, so every width gives the same bits."""
+    the card (and on ``meta``, which stands for it in the dry runs) each
+    step costs a handful of launches whatever its size, so a step takes
+    as many columns (a multiple of 8) as keep the gathered [q, c, width]
+    block under _CHUNK_BYTES.  The chunking only regroups a min, so
+    every width gives the same bits."""
     q, mb = row.shape
-    if row.device.type != "cuda":
+    if row.device.type not in ("cuda", "meta"):
         return min(8, mb)
     c = _CHUNK_BYTES // max(1, 4 * q * width) // 8 * 8
     return max(min(8, mb), min(mb, c))

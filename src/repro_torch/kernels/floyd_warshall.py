@@ -122,11 +122,40 @@ def _check(d: torch.Tensor, kernel: str = "fw_next") -> tuple[int, int]:
     return d.shape[0], d.shape[1]
 
 
+#: k-block of the blocked witness FW (FWB_B in fw_next.cu's default
+#: build)
+FWB_B = 32
+
+
+def blocked_scratch_bytes(b: int, n: int) -> int:
+    """Bytes of scratch ``fw_next_blocked`` takes for b matrices of n
+    nodes at the default k-block (``fw_next_blocked_scratch`` in the
+    .cu): C^T, CN^T and R [b, B, n] and the closed pivot tile f32 + i32
+    [b, B, B]."""
+    return b * (3 * FWB_B * n + 2 * FWB_B * FWB_B) * 4
+
+
+def next_buffers(d: torch.Tensor, scratch_bytes: int = 0) -> tuple:
+    """What the witness FW's wrappers allocate -> (dist, nxt, scratch):
+    dist like d, nxt int32, and ``scratch_bytes`` of scratch (None for
+    0).  Shared by the CUDA wrappers and ``ops``' meta route."""
+    dist = torch.empty_like(d)
+    nxt = torch.empty(d.shape, dtype=torch.int32, device=d.device)
+    scratch = (torch.empty(scratch_bytes, dtype=torch.uint8,
+                           device=d.device) if scratch_bytes else None)
+    return dist, nxt, scratch
+
+
+def dist_out(d: torch.Tensor) -> torch.Tensor:
+    """The output ``fw_batch_cuda`` allocates when given none (shared
+    with ``ops``' meta route)."""
+    return torch.empty_like(d, memory_format=torch.contiguous_format)
+
+
 def _launch(entry: str, d: torch.Tensor, *extra: int
             ) -> tuple[torch.Tensor, torch.Tensor]:
     b, n = _check(d)
-    dist = torch.empty_like(d)
-    nxt = torch.empty(d.shape, dtype=torch.int32, device=d.device)
+    dist, nxt, _ = next_buffers(d)
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(_lib(), entry)(d.data_ptr(), dist.data_ptr(),
@@ -162,10 +191,7 @@ def fw_next_blocked_cuda(d: torch.Tensor) -> tuple[torch.Tensor,
     from ``torch.empty`` (the kernel allocates nothing)."""
     b, n = _check(d)
     lib = _lib()
-    dist = torch.empty_like(d)
-    nxt = torch.empty(d.shape, dtype=torch.int32, device=d.device)
-    scratch = torch.empty(lib.fw_next_blocked_scratch(b, n),
-                          dtype=torch.uint8, device=d.device)
+    dist, nxt, scratch = next_buffers(d, lib.fw_next_blocked_scratch(b, n))
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fw_next_blocked(d.data_ptr(), dist.data_ptr(),
@@ -219,7 +245,7 @@ def fw_batch_cuda(d: torch.Tensor, out: torch.Tensor | None = None
     and one launch a pivot the rest."""
     b, n = _check_rows(d, "fw_dist")
     if out is None:
-        out = torch.empty_like(d, memory_format=torch.contiguous_format)
+        out = dist_out(d)
     elif _check_rows(out, "fw_dist") != (b, n) or out.device != d.device:
         raise ValueError(f"fw_dist kernel: out is {tuple(out.shape)} on "
                          f"{out.device}, expected {tuple(d.shape)} on "
@@ -333,7 +359,9 @@ def fw_blocked(d: torch.Tensor, *, block: int | None = None, force=None
     pad[:n, :n] = d
     pad.fill_diagonal_(0.0)
     steps = blocked_steps(np_, block)
-    if ops.use_kernel(pad.device, force):
+    if pad.device.type == "meta" and force != "ref":
+        pass                       # in place on the card: nothing allocated
+    elif ops.use_kernel(pad.device, force):
         _blocked_cuda(pad, steps, block)
     else:
         def view(w):

@@ -29,6 +29,13 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def merge_out(labs: torch.Tensor) -> torch.Tensor:
+    """The [q] float32 output ``label_merge_cuda`` allocates (shared with
+    ``ops``' meta route)."""
+    return torch.empty((labs.shape[0],), dtype=torch.float32,
+                       device=labs.device)
+
+
 def label_merge_cuda(labs: torch.Tensor, labt: torch.Tensor) -> torch.Tensor:
     """labs, labt [q, W] (float32, contiguous, on one CUDA device) ->
     out [q]."""
@@ -46,7 +53,7 @@ def label_merge_cuda(labs: torch.Tensor, labt: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"label_merge kernel: shapes {tuple(labs.shape)} "
                          f"and {tuple(labt.shape)} differ")
     q, w = labs.shape
-    out = torch.empty((q,), dtype=torch.float32, device=labs.device)
+    out = merge_out(labs)
     with torch.cuda.device(labs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().label_merge(labs.data_ptr(), labt.data_ptr(),

@@ -119,13 +119,21 @@ def _run(entry: str, out: torch.Tensor, *ptrs, m: int, n: int,
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
 
+def product_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The [m, n] float32 output ``minplus_cuda`` and
+    ``minplus_accum_cuda`` allocate for a [m, k] x [k, n] product (shared
+    with ``ops``' meta route)."""
+    return torch.empty((a.shape[0], b.shape[1]), dtype=torch.float32,
+                       device=a.device)
+
+
 def minplus_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [m, k], b [k, n] (float32, contiguous, one CUDA device) ->
     c [m, n] = a (x) b, through the entry ``route`` names."""
     _check("minplus", a, a=a, b=b)
     m, n, k = _shapes("minplus", a, b)
     name, sw = route(m, k, n)
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    out = product_out(a, b)
     _run(name, out, a.data_ptr(), b.data_ptr(), m=m, n=n, k=k,
          extra=(sw,) if name == "minplus_gemv" else ())
     minplus_cuda.launches += 1
@@ -140,7 +148,7 @@ def minplus_accum_cuda(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     if tuple(c.shape) != (m, n):
         raise ValueError(f"minplus_accum kernel: c is {tuple(c.shape)}, "
                          f"expected {(m, n)}")
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    out = product_out(a, b)
     _run("minplus_accum", out, c.data_ptr(), a.data_ptr(), b.data_ptr(),
          m=m, n=n, k=k)
     minplus_accum_cuda.launches += 1

@@ -138,6 +138,23 @@ def grouped_splits(q: int, ms: int, mt: int) -> int:
     return -(-xt // per)
 
 
+def grouped_buffers(q: int, ms: int, mt: int, ns: int, nt: int, device
+                    ) -> tuple:
+    """The grouped kernel's launch (``grouped_plan``) and what its
+    wrapper allocates -> (regime, order, splits, out [q] float32, buf):
+    in the warp regime ``out`` alone (``buf`` None); in the tiles regime
+    one scratch buffer ``buf``, the order (int64) first, then the
+    answers (``out``, a view) and the partials (float32).  Shared by the
+    CUDA wrapper and ``ops``' meta route."""
+    regime, order, splits = grouped_plan(q, ms, mt, ns, nt)
+    if regime == "warp":
+        return (regime, order, splits,
+                torch.empty(q, dtype=torch.float32, device=device), None)
+    parts = -(-mt // Y_TILE) * splits
+    buf = torch.empty(4 * q * (3 + parts), dtype=torch.uint8, device=device)
+    return regime, order, splits, buf[8 * q:].view(torch.float32)[:q], buf
+
+
 def _grouped(row_s, gs, tab_s, d, row_t, gt, tab_t) -> torch.Tensor:
     """Launch the grouped kernel; ``gs``/``gt`` None is table row 0 for
     every query, ``tab_s``/``tab_t`` None the identity table."""
@@ -167,28 +184,21 @@ def _grouped(row_s, gs, tab_s, d, row_t, gt, tab_t) -> torch.Tensor:
             f"{None if tab_t is None else tuple(tab_t.shape)} do not chain")
     ns = 1 if tab_s is None else tab_s.shape[0]
     nt = 1 if tab_t is None else tab_t.shape[0]
-    regime, order, splits = grouped_plan(q, ms, mt, ns, nt)
+    regime, order, splits, out, buf = grouped_buffers(q, ms, mt, ns, nt,
+                                                      dev)
     ptr = [0 if x is None else x.data_ptr()
            for x in (row_s, gs, tab_s, d, row_t, gt, tab_t)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if regime == "warp":
-            out = torch.empty(q, dtype=torch.float32, device=dev)
             err = _lib().minplus_twoside_grouped_warp(
                 ptr[0], ptr[1], ptr[2], ms, ptr[3], k2, ptr[4], ptr[5],
                 ptr[6], mt, out.data_ptr(), q, stream)
         else:
-            # one scratch buffer: the order (int64) first, then the
-            # answers and the partials (float32)
-            parts = -(-mt // Y_TILE) * splits
-            buf = torch.empty(4 * q * (3 + parts), dtype=torch.uint8,
-                              device=dev)
-            f32 = buf[8 * q:].view(torch.float32)
-            out = f32[:q]
             err = _lib().minplus_twoside_grouped_tiles(
                 ptr[0], ptr[1], ptr[2], ms, ptr[3], k2, ptr[4], ptr[5],
                 ptr[6], mt, nt, ns * nt if order else 1, buf.data_ptr(),
-                f32[q:].data_ptr(), out.data_ptr(), q, splits, stream)
+                out.data_ptr() + 4 * q, out.data_ptr(), q, splits, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
     return out
@@ -239,6 +249,25 @@ def x_splits(q: int, k1: int, k2: int) -> int:
     return -(-xt // per)
 
 
+def argmin_buffers(q: int, k1: int, k2: int, device) -> tuple:
+    """What the witness kernel's wrapper allocates -> (splits, parts,
+    scratch, res): ``x_splits``, the partials' count, one scratch buffer
+    (packed witnesses int64 first, then values) and the int32 [3, q]
+    result.  Shared by the CUDA wrapper and ``ops``' meta route."""
+    splits = x_splits(q, k1, k2)
+    parts = q * -(-k2 // Y_TILE) * splits
+    scratch = torch.empty(12 * parts, dtype=torch.uint8, device=device)
+    res = torch.empty((3, q), dtype=torch.int32, device=device)
+    return splits, parts, scratch, res
+
+
+def argmin_outputs(res: torch.Tensor) -> tuple:
+    """(out float32 [q], wx [q], wy [q]): the rows of the int32 [3, q]
+    result, out viewed as float32."""
+    out, wx, wy = res.unbind(0)
+    return out.view(torch.float32), wx, wy
+
+
 def minplus_twoside_argmin_cuda(rows: torch.Tensor, d: torch.Tensor,
                                 rowt: torch.Tensor
                                 ) -> tuple[torch.Tensor, torch.Tensor,
@@ -250,11 +279,7 @@ def minplus_twoside_argmin_cuda(rows: torch.Tensor, d: torch.Tensor,
     (partials, then the finish on the card); out, wx and wy are rows of
     one int32 [3, q] buffer, out viewed as float32."""
     q, k1, k2 = _check("minplus_twoside_argmin", rows, d, rowt)
-    splits = x_splits(q, k1, k2)
-    parts = q * -(-k2 // Y_TILE) * splits
-    # one scratch buffer: packed witnesses (int64) first, then values
-    scratch = torch.empty(12 * parts, dtype=torch.uint8, device=rows.device)
-    res = torch.empty((3, q), dtype=torch.int32, device=rows.device)
+    splits, parts, scratch, res = argmin_buffers(q, k1, k2, rows.device)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
         base = scratch.data_ptr()
@@ -266,8 +291,7 @@ def minplus_twoside_argmin_cuda(rows: torch.Tensor, d: torch.Tensor,
         raise RuntimeError(f"minplus_twoside_argmin launch failed: CUDA "
                            f"error {err}")
     minplus_twoside_argmin_cuda.launches += 1
-    out, wx, wy = res.unbind(0)
-    return out.view(torch.float32), wx, wy
+    return argmin_outputs(res)
 
 
 minplus_twoside_argmin_cuda.launches = 0

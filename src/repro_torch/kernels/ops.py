@@ -7,7 +7,13 @@ place of JAX's backend query.  The tensor decides:
     version instead, so a caller can hold the two against each other on
     the card);
   * a CPU tensor runs the plain version; ``force="kernel"`` on a CPU
-    tensor raises, since a CUDA kernel has no CPU or interpret mode.
+    tensor raises, since a CUDA kernel has no CPU or interpret mode;
+  * a ``meta`` tensor takes the card's route without a card: each op
+    returns, as empty ``meta`` tensors, the outputs the CUDA wrapper
+    allocates (its workspace allocated beside them and dropped, as on
+    the card), and launches nothing.  The dry runs
+    (``launch/dryrun*.py``) count a step's memory this way;
+    ``force="ref"`` on ``meta`` runs the plain version instead.
 
 No path falls back from the kernel to the plain version: a kernel that
 fails to build or launch raises.
@@ -19,11 +25,14 @@ from typing import Literal, Optional
 import torch
 
 from . import ref as _ref
-from .floyd_warshall import fw_batch_cuda, fw_batch_next_cuda, fw_blocked
-from .label_merge import label_merge_cuda
+from .floyd_warshall import (blocked_scratch_bytes, dist_out, fw_batch_cuda,
+                             fw_batch_next_cuda, fw_blocked, next_buffers,
+                             route as fw_route)
+from .label_merge import label_merge_cuda, merge_out
 from .minplus import (minplus_accum_cuda, minplus_accum_into_cuda,
-                      minplus_accum_panels_cuda, minplus_cuda)
-from .minplus_twoside import (minplus_twoside_argmin_cuda,
+                      minplus_accum_panels_cuda, minplus_cuda, product_out)
+from .minplus_twoside import (argmin_buffers, argmin_outputs,
+                              grouped_buffers, minplus_twoside_argmin_cuda,
                               minplus_twoside_cuda,
                               minplus_twoside_grouped_cuda)
 
@@ -31,13 +40,14 @@ Force = Optional[Literal["kernel", "ref"]]
 
 
 def use_kernel(device: torch.device | str, force: Force = None) -> bool:
-    """The dispatch decision for tensors on ``device``."""
+    """The dispatch decision for tensors on ``device``: True where the
+    card's route runs (a CUDA or a ``meta`` device)."""
     if force not in (None, "kernel", "ref"):
         raise ValueError(f"force must be None, 'kernel' or 'ref': "
                          f"{force!r}")
     if force == "ref":
         return False
-    if torch.device(device).type == "cuda":
+    if torch.device(device).type in ("cuda", "meta"):
         return True
     if force == "kernel":
         raise ValueError(f"force='kernel' needs CUDA tensors; got "
@@ -45,12 +55,27 @@ def use_kernel(device: torch.device | str, force: Force = None) -> bool:
     return False
 
 
+def _route(x: torch.Tensor, force: Force) -> str:
+    """"kernel", "meta" (the kernel's allocations, nothing launched) or
+    "ref" for an op on ``x``'s device."""
+    if not use_kernel(x.device, force):
+        return "ref"
+    return "meta" if x.device.type == "meta" else "kernel"
+
+
 def fw_batch_next(d: torch.Tensor, *, force: Force = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Witness-carrying batched APSP over [b, n, n] -> (dist, nxt);
     nxt[b, i, j] = first hop of a shortest i -> j path (-1: unreachable
     or diagonal)."""
-    if use_kernel(d.device, force):
+    r = _route(d, force)
+    if r == "meta":
+        b, n = d.shape[0], d.shape[-1]
+        blocked = fw_route(n)[0] == "fw_next_blocked"
+        dist, nxt, _ = next_buffers(
+            d, blocked_scratch_bytes(b, n) if blocked else 0)
+        return dist, nxt
+    if r == "kernel":
         return fw_batch_next_cuda(d)
     return _ref.fw_batch_next_ref(d)
 
@@ -67,7 +92,11 @@ def minplus_twoside(rows: torch.Tensor, d: torch.Tensor,
                     ) -> torch.Tensor:
     """Fused two-sided contraction: out[q] = min_{x,y} rows[q,x]
     + d[x,y] + rowt[q,y], never forming the [q, x, y] cube."""
-    if use_kernel(rows.device, force):
+    r = _route(rows, force)
+    if r == "meta":
+        return grouped_buffers(rows.shape[0], rows.shape[1], rowt.shape[1],
+                               1, 1, rows.device)[3]
+    if r == "kernel":
         return minplus_twoside_cuda(rows, d, rowt)
     return _ref.minplus_twoside_ref(rows, d, rowt)
 
@@ -81,7 +110,12 @@ def minplus_twoside_grouped(row_s: torch.Tensor, gs: torch.Tensor,
     out[q] = min_{i,j} row_s[q,i] + d[tab_s[gs[q],i], tab_t[gt[q],j]]
     + row_t[q,j], equal to scattering each row at its ids and running
     ``minplus_twoside`` on the dense rows."""
-    if use_kernel(row_s.device, force):
+    r = _route(row_s, force)
+    if r == "meta":
+        return grouped_buffers(row_s.shape[0], row_s.shape[1],
+                               row_t.shape[1], tab_s.shape[0],
+                               tab_t.shape[0], row_s.device)[3]
+    if r == "kernel":
         return minplus_twoside_grouped_cuda(row_s, gs, tab_s, d, row_t, gt,
                                             tab_t)
     return _ref.minplus_twoside_grouped_ref(row_s, gs, tab_s, d, row_t, gt,
@@ -95,7 +129,11 @@ def minplus_twoside_argmin(rows: torch.Tensor, d: torch.Tensor,
     """Witness-returning twoside contraction -> (out, wx, wy): the
     winning (x, y) pair beside each minimum (the smallest y, then the
     smallest x), -1 where out is +inf."""
-    if use_kernel(rows.device, force):
+    r = _route(rows, force)
+    if r == "meta":
+        return argmin_outputs(argmin_buffers(rows.shape[0], rows.shape[1],
+                                             d.shape[1], rows.device)[3])
+    if r == "kernel":
         return minplus_twoside_argmin_cuda(rows, d, rowt)
     return _ref.minplus_twoside_argmin_ref(rows, d, rowt)
 
@@ -103,7 +141,10 @@ def minplus_twoside_argmin(rows: torch.Tensor, d: torch.Tensor,
 def label_merge(labs: torch.Tensor, labt: torch.Tensor, *,
                 force: Force = None) -> torch.Tensor:
     """Hub-label merge: out[q] = min_j labs[q, j] + labt[q, j]."""
-    if use_kernel(labs.device, force):
+    r = _route(labs, force)
+    if r == "meta":
+        return merge_out(labs)
+    if r == "kernel":
         return label_merge_cuda(labs, labt)
     return _ref.label_merge_ref(labs, labt)
 
@@ -111,7 +152,10 @@ def label_merge(labs: torch.Tensor, labt: torch.Tensor, *,
 def minplus(a: torch.Tensor, b: torch.Tensor, *, force: Force = None
             ) -> torch.Tensor:
     """Tropical GEMM: C[i, j] = min_k A[i, k] + B[k, j]."""
-    if use_kernel(a.device, force):
+    r = _route(a, force)
+    if r == "meta":
+        return product_out(a, b)
+    if r == "kernel":
         return minplus_cuda(a, b)
     return _ref.minplus_ref(a, b)
 
@@ -119,7 +163,10 @@ def minplus(a: torch.Tensor, b: torch.Tensor, *, force: Force = None
 def minplus_accum(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
                   force: Force = None) -> torch.Tensor:
     """min(C, A (x) B), in a new tensor."""
-    if use_kernel(a.device, force):
+    r = _route(a, force)
+    if r == "meta":
+        return product_out(a, b)
+    if r == "kernel":
         return minplus_accum_cuda(c, a, b)
     return _ref.minplus_accum_ref(c, a, b)
 
@@ -131,7 +178,10 @@ def minplus_accum_into(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     [skip_rows) and columns in [skip_cols); on the card A and B may
     share C's memory only in its skipped cells, as in the blocked FW's
     phase 3 (``minplus_accum_into_cuda``)."""
-    if use_kernel(a.device, force):
+    r = _route(a, force)
+    if r == "meta":
+        return c                       # in place: nothing allocated
+    if r == "kernel":
         return minplus_accum_into_cuda(c, a, b, skip_rows=skip_rows,
                                        skip_cols=skip_cols)
     return _ref.minplus_accum_into_ref(c, a, b, skip_rows=skip_rows,
@@ -144,10 +194,11 @@ def minplus_accum_panels(row, col, *, skip_cols=(0, 0), skip_rows=(0, 0),
     row panel ``row`` = (c, a, b) with ``skip_cols`` and on the column
     panel ``col`` with ``skip_rows``, where the row panel's C may be its
     B and the column panel's C its A (``minplus_accum_panels_cuda``)."""
-    if use_kernel(row[0].device, force):
+    r = _route(row[0], force)
+    if r == "kernel":
         minplus_accum_panels_cuda(row, col, skip_cols=skip_cols,
                                   skip_rows=skip_rows)
-    else:
+    elif r == "ref":                   # meta: in place, nothing allocated
         _ref.minplus_accum_panels_ref(row, col, skip_cols=skip_cols,
                                       skip_rows=skip_rows)
 
@@ -156,7 +207,10 @@ def fw_batch(d: torch.Tensor, *, out: torch.Tensor | None = None,
              force: Force = None) -> torch.Tensor:
     """Distance-only batched APSP over [b, n, n] (diagonal forced to 0),
     into ``out`` when given (which may be ``d``)."""
-    if use_kernel(d.device, force):
+    r = _route(d, force)
+    if r == "meta":
+        return dist_out(d) if out is None else out
+    if r == "kernel":
         return fw_batch_cuda(d, out)
     dist = _ref.fw_batch_ref(d)
     return dist if out is None else out.copy_(dist)

@@ -75,8 +75,14 @@ record as one JSON line each.  The engine is built through the host
 build's streaming handoff (``EpochedEngine(build_workers=)``).
 ``--metrics-out``/``--metrics-port`` export the runtime's registry,
 ``--trace-out`` writes the build, refresh and per-request spans as a
-Chrome trace.  The port writes no ``BENCH_*.json`` (the reference's
-``--json`` and ``perflog`` do not carry over).
+Chrome trace.
+
+``--json PATH`` (default off) appends the run's records to the history
+at PATH (``repro_torch.perflog``): ``serve``, ``serve_paths``,
+``refresh`` (one an epoch) and ``serve_live``/``serve_refresh``, each
+printed first beside the previous record of its section and graph
+(``perflog.latest``).  The port never writes the reference's
+``BENCH_serve.json``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --nodes 900 --live --rate 500 --live-seconds 1 \
@@ -105,6 +111,7 @@ from ..core.paths import PathUnwinder, path_weight
 from ..core.supergraph import build_index, index_arrays_equal, reweight_index
 from ..data.roads import road_preset
 from ..obs import trace
+from ..perflog import append_records, latest
 from ..runtime import StragglerMonitor
 from .mesh import make_host_mesh
 
@@ -236,6 +243,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                      help="serve live Prometheus text at "
                           "127.0.0.1:PORT/metrics during --live "
                           "(0 disables)")
+    obs.add_argument("--json", default="",
+                     help="append the run's records to this JSON "
+                          "history ('' disables: the default)")
     obs.add_argument("--trace-out", default="",
                      help="enable tracing spans and write the Chrome-"
                           "trace JSON here at exit (build, refresh, "
@@ -893,7 +903,60 @@ def run(args: argparse.Namespace) -> dict:
         g, dix, plan, summary = build(args)
         res = serve(args, g, dix, summary, plan)
     _write_trace(args)
+    if args.json:
+        write_records(args.json, records(args, res))
     return res
+
+
+#: what identifies "the same run" of a section when the previous record
+#: is looked up
+_PREV_KEYS = {"serve": ("graph", "mode"), "serve_paths": ("graph",),
+              "refresh": ("graph",), "serve_live": ("graph", "mix",
+                                                     "rate_qps", "cache",
+                                                     "refresh"),
+              "serve_refresh": ("graph", "mix", "rate_qps")}
+
+
+def records(args: argparse.Namespace, res: dict) -> list:
+    """The run's records, as ``run`` returns them in ``res``: one
+    ``serve`` record (the offline batches), one ``serve_paths`` a path
+    loop, one ``refresh`` an update round, and the live records; each
+    with its ``section``, ``graph`` and ``device``."""
+    graph = args.graph or f"road{args.nodes}"
+    base = {"graph": graph, "device": res.get("device")}
+    out = []
+    if "median_batch_ms" in res:
+        out.append({"section": "serve", **base, "mode": res["mode"],
+                    "batch_size": args.batch_size,
+                    **{k: res[k] for k in (
+                        "median_batch_ms", "us_per_query", "warmup_s",
+                        "peak_device_mb", "mismatches", "host_build_s",
+                        "device_build_s", "S", "overlay")}})
+    for key in ("paths", "paths_last_epoch"):
+        if key in res:
+            out.append({"section": "serve_paths", **base,
+                        "last_epoch": key == "paths_last_epoch",
+                        **res[key]})
+    for rec in res.get("refresh", ()):
+        out.append({"section": "refresh", **base, **rec})
+    live = res.get("live")
+    if live:
+        out += [r for r in (live["serve_live"], live["serve_refresh"]) if r]
+    return out
+
+
+def write_records(path: str, recs: list) -> list:
+    """Print each record's previous one (``perflog.latest`` over its
+    section's keys), then append ``recs`` to the history at ``path``."""
+    for rec in recs:
+        keys = _PREV_KEYS.get(rec["section"], ("graph",))
+        prev = latest(path, section=rec["section"],
+                      **{k: rec.get(k) for k in keys})
+        print(f"previous {rec['section']} record: "
+              f"{json.dumps(prev, default=str) if prev else None}")
+    append_records(path, json.loads(json.dumps(recs, default=str)))
+    print(f"{len(recs)} record(s) appended to {path}")
+    return recs
 
 
 def failures(res: dict) -> int:

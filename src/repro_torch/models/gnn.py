@@ -12,9 +12,18 @@ segment softmax over incoming edges (``scatter_reduce("amax")`` from
 -inf for the segment max, as ``jax.ops.segment_max`` leaves an empty
 segment at -inf).
 
-The reference's two ``shard_map`` forwards (graphcast and dimenet with
-``cfg.sharded`` on a mesh) come with ``launch/cells.py`` in a later
-slice (``ROADMAP.md`` queue 1); ``forward_loss`` refuses that case.
+With ``cfg.sharded`` on a mesh, ``forward_loss`` routes graphcast and
+dimenet to the reference's ``shard_map`` forwards with owner-computes
+edge partitioning (``forward_graphcast_sharded``,
+``forward_dimenet_sharded``): the batch arrays are split over every
+mesh axis, one halo ``all_gather`` crosses shards per layer and one
+``psum`` at the end (``launch/mesh.py``).  On one controller the shards
+that share a device run there as one batch: their node and edge rows
+side by side, each shard's shard-local ids offset to its rows, so every
+shard computes exactly what it would alone and the per-device program
+is the same however many shards share the device (all 256 of the
+``meta`` production mesh, four on a card repeated four times, one on
+each of several cards).
 """
 from __future__ import annotations
 
@@ -26,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..checkpoint.manager import tree_map
+from ..launch.mesh import all_gather, psum
 from .common import Shardings
 
 
@@ -45,7 +56,8 @@ class GNNConfig:
     n_bilinear: int = 8
     n_out: int = 1
     dtype: Any = torch.float32
-    # the reference's shard_map message passing (not ported yet)
+    # sharded (shard_map) message passing: node/edge arrays stay sharded;
+    # per-layer all_gather(h) replaces the replicated gathers
     sharded: bool = False
 
     def flat_axes(self, sh: Shardings):
@@ -333,11 +345,238 @@ def _masked_ce(logits, labels, mask):
     return torch.sum(ce * m) / torch.clamp(m.sum(), min=1.0)
 
 
+# ---------------------------------------------------------------------------
+# shard_map message passing (src/repro/models/gnn.py:319-473)
+# ---------------------------------------------------------------------------
+def _ckpt(fn, *args):
+    """``jax.checkpoint(fn)(*args)``: recomputed in the backward pass
+    when autograd records, a plain call otherwise."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+@dataclasses.dataclass
+class _Group:
+    """The shards of the flattened mesh that share one device, by id in
+    shard order (a shard's rank in the group is its position)."""
+    device: torch.device
+    shards: list
+
+    @property
+    def size(self) -> int:
+        return len(self.shards)
+
+    def rows(self, x: torch.Tensor, n_shards: int) -> torch.Tensor:
+        """The group's shards' slices of ``x`` (split in ``n_shards``
+        along dim 0), side by side, on the group's device: a view when
+        they are consecutive."""
+        per = x.shape[0] // n_shards
+        lo, hi = self.shards[0], self.shards[-1] + 1
+        if hi - lo == self.size:
+            part = x[lo * per:hi * per]
+        else:
+            part = torch.cat([x[i * per:(i + 1) * per] for i in self.shards])
+        return part.to(self.device)
+
+    def offsets(self, per_shard: int, stride: int) -> torch.Tensor:
+        """[size * per_shard] int64: rank * stride for each of the
+        group's rows (``per_shard`` rows a shard)."""
+        return (torch.arange(self.size, device=self.device)
+                .repeat_interleave(per_shard) * stride)
+
+
+def _groups(mesh, axes) -> tuple[list, int]:
+    """-> (the groups of shards over ``axes`` by device, in order of
+    first appearance; the shard count)."""
+    devices = mesh.shard_devices(axes)
+    by_dev: dict = {}
+    for i, dev in enumerate(devices):
+        by_dev.setdefault(dev, []).append(i)
+    return [_Group(d, ids) for d, ids in by_dev.items()], len(devices)
+
+
+def _check_split(batch: Dict, keys, n_shards: int) -> None:
+    for k in keys:
+        if batch[k].shape[0] % n_shards:
+            raise ValueError(f"sharded forward: {k} has {batch[k].shape[0]} "
+                             f"rows, not a multiple of the {n_shards} "
+                             f"shards")
+
+
+def _per_shard(groups, values, n_shards: int) -> list:
+    """Each group's [size, ...] tensor -> one tensor a shard, in shard
+    order (views)."""
+    out = [None] * n_shards
+    for g, v in zip(groups, values):
+        for i, part in zip(g.shards, torch.unbind(v, 0)):
+            out[i] = part
+    return out
+
+
+def _replicas(groups, params: Dict) -> list:
+    """The replicated parameters on each group's device (``to``: the
+    gradient flows back to ``params``)."""
+    return [tree_map(lambda w: w.to(g.device), params) for g in groups]
+
+
+def _gather_h(hs, groups, n_shards: int, mesh, axes) -> list:
+    """The tiled all_gather of the groups' node rows: one [N, d] copy on
+    each group's device."""
+    parts = _per_shard(groups, [h.reshape(g.size, -1, h.shape[-1])
+                                for g, h in zip(groups, hs)], n_shards)
+    full = all_gather(parts, mesh, axes)
+    return [full[g.shards[0]] for g in groups]
+
+
+def forward_graphcast_sharded(cfg: GNNConfig, sh: Shardings, params: Dict,
+                              batch: Dict) -> torch.Tensor:
+    """Graphcast with owner-computes edge partitioning.
+
+    Input contract (the reference's): each shard owns N/P nodes and
+    their *incoming* edges; ``edge_dst`` is shard-local, ``edge_src`` is
+    global.  Per layer the only collective is one tiled all_gather of
+    the node state for the src halo; aggregation is a local segment sum.
+    Edge work runs in ``n_chunks`` checkpointed chunks (4 when the
+    shard's edge count, the global count // mesh.size, divides by 4),
+    layers in checkpointed blocks of 4 (each layer checkpointed too);
+    the loss is the psum of (sse, cnt)."""
+    axes = cfg.flat_axes(sh)
+    mesh = sh.mesh
+    groups, P = _groups(mesh, axes)
+    _check_split(batch, ("node_feat", "edge_src", "edge_dst", "edge_feat",
+                         "target", "loss_mask"), P)
+    nl = batch["node_feat"].shape[0] // P
+    e_local = batch["edge_src"].shape[0] // mesh.size
+    n_chunks = 4 if e_local % 4 == 0 else 1
+    ws = _replicas(groups, params)
+    srcs, dsts, hs, es = [], [], [], []
+    for g, w in zip(groups, ws):
+        srcs.append(g.rows(batch["edge_src"], P).long())
+        dsts.append(g.rows(batch["edge_dst"], P).long()
+                    + g.offsets(e_local, nl))
+        hs.append(_mlp(w["enc_node"],
+                       g.rows(batch["node_feat"], P).to(cfg.dtype)))
+        es.append(_mlp(w["enc_edge"],
+                       g.rows(batch["edge_feat"], P).to(cfg.dtype)))
+
+    def chunk(agg, h_full, h, lw, s_, d_, e_):
+        msg = torch.cat([e_, _take(h_full, s_), _take(h, d_)], -1)
+        e2_ = e_ + _mlp(lw["edge_mlp"], msg)
+        return agg + _segment_sum(e2_, d_, agg.shape[0]), e2_
+
+    G = len(groups)
+
+    # the carries go to checkpoint as tensor arguments, never inside a
+    # list: checkpoint keeps a non-tensor argument by reference, so a
+    # list would hold every layer's carry alive through the backward pass
+    def layer(li, *carry):
+        hs, es = carry[:G], carry[G:]
+        fulls = _gather_h(hs, groups, P, mesh, axes)
+        h2s, e2s = [], []
+        for g, w, h_full, h, e, src, dst in zip(groups, ws, fulls, hs, es,
+                                                srcs, dsts):
+            lw = {k: {n: x[li] for n, x in v.items()}
+                  for k, v in w["layers"].items()}
+            d = h.shape[-1]
+            # chunk c of the group: chunk c of each of its shards
+            pick = [x.reshape(g.size, n_chunks, -1, *x.shape[1:])
+                    for x in (src, dst, e)]
+            # (h * 0) is the reference's carry (a shard_map typing rule);
+            # its value, NaN where h is, is kept
+            agg = (h * 0).to(e.dtype)
+            outs = []
+            for c in range(n_chunks):
+                s_, d_, e_ = (x[:, c].reshape(-1, *x.shape[3:])
+                              for x in pick)
+                agg, e2_ = _ckpt(chunk, agg, h_full, h, lw, s_, d_, e_)
+                outs.append(e2_.reshape(g.size, -1, d))
+            e2s.append(torch.stack(outs, 1).reshape(-1, d))
+            h2s.append(h + _mlp(lw["node_mlp"], torch.cat([h, agg], -1)))
+        return (*h2s, *e2s)
+
+    def block(first, count, *carry):
+        for li in range(first, first + count):
+            carry = _ckpt(layer, li, *carry)
+        return carry
+
+    L = cfg.n_layers
+    blk = 4 if L % 4 == 0 else 1
+    carry = (*hs, *es)
+    for first in range(0, L, blk):
+        carry = _ckpt(block, first, blk, *carry)
+    hs = carry[:G]
+    parts = []
+    for g, w, h in zip(groups, ws, hs):
+        pred = _mlp(w["dec"], h)
+        mask = g.rows(batch["loss_mask"], P).float()
+        err = (pred.float() - g.rows(batch["target"], P).float()) ** 2
+        sse = (err.mean(-1) * mask).reshape(g.size, nl).sum(1)
+        parts.append(torch.stack([sse, mask.reshape(g.size, nl).sum(1)], 1))
+    tot = psum(_per_shard(groups, parts, P), mesh, axes)[0]
+    return tot[0] / torch.clamp(tot[1], min=1.0)
+
+
+def forward_dimenet_sharded(cfg: GNNConfig, sh: Shardings, params: Dict,
+                            batch: Dict) -> torch.Tensor:
+    """DimeNet with partition-local triplets + owner-computes edges.
+
+    Triplet indices reference edges *within the local shard* and
+    ``edge_dst`` is shard-local, so the directional message stack and
+    the edge->node reduction are collective-free; only the src halo (one
+    all_gather of the raw features) and the final energy psum cross
+    shards (the reference's contract)."""
+    axes = cfg.flat_axes(sh)
+    mesh = sh.mesh
+    groups, P = _groups(mesh, axes)
+    _check_split(batch, ("node_feat", "edge_src", "edge_dst", "edge_dist",
+                         "tri_edge_kj", "tri_edge_ji", "tri_angle",
+                         "graph_id"), P)
+    nl = batch["node_feat"].shape[0] // P
+    el = batch["edge_src"].shape[0] // P
+    tl = batch["tri_edge_kj"].shape[0] // P
+    n_graphs = batch["target_g"].shape[0]
+    ws = _replicas(groups, params)
+    xs = [g.rows(batch["node_feat"], P).to(cfg.dtype) for g in groups]
+    x_full = _gather_h(xs, groups, P, mesh, axes)
+
+    def layer(m, lw, sbf, rbf_g, t_kj, t_ji):
+        mk = _take(_mlp(lw["proj_kj"], m), t_kj)           # local gather
+        w = sbf @ lw["sbf_w"]
+        tri = torch.einsum("tb,bdf,td->tf", w, lw["bilinear"], mk)
+        agg = _segment_sum(tri, t_ji, m.shape[0])
+        return m + _mlp(lw["msg_mlp"], m * rbf_g + agg)
+
+    parts = []
+    for g, w, xf in zip(groups, ws, x_full):
+        src = g.rows(batch["edge_src"], P).long()
+        dst = g.rows(batch["edge_dst"], P).long() + g.offsets(el, nl)
+        t_kj = g.rows(batch["tri_edge_kj"], P).long() + g.offsets(tl, el)
+        t_ji = g.rows(batch["tri_edge_ji"], P).long() + g.offsets(tl, el)
+        rbf = _rbf(g.rows(batch["edge_dist"], P), cfg.n_radial).to(cfg.dtype)
+        sbf = _sbf(g.rows(batch["tri_angle"], P), cfg.n_spherical,
+                   cfg.n_radial).to(cfg.dtype)
+        m = _mlp(w["embed"], torch.cat([_take(xf, src), rbf], -1))
+        rbf_g = rbf @ w["rbf_w"]
+        for lw in _unstack(w["layers"], cfg.n_layers):
+            m = _ckpt(layer, m, lw, sbf, rbf_g, t_kj, t_ji)
+        node_e = _segment_sum(m, dst, g.size * nl)         # local dst
+        pred = _mlp(w["out"], node_e)
+        gid = g.rows(batch["graph_id"], P).long() + g.offsets(nl, n_graphs)
+        parts.append(_segment_sum(pred[:, 0], gid, g.size * n_graphs)
+                     .reshape(g.size, n_graphs))
+    energy = psum(_per_shard(groups, parts, P), mesh, axes)[0]
+    err = (energy.float()
+           - batch["target_g"].to(energy.device).float()) ** 2
+    return torch.mean(err)
+
+
 INIT = {"graphcast": init_graphcast, "dimenet": init_dimenet,
         "graphsage": init_graphsage, "gat": init_gat}
 FORWARD = {"graphcast": forward_graphcast, "dimenet": forward_dimenet,
            "graphsage": forward_graphsage, "gat": forward_gat}
-SHARDED_ARCHS = ("graphcast", "dimenet")
+FORWARD_SHARDED = {"graphcast": forward_graphcast_sharded,
+                   "dimenet": forward_dimenet_sharded}
 
 
 def init_params(cfg: GNNConfig, generator: torch.Generator,
@@ -351,8 +590,6 @@ def init_params(cfg: GNNConfig, generator: torch.Generator,
 def forward_loss(cfg: GNNConfig, sh: Shardings, params: Dict,
                  batch: Dict) -> torch.Tensor:
     if (cfg.sharded and sh.mesh is not None
-            and cfg.arch in SHARDED_ARCHS):
-        raise NotImplementedError(
-            f"the sharded {cfg.arch} forward (the reference's shard_map "
-            "path) is not ported yet; see ROADMAP.md queue 1")
+            and cfg.arch in FORWARD_SHARDED):
+        return FORWARD_SHARDED[cfg.arch](cfg, sh, params, batch)
     return FORWARD[cfg.arch](cfg, sh, params, batch)

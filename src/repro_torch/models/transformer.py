@@ -372,11 +372,15 @@ def decode_step(cfg: LMConfig, sh: Shardings, params: Dict, cache: Dict,
     Writes position ``cache["len"]`` of the caller's ``k``/``v`` tensors
     in place (the reference's ``dynamic_update_slice``) and returns them
     with ``len + 1``."""
-    pos = int(cache["len"])
+    ck, cv = cache["k"], cache["v"]
+    # the slot written: the cache's fill, read on the host; a meta cache
+    # (the dry runs) has no values, and takes the last slot, as no shape
+    # depends on it
+    pos = (ck.shape[2] - 1 if cache["len"].device.type == "meta"
+           else int(cache["len"]))
     h = _embed(params, token.long()[:, None]).to(cfg.dtype)   # [B, 1, D]
     cos, sin = rope_angles(torch.full((1,), pos, device=h.device),
                            cfg.head_dim, cfg.rope_theta)
-    ck, cv = cache["k"], cache["v"]
     for l, lw in enumerate(_layer_weights(params, cfg.n_layers)):
         xn = rms_norm(h, lw["attn_norm"])
         q = torch.einsum("btd,dhk->bthk", xn, lw["wq"])

@@ -295,9 +295,10 @@ def test_chunk_width_leaves_answers_unchanged(monkeypatch, width):
 def test_chunk_rule():
     """8 columns on the CPU (the reference's chunk); on a CUDA tensor a
     multiple of 8 under the byte cap, never below 8 nor above the
-    width."""
+    width; a meta tensor (the dry runs) takes the card's chunking."""
     cpu = torch.zeros((1024, 440))
     assert tde._chunk(cpu, 592) == 8
     assert tde._chunk(torch.zeros((4, 5)), 7) == 5
     meta = torch.empty((1024, 440), device="meta")
-    assert tde._chunk(meta, 592) == 8          # only CUDA widens
+    # (64 << 20) // (4 * 1024 * 592) = 27 -> 24, the card's width
+    assert tde._chunk(meta, 592) == 24

@@ -3,7 +3,8 @@
 Importing every ``repro_torch`` module in a fresh interpreter leaves
 ``jax`` and ``repro``/``repro.*`` out of ``sys.modules`` (matched by
 exact name: ``repro_torch`` itself starts with "repro"), and
-``chip_smoke.py`` imports neither (AST scan).  A spawned cover worker
+``chip_smoke.py`` imports neither (AST scan); no module sets an
+environment variable when imported.  A spawned cover worker
 of the parallel host build imports no torch.  The serve CLI runs end to
 end on the CPU (offline and ``--live``), and ``chip_smoke.py`` refuses
 to report without a card or without the repository around it.
@@ -25,7 +26,8 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 
 _PROBE = r"""
-import importlib, json, pkgutil, sys
+import importlib, json, os, pkgutil, sys
+env = dict(os.environ)
 import repro_torch
 mods = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
@@ -34,7 +36,9 @@ for m in mods:
 bad = sorted(n for n in sys.modules
              if n in ("jax", "jaxlib", "repro")
              or n.startswith(("jax.", "jaxlib.", "repro.")))
-print(json.dumps({"modules": mods, "bad": bad}))
+env_set = sorted(k for k in set(env) | set(os.environ)
+                 if env.get(k) != os.environ.get(k))
+print(json.dumps({"modules": mods, "bad": bad, "env_set": env_set}))
 """
 
 
@@ -56,6 +60,7 @@ def test_port_modules_import_no_jax_and_no_reference_package():
                          check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
+    assert res["env_set"] == []
     for m in ("repro_torch.core.device_engine", "repro_torch.core.dist_engine",
               "repro_torch.core.paths", "repro_torch.kernels.ops",
               "repro_torch.kernels.label_merge", "repro_torch.kernels._build",
@@ -72,7 +77,11 @@ def test_port_modules_import_no_jax_and_no_reference_package():
               "repro_torch.configs", "repro_torch.configs.api",
               "repro_torch.configs.granite_moe_1b_a400m",
               "repro_torch.configs.wide_deep", "repro_torch.launch.steps",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.perflog",
+              "repro_torch.launch.mesh", "repro_torch.launch.cells",
+              "repro_torch.launch.flops", "repro_torch.launch.traffic",
+              "repro_torch.launch.opanalysis", "repro_torch.launch.dryrun",
+              "repro_torch.launch.dryrun_disland"):
         assert m in res["modules"]
 
 

@@ -428,12 +428,21 @@ def test_gnn_loss_and_grads_match_reference(arch):
 
 
 def test_sharded_gnn_forward_is_refused():
+    """The sharded forward (``tests/test_torch_gnn_sharded.py`` holds it
+    to the dense one) refuses a batch whose rows do not split evenly
+    over the mesh's shards, as ``shard_map`` does."""
     from repro_torch.launch.mesh import make_host_mesh
     cfg = gnn.GNNConfig(name="g", arch="graphcast", n_layers=1, d_hidden=4,
                         d_feat=5, sharded=True)
     sh = Shardings(make_host_mesh((2, 1), device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gnn.forward_loss(cfg, sh, {}, {})
+    batch = {"node_feat": torch.zeros(5, 5),
+             "edge_src": torch.zeros(4, dtype=torch.int32),
+             "edge_dst": torch.zeros(4, dtype=torch.int32),
+             "edge_feat": torch.zeros(4, 4), "target": torch.zeros(5, 1),
+             "loss_mask": torch.ones(5)}
+    params = gnn.init_params(cfg, _gen(0), "cpu")
+    with pytest.raises(ValueError, match="not a multiple"):
+        gnn.forward_loss(cfg, sh, params, batch)
 
 
 # ---- parity: recsys ------------------------------------------------------------
