@@ -23,9 +23,11 @@ prints no result.  Phases, each of which must pass:
      per-pivot one it replaced (above); the dense twoside
      contraction at the dense and top-closure shapes (S_top+1 = 1712)
      through the grouped kernel's identity tables; the distance-only FW
-     (the register variant at each of its block sizes, fresh and in
-     place on strided tiles, the shared-memory and per-pivot ones
-     above), the (min,+) products with and without accumulation (the
+     (kernel 3, fresh and in place on strided tiles: the register route
+     at each of its block sizes, the batched blocked route above n = 128
+     at [2, 200], [2, 240], [3, 300], [4, 496], an all-+inf batch and
+     ragged n, the shared-memory kernel it replaced timed beside it up
+     to n = 240), the (min,+) products with and without accumulation (the
      one-to-all GEMV at [1, 480], [1, 1712] and [1, 4614] with B cycled
      out of L2 and warm, the m = 8 / 9 neighbours of its row threshold,
      negative entries), the
@@ -113,9 +115,10 @@ prints no result.  Phases, each of which must pass:
      (``fw_fragments_sharded`` == ``frag_apsp``, ``super_apsp_sharded``
      == the dense ``d_super`` at road4000 and == ``ops.fw_apsp`` of the
      overlay at road64k); counters zeroed around it (it must launch the
-     grouped twoside, kernel 3 and kernel 3's per-pivot variant
-     ``fw_dist_global``), then the sharded build and kernel 3 at
-     [130, 496, 496] timed;
+     grouped twoside and kernel 3's blocked route ``fw_dist_blocked``
+     with its three kernels), then the sharded build and kernel 3 at
+     [130, 496, 496] timed beside the per-pivot ``fw_dist_global`` it
+     replaced and the witness ``fw_next_blocked``;
  10. the training path (``_train``; no kernel of the port runs in it:
      counters zeroed around it must read 0): card == CPU on reduced
      float32 granite-moe and granite-8b (loss, every gradient, one AdamW
@@ -160,8 +163,9 @@ prints no result.  Phases, each of which must pass:
      and 9 also apart as ``live_launches`` and ``sharded_launches``;
      together they must launch both witness FW kernels, the
      grouped twoside, the label merge, the in-place accumulate and
-     ``fw_dist_global``, and never the per-pivot witness FW or the
-     fresh-output accumulate; times and bounds from phases 2, 7 and 9),
+     ``fw_dist_blocked``, and never the per-pivot FWs, kernel 3's
+     shared-memory kernel or the fresh-output accumulate; times and
+     bounds from phases 2, 7 and 9),
      the card's name and power limit from nvidia-smi, and the
      ``{"ok": true, ...}`` line last.
 
@@ -706,10 +710,14 @@ def _record(out, rec, ok):
 
 
 def _check_fw_batch(cases, out):
-    """(label, b, n, all_inf): kernel 3 (``fw_batch_cuda``) against the
-    plain version.  At n <= DIST_REG_MAX_N the kernel also runs in
-    place on the matrices as strided tiles of a larger tensor, as the
-    blocked schedule calls it."""
+    """(label, b, n, all_inf): kernel 3 (``fw_batch_cuda``: registers up
+    to DIST_REG_MAX_N, the batched blocked schedule above) against the
+    plain version, fresh and in place on the matrices as strided tiles
+    of a larger tensor (as the blocked schedule runs its diagonal
+    tiles).  Between DIST_REG_MAX_N and DIST_SMEM_MAX_N the
+    shared-memory kernel the blocked route replaced there
+    (``fw_dist_smem_cuda``, off the route) is checked and timed beside
+    it, as its own record."""
     import functools
 
     import numpy as np
@@ -725,26 +733,36 @@ def _check_fw_batch(cases, out):
         got = kern()
         want = ops.fw_batch(d, force="ref")
         ok = torch.equal(got, want)
-        if n <= fw.DIST_REG_MAX_N:
-            big = torch.full((b, n + 5, n + 7), 7.0, device="cuda")
-            tile = big[:, 2:2 + n, 3:3 + n]
-            tile.copy_(d)
-            fw.fw_batch_cuda(tile, tile)
-            rest = torch.ones_like(big, dtype=torch.bool)
-            rest[:, 2:2 + n, 3:3 + n] = False
-            ok = ok and torch.equal(tile, want) and bool(
-                (big[rest] == 7.0).all())
+        big = torch.full((b, n + 5, n + 7), 7.0, device="cuda")
+        tile = big[:, 2:2 + n, 3:3 + n]
+        tile.copy_(d)
+        fw.fw_batch_cuda(tile, tile)
+        rest = torch.ones_like(big, dtype=torch.bool)
+        rest[:, 2:2 + n, 3:3 + n] = False
+        ok = ok and torch.equal(tile, want) and bool(
+            (big[rest] == 7.0).all())
         torch.cuda.synchronize()
         bound, by = _bound_ms(8.0 * b * n * n, 2.0 * b * n ** 3)
-        variant = ("reg" if n <= fw.DIST_REG_MAX_N else
-                   "smem" if n <= fw.DIST_SMEM_MAX_N else "global")
+        plain_ms = _time_ms(lambda: ops.fw_batch(d, force="ref"), 2)
+        variant = "reg" if n <= fw.DIST_REG_MAX_N else "blocked"
         _record(out, {
             "case": label, "kernel": "fw_batch_cuda", "b": b, "n": n,
             "variant": variant, "equal": ok,
             "max_abs_err": _max_abs_err(got, want),
             "ms": _time_ms(kern, 10), "device_ms": _device_ms(kern, 10),
-            "plain_ms": _time_ms(lambda: ops.fw_batch(d, force="ref"), 2),
-            "bound_ms": bound, "bound_by": by}, ok)
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}, ok)
+        if fw.DIST_REG_MAX_N < n <= fw.DIST_SMEM_MAX_N:
+            smem = functools.partial(fw.fw_dist_smem_cuda, d)
+            got = smem()
+            torch.cuda.synchronize()
+            ok = torch.equal(got, want)
+            _record(out, {
+                "case": label, "kernel": "fw_dist_smem_cuda", "b": b,
+                "n": n, "variant": "smem", "equal": ok,
+                "max_abs_err": _max_abs_err(got, want),
+                "ms": _time_ms(smem, 10), "device_ms": _device_ms(smem, 10),
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by},
+                ok)
 
 
 def _check_minplus(cases, out):
@@ -923,6 +941,8 @@ KERNELS = (("fw_next_reg", "floyd_warshall", "fw_next_reg_cuda"),
            ("minplus_twoside_grouped", "minplus_twoside",
             "minplus_twoside_grouped_cuda"),
            ("fw_batch", "floyd_warshall", "fw_batch_cuda"),
+           ("fw_dist_blocked", "floyd_warshall", "fw_dist_blocked_cuda"),
+           ("fw_dist_smem", "floyd_warshall", "fw_dist_smem_cuda"),
            ("fw_dist_global", "floyd_warshall", "fw_dist_global_cuda"),
            ("minplus_accum", "minplus", "minplus_accum_cuda"),
            ("minplus_accum_into", "minplus", "minplus_accum_into_cuda"),
@@ -934,7 +954,8 @@ KERNELS = (("fw_next_reg", "floyd_warshall", "fw_next_reg_cuda"),
 
 
 #: kernel entries the main paths must not launch
-OFF_MAIN_PATH = ("fw_next_global", "minplus_accum")
+OFF_MAIN_PATH = ("fw_next_global", "minplus_accum", "fw_dist_smem",
+                 "fw_dist_global")
 
 
 def _wrapper(module: str, attr: str):
@@ -1691,9 +1712,11 @@ def _sharded() -> dict:
     before the path and read just after.  Then both sharded build
     functions, the blocked FW closure of each overlay (``ops.fw_apsp``,
     the Bellman-Ford's dense counterpart) and kernel 3 at road64k's
-    fragments ([130, 496, 496], ``fw_dist_global``) are timed with CUDA
-    events (kernel 3 also by device time, beside its plain version and
-    its bound)."""
+    fragments ([130, 496, 496], its blocked route ``fw_dist_blocked``)
+    are timed with CUDA events, kernel 3 also by device time, beside the
+    per-pivot ``fw_dist_global`` it replaced, the witness
+    ``fw_next_blocked`` on the same input, its plain version and its
+    bound."""
     import functools
 
     import numpy as np
@@ -1814,21 +1837,32 @@ def _sharded() -> dict:
             "fw_apsp_overlay_ms": _time_ms(lambda: ops.fw_apsp(ov), 5)}
     adj = torch.from_numpy(builds["road64k"][1].frag_adj).cuda()
     b, n = adj.shape[0], adj.shape[1]
-    kern = functools.partial(fw.fw_batch_cuda, adj)
-    got, want = kern(), ops.fw_batch(adj, force="ref")
+    want = ops.fw_batch(adj, force="ref")
+    plain_ms = _time_ms(lambda: ops.fw_batch(adj, force="ref"), 1)
     bound, by = _bound_ms(8.0 * b * n * n, 2.0 * b * n ** 3)
-    res["kernel3"] = {
-        "case": f"fw_dist_global b={b} n={n} (road64k fw_fragments_sharded)",
-        "kernel": "fw_dist_global_cuda", "b": b, "n": n,
-        "equal": bool(torch.equal(got, want)),
-        "max_abs_err": _max_abs_err(got, want), "ms": _time_ms(kern, 5),
-        "device_ms": _device_ms(kern, 3),
-        "plain_ms": _time_ms(lambda: ops.fw_batch(adj, force="ref"), 1),
-        "bound_ms": bound, "bound_by": by}
-    checks["kernel3_equal"] = res["kernel3"]["equal"]
+    tag = f"b={b} n={n} (road64k fw_fragments_sharded)"
+    for key, name, kern in (
+            ("kernel3", "fw_batch_cuda -> fw_dist_blocked",
+             functools.partial(fw.fw_batch_cuda, adj)),
+            ("kernel3_global", "fw_dist_global_cuda",
+             functools.partial(fw.fw_dist_global_cuda, adj)),
+            ("kernel1_blocked", "fw_next_blocked_cuda",
+             lambda: fw.fw_next_blocked_cuda(adj)[0])):
+        got = kern()
+        torch.cuda.synchronize()
+        res[key] = {
+            "case": f"{name} {tag}", "kernel": name, "b": b, "n": n,
+            "equal": bool(torch.equal(got, want)),
+            "max_abs_err": _max_abs_err(got, want), "ms": _time_ms(kern, 5),
+            "device_ms": _device_ms(kern, 3), "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by}
+        del got
+        checks[f"{key}_equal"] = res[key]["equal"]
+    res["kernel3"]["inf_share"] = float(torch.isinf(adj).double().mean())
     res["timing"], res["checks"] = timing, checks
     print(f"  sharded: cli {res['cli']}; build {timing}; kernel 3 "
-          f"{res['kernel3']}; launches {res['launches']}")
+          f"{res['kernel3']}, beside {res['kernel3_global']} and "
+          f"{res['kernel1_blocked']}; launches {res['launches']}")
     if not all(checks.values()):
         raise AssertionError(f"sharded: {checks}")
     return res
@@ -2555,8 +2589,12 @@ def main() -> int:
         ("fw_batch b=1 n=128", 1, 128, ()),
         ("fw_batch b=1 n=64", 1, 64, ()),
         ("fw_batch b=3 n=100", 3, 100, ()),
-        ("fw_batch b=2 n=240 (smem)", 2, 240, (1,)),
+        ("fw_batch b=2 n=200", 2, 200, ()),
+        ("fw_batch b=2 n=240", 2, 240, (1,)),
+        ("fw_batch b=3 n=300", 3, 300, ()),
         ("fw_batch b=4 n=496 all-inf block", 4, 496, (1,)),
+        ("fw_batch b=3 n=193 all-inf", 3, 193, (0, 1, 2)),
+        ("fw_batch b=5 n=129 (n = 2 k-blocks + 1)", 5, 129, ()),
     ], new_cases))
     phase("minplus_kernels", lambda: _check_minplus([
         ("accum phase2 row C[128,1792] A[128,128] B[128,1792] (C=B)",
@@ -2688,7 +2726,8 @@ def main() -> int:
                                "fw_next_reg", "fw_next_blocked"))
         _require_launched(report["sharded"], "sharded",
                           ("minplus_twoside_grouped", "fw_batch",
-                           "fw_dist_global"))
+                           "fw_dist_blocked", "minplus_accum_panels",
+                           "minplus_accum_into"))
         # the main paths, the refresh epochs, the live runs and the
         # sharded path (each counted from zero just before it, read just
         # after)
@@ -2696,9 +2735,10 @@ def main() -> int:
             "road4000", "road64k", "road4000_refresh", "road64k_refresh",
             "road4000_live", "road64k_live", "sharded"))
             for name, _m, _a in KERNELS}
-        # the per-pivot FW and the fresh-output accumulate left the main
-        # paths (for the blocked FW and the in-place accumulate): timed
-        # beside their replacements, never run there
+        # the per-pivot FWs, kernel 3's shared-memory kernel and the
+        # fresh-output accumulate left the main paths (for the blocked
+        # FWs and the in-place accumulate): timed beside their
+        # replacements, never run there
         for name in OFF_MAIN_PATH:
             if launches.pop(name):
                 raise AssertionError(f"main paths launched {name}")
@@ -2735,7 +2775,14 @@ def main() -> int:
         ("fw_batch", pick(new_cases, "fw_batch b=1 n=64"),
          "src/repro_torch/csrc/fw_dist.cu",
          "src/repro/kernels/floyd_warshall.py:54"),
-        ("fw_dist_global", report["sharded"]["kernel3"],
+        ("fw_dist_blocked", report["sharded"]["kernel3"],
+         "src/repro_torch/csrc/fw_dist.cu",
+         "src/repro/kernels/floyd_warshall.py:54"),
+        ("fw_dist_smem", pick(new_cases, "fw_batch b=2 n=240",
+                              "fw_dist_smem_cuda"),
+         "src/repro_torch/csrc/fw_dist.cu",
+         "src/repro/kernels/floyd_warshall.py:54"),
+        ("fw_dist_global", report["sharded"]["kernel3_global"],
          "src/repro_torch/csrc/fw_dist.cu",
          "src/repro/kernels/floyd_warshall.py:54"),
         ("minplus_accum", pick(

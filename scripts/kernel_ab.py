@@ -3,7 +3,7 @@
 
     python3 scripts/kernel_ab.py --src SRC_DIR --tag NAME [--road64k]
                                  [--serve] [--twoside FILE] [--fwapsp]
-                                 [--small]
+                                 [--small] [--fwdist FILE]
 
 Needs one NVIDIA card and ``nvcc``.  Imports ``repro_torch`` from
 ``SRC_DIR`` (the ``src`` directory of this checkout, or of an unpacked
@@ -59,7 +59,20 @@ profiler's device time:
     [407,8,8], [6,32,32] (road4000), [6211,8,8], [75,32,32] (road64k),
     at [6211,8,8] tie-heavy and at [64,64,64] tie-heavy; then road64k's
     ``serve_one_to_all`` a source on its own (sources 0, 31,000 and
-    61,000 of the preset's 3-level build: ``chip_smoke._one_to_all_ms``).
+    61,000 of the preset's 3-level build: ``chip_smoke._one_to_all_ms``);
+  * with ``--fwdist FILE``, kernel 3 above n = 128 (CUDA events and
+    device time, each result against the plain version
+    ``ops.fw_batch(force="ref")``): on road64k's fragment batch
+    [130, 496, 496] (``make_build_plan``'s ``frag_adj`` of the preset's
+    host index, kept in FILE: the first checkout run without FILE builds
+    and saves it) the checkout's ``ops.fw_batch``, where it has the
+    blocked route the schedule ``fw_blocked_into`` at k-blocks of 64 and
+    128, the per-pivot ``fw_dist_global_cuda`` and the witness
+    ``ops.fw_batch_next`` (``fw_next_blocked``); then ``ops.fw_batch``
+    beside the shared-memory kernel (``fw_dist_smem``: the route of a
+    checkout without the blocked one, else ``fw_dist_smem_cuda``) at
+    b = 2, n = 200 and 240, and ``ops.fw_batch`` at [3, 300, 300] and
+    [4, 496, 496] (seeded integers, ~20% +inf).
 
 Prints one JSON line tagged NAME and the card's name and power limit.
 """
@@ -89,6 +102,7 @@ def main() -> int:
     ap.add_argument("--twoside")
     ap.add_argument("--fwapsp", action="store_true")
     ap.add_argument("--small", action="store_true")
+    ap.add_argument("--fwdist")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -109,7 +123,10 @@ def main() -> int:
     if args.small:
         rec["small"] = _small(ops)
         rec["profiler_windows"] = WINDOWS
-    only = args.fwapsp or args.small
+    if args.fwdist:
+        rec["fwdist"] = _fwdist(args.fwdist, ops)
+        rec["profiler_windows"] = WINDOWS
+    only = args.fwapsp or args.small or args.fwdist
     for q, k in ([] if only else ARGMIN):
         rng = np.random.default_rng(q * 37 + k)
         rows, d, rowt = (torch.from_numpy(_int_inf(s, rng)).cuda()
@@ -319,6 +336,84 @@ def _small(ops) -> dict:
     out["road64k one-to-all"] = {"sources": list(sources),
                                  **_one_to_all_ms(dix, sources)}
     print(f"  road64k one-to-all: {out['road64k one-to-all']}", flush=True)
+    return out
+
+
+def _road64k_fragments(path: str):
+    """road64k's fragment batch [k, maxf, maxf] (float32 on the card),
+    from ``path`` or, when it is missing, from the preset's host index
+    (``make_build_plan``), saved there."""
+    import torch
+    if not Path(path).exists():
+        from repro_torch.core.device_engine import make_build_plan
+        from repro_torch.core.graph import road_like
+        from repro_torch.core.supergraph import build_index
+        from repro_torch.data.roads import road_preset
+        plan = make_build_plan(build_index(road_like(
+            road_preset("road64k").nodes, seed=0)))
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        torch.save(torch.from_numpy(plan.frag_adj), path)
+    return torch.load(path).cuda()
+
+
+def _fwdist(path: str, ops) -> dict:
+    """The ``--fwdist`` readings of this checkout (see the module note):
+    {label: {"equal", "ms", "device_ms"}}, and the fragment batch's
+    shape, +inf share and rows with a finite off-diagonal entry."""
+    import functools
+
+    import numpy as np
+    import torch
+    from chip_smoke import _device_ms, _int_inf, _time_ms
+    from repro_torch.kernels import floyd_warshall as fw
+    out = {}
+
+    def time(label, fn, want, reps=5, dev_reps=3):
+        got = fn()
+        torch.cuda.synchronize()
+        out[label] = {"equal": bool(torch.equal(got, want)),
+                      "ms": _time_ms(fn, reps),
+                      "device_ms": _device_ms(fn, dev_reps)}
+        print(f"  {label}: {out[label]}", flush=True)
+
+    adj = _road64k_fragments(path)
+    b, n = adj.shape[0], adj.shape[1]
+    want = ops.fw_batch(adj, force="ref")
+    off = ~torch.eye(n, dtype=torch.bool, device=adj.device)
+    live = (torch.isfinite(adj) & off).any(dim=2).sum(dim=1)
+    out["fragments"] = {
+        "shape": [b, n, n], "inf_share": float(torch.isinf(adj).double()
+                                               .mean()),
+        "result_inf_share": float(torch.isinf(want).double().mean()),
+        "live_rows": live.tolist()}
+    tag = f"b={b} n={n}"
+    time(f"ops.fw_batch {tag}", functools.partial(ops.fw_batch, adj), want)
+    scratch = None
+    if hasattr(fw, "fw_blocked_into"):
+        scratch = torch.empty_like(adj)
+
+        def blocked(block):
+            scratch.copy_(adj)
+            return fw.fw_blocked_into(scratch, block=block)
+        for block in (64, 128):
+            time(f"fw_blocked_into block={block} {tag}",
+                 functools.partial(blocked, block), want)
+    time(f"fw_dist_global_cuda {tag}", functools.partial(
+        fw.fw_dist_global_cuda, adj, torch.empty_like(adj)), want, 2, 1)
+    time(f"ops.fw_batch_next (fw_next_blocked) {tag}",
+         lambda: ops.fw_batch_next(adj)[0], want, 2, 1)
+    del adj, want, scratch
+    torch.cuda.empty_cache()
+    smem = getattr(fw, "fw_dist_smem_cuda", None)
+    for b, n in ((2, 200), (2, 240), (3, 300), (4, 496)):
+        rng = np.random.default_rng(b * 7907 + n)
+        d = torch.from_numpy(_int_inf((b, n, n), rng)).cuda()
+        want = ops.fw_batch(d, force="ref")
+        time(f"ops.fw_batch b={b} n={n}", functools.partial(ops.fw_batch, d),
+             want, 20, 10)
+        if smem is not None and n <= fw.DIST_SMEM_MAX_N:
+            time(f"fw_dist_smem_cuda b={b} n={n}",
+                 functools.partial(smem, d), want, 20, 10)
     return out
 
 

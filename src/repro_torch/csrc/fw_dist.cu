@@ -1,34 +1,56 @@
 // Batched distance-only Floyd-Warshall for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel repro/kernels/floyd_warshall.py:
-// fw_batch_pallas (_fw_block_kernel), phase 1 of the blocked APSP that
-// closes the hierarchy's top overlay.  For every matrix of a batch
+// fw_batch_pallas (_fw_block_kernel).  For every matrix of a batch
 // d[b, n, n] (float32, +inf = no edge) it writes
 //   dist[b, i, j] = shortest i -> j distance (diagonal forced to 0),
 // array-equal to repro_torch/kernels/ref.py:fw_batch_ref (distances of
 // an exact APSP are unique, and integer weights keep every sum exact).
+// The Pallas kernel holds a whole [n, n] matrix in VMEM and runs its n
+// pivots there; a Hopper SM holds at most 227 KB, a 240 x 240 matrix.
 //
 // What bounds it on the H100: the function moves 8 bytes a cell and
-// does 2 operations per cell and pivot, a bound of ~0.06 us at b = 1,
-// n = 128 (the blocked schedule's only shape).  No schedule reaches
-// that: the n pivots are a serial chain, so one matrix is one block on
-// one SM and the floor is n x (one barrier plus a few dependent
-// instructions), and one SM's float32 pipes: 2 x 16,384 operations a
-// pivot at n = 128.  The kernel that held the matrix in shared memory
-// paid about three shared-memory accesses a cell and pivot on that
-// chain (0.185 ms at n = 128 on an H100 SXM, 700 W).
+// does 2 operations per cell and pivot, so above n ~ 20 it is bound by
+// operations (float32; (min,+) has no tensor-core form): 0.4735 ms for
+// road64k's fragments [130, 496, 496] at 67 TFLOP/s, ~0.06 us at b = 1,
+// n = 128.  The n pivots of a matrix are a serial chain, so one matrix
+// on one SM floors at n x (a barrier plus a few dependent
+// instructions), and only a blocked schedule spreads a matrix over SMs.
 //
-// The design (fw_dist_reg_kernel, n <= FWD_REG_MAX_N): every thread
-// owns a fixed RM x 4 sub-tile of the matrix in registers, the owners of
-// row k and column k publish them into double-buffered shared strips,
-// one __syncthreads a pivot (fw_reg_tile.cuh, which the witness FW's
-// n <= 64 shape shares).  One tile shape a padded n: 32 and 64 take
-// RM = 4 (64 and 256 threads), 128 takes RM = 16 (256 threads), which
-// ran faster than 512 and 1,024 threads at b = 1, n = 128 (PERF.md).
-// Input and output take row and batch strides, so the blocked schedule
-// runs it in place on the diagonal tile of its padded matrix.
+// Two routes (kernels/floyd_warshall.py: fw_batch_cuda):
+//  * n <= FWD_REG_MAX_N (fw_dist_reg_kernel, one launch): every thread
+//    owns a fixed RM x 4 sub-tile of its matrix in registers, the owners
+//    of row k and column k publish them into double-buffered shared
+//    strips, one __syncthreads a pivot (fw_reg_tile.cuh, which the
+//    witness FW's n <= 64 shape shares).  One tile shape a padded n: 32
+//    and 64 take RM = 4 (64 and 256 threads), 128 takes RM = 16 (256
+//    threads), which ran faster than 512 and 1,024 threads at b = 1,
+//    n = 128 (PERF.md).  Input and output take row and batch strides,
+//    so it also runs in place on the diagonal tiles of a larger matrix.
+//  * above it, the textbook 3-phase blocked FW over all b matrices at
+//    once, in place on the output, in k-blocks of B = 64 pivots
+//    (DIST_BLOCK; at road64k's fragments 128 ran 17-20% slower: phase 2
+//    doubles and phase 1 runs at n = 128).  Per k-block K: phase 1 is
+//    fw_dist_reg on the b pivot tiles D[K, K] (one launch, batch
+//    strides); phase 2 is minplus.cu's minplus_accum_panels on the row
+//    panels D[K, :] and column panels D[:, K] of every matrix (one
+//    launch, the matrix on the grid's z axis); phase 3 is minplus.cu's
+//    minplus_accum_ld on the rest of every matrix (one launch).  The
+//    blocks of both skip a k-tile of an all-+inf panel and leave a tile
+//    that skipped all of them unread and unwritten: road64k's fragments
+//    are 99.6% +inf as built and 32% once closed (sparse roads, the
+//    smaller fragments' padding), and the skip takes ~40% off the
+//    route.  3 ceil(n / B) launches: 24 at n = 496, against the n + 1
+//    of the per-pivot kernel.  The same
+//    schedule is ops.fw_apsp's on one padded matrix (the hierarchy's
+//    top closure).  It is exact without the witness machinery of
+//    fw_next.cu's blocked kernel (snapshots, argmin carry): those only
+//    make ties pick the serial first hop, and distances have no ties
+//    to break.  No padding copy: the last k-block is short and the
+//    kernels mask the ragged edge.
 //
-// Two more launch shapes, unchanged from the first port:
+// Two more launch shapes, off the route and kept to be timed beside it
+// (kernels/floyd_warshall.py: fw_dist_smem_cuda, fw_dist_global_cuda):
 //  * fw_dist_smem: one block per matrix holds dist (4 bytes a cell) in
 //    shared memory for all n pivots, n <= FWD_SMEM_MAX_N.  Updating in
 //    place is exact: the diagonal is 0 and every weight is nonnegative,
@@ -36,7 +58,8 @@
 //    (d[i][k] + d[k][k] == d[i][k]), and one barrier between pivots
 //    reproduces the functional update.
 //  * fw_dist_global: an init pass, then one launch per pivot over all b
-//    matrices in device memory; any n (off the main path).
+//    matrices in device memory; any n.  Each launch streams the whole
+//    batch through HBM: 62.5 ms at [130, 496, 496] (PERF.md).
 //
 // Plain IEEE float adds only: built without --use_fast_math, and
 // inf + x stays inf, so no NaN can arise from the +inf padding.

@@ -6,9 +6,10 @@
 //   minplus_accum_pallas (_minplus_accum_kernel):  C = min(C_in, A (x) B)
 // with (A (x) B)[i, j] = min_k A[i, k] + B[k, j], A [M, K], B [K, N],
 // C_in and C [M, N], all float32 with +inf absorbing.  The blocked
-// Floyd-Warshall of the hierarchy's top closure runs its phases 2 and 3
-// through the in-place entries minplus_accum_panels and
-// minplus_accum_ld (minplus_accum keeps the fresh-output contract);
+// Floyd-Warshall (the hierarchy's top closure, one matrix, and kernel
+// 3's route above n = 128, a batch of matrices: fw_dist.cu's note) runs
+// its phases 2 and 3 through the in-place entries minplus_accum_panels
+// and minplus_accum_ld (minplus_accum keeps the fresh-output contract);
 // one-to-all serving runs minplus as a vector x matrix product against
 // the top (or dense) closure.
 //
@@ -39,6 +40,22 @@
 // and column panels in one launch (minplus_panels_kernel), one block
 // range each, in tiles that span their panel (64 x 16 and 16 x 64 for
 // k-blocks of 64, else 128 x 8 and 8 x 128).
+//
+// Both in-place entries take a batch: the grid's z axis is the matrix
+// (walked in chunks of 65,535), each operand's matrix z at z times its
+// batch stride.  A batch (more than one matrix) runs the BATCHED
+// instantiation, in which a block skips a k-tile whose staged A or B is
+// all +inf: it cannot lower any cell.  Each thread tests the cells it
+// copied itself and two block reductions (__syncthreads_or, the first
+// also the barrier after the copies) decide for the block; a tile that
+// skipped every k-tile reads no C_in and writes nothing.  A batch of
+// road fragments (99.6% +inf as it comes in, 32% once closed: sparse
+// roads, and the padding of the smaller fragments) saves about 40% of
+// its time by it; a warp-vote form of the test and a test of the whole
+// tile's panels before the loop were slower (PERF.md).  One matrix (the
+// top closure's ops.fw_apsp) runs the instantiation without the batch
+// offsets or the test, the code it ran before batches existed: the
+// offsets alone made its phase 3 ~12% slower.
 //
 // In place, with leading dimensions (minplus_accum_ld,
 // minplus_accum_panels): the blocked schedule passes views of its
@@ -94,6 +111,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "twoside_tiles.cuh"   // cp_async4 and the commit / wait helpers
 
 namespace cg = cooperative_groups;
@@ -121,7 +140,8 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
 // One product C[i, j] = min(C_in[i, j], min_k A[i, k] + B[k, j]) over
 // row-major views with leading dimensions (elements), rows in
 // [sr0, sr1) and columns in [sc0, sc1) not written.  vec: A, B, lda,
-// ldb, K and N all allow 16-byte copies.
+// ldb, K and N (and a BatchJob's batch strides of A and B) all allow
+// 16-byte copies.
 struct AccumJob {
   const float* cin;
   long long ldcin;
@@ -134,6 +154,19 @@ struct AccumJob {
   int M, N, K, sr0, sr1, sc0, sc1, vec;
 };
 
+// The same product in each of `batch` matrices, matrix z of each operand
+// at z times its batch stride (elements) from the first; C_in shares C's.
+// Only the batched kernels take the strides: a one-matrix kernel's
+// parameters stay an AccumJob, since 40 bytes more a job made the
+// one-matrix APSP ~1% slower (PERF.md).
+struct BatchJob : AccumJob {
+  long long bsa, bsb, bsc;
+  int batch;
+};
+
+template <bool BATCHED>
+using JobOf = std::conditional_t<BATCHED, BatchJob, AccumJob>;
+
 template <int BM, int BN, int NS>
 struct AccumSmem {
   float as[NS][BM][MA_AS];
@@ -144,10 +177,18 @@ struct AccumSmem {
 // tm + r * TM and columns g * 4 * TN + 4 * tn + q.  NS k-tiles are in
 // flight (NS - 1 staged ahead of the one computed).  No __restrict__: C
 // may alias C_in, A and B (see the note at the top).  CIN = false: C =
-// A (x) B, with no C_in read (kernel 5 above MG_MAX_M rows).
-template <int BM, int BN, int TM, int TN, int NS, bool CIN = true>
-__device__ __forceinline__ void accum_tile(const AccumJob& j, int bx,
-                                           int by,
+// A (x) B, with no C_in read (kernel 5 above MG_MAX_M rows).  BATCHED:
+// the tile lies in matrix bz of a batch, and (with CIN) a k-tile whose
+// staged A or B is all +inf, which adds nothing to min(C_in, A (x) B),
+// is skipped, and a tile that skipped every k-tile leaves C as it is
+// (no C_in read, no write).  Without BATCHED the code compiles as the
+// one-matrix kernel did before batches existed (the same registers a
+// tile shape): offsets, the test or the gating of the arithmetic left
+// in a one-matrix build cost it 1-12% (PERF.md).
+template <int BM, int BN, int TM, int TN, int NS, bool CIN = true,
+          bool BATCHED = false>
+__device__ __forceinline__ void accum_tile(const JobOf<BATCHED>& j, int bx,
+                                           int by, int bz,
                                            AccumSmem<BM, BN, NS>& sm) {
   constexpr int RM = BM / TM;
   constexpr int RN = BN / TN;
@@ -166,6 +207,10 @@ __device__ __forceinline__ void accum_tile(const AccumJob& j, int bx,
   const float4 inf4 = make_float4(inf, inf, inf, inf);
   const float* a = j.a;
   const float* b = j.b;
+  if constexpr (BATCHED) {
+    a += bz * j.bsa;
+    b += bz * j.bsb;
+  }
 
   auto stage = [&](int buf, int k0) {
     if (j.vec) {
@@ -217,6 +262,7 @@ __device__ __forceinline__ void accum_tile(const AccumJob& j, int bx,
 #pragma unroll
     for (int q = 0; q < RN; ++q) acc[r][q] = inf;
 
+  bool touched = !(CIN && BATCHED);   // some k-tile was computed
   const int ntiles = (K + MA_BK - 1) / MA_BK;
   // prologue: tiles 0 .. NS-2, one commit group each (empty past the end)
 #pragma unroll
@@ -231,7 +277,37 @@ __device__ __forceinline__ void accum_tile(const AccumJob& j, int bx,
     if (t + NS - 1 < ntiles) stage((t + NS - 1) % NS, (t + NS - 1) * MA_BK);
     cp_async_commit();
     cp_async_wait_group<NS - 1>();   // tile t landed
-    __syncthreads();
+    if constexpr (CIN && BATCHED) {
+      // whether a cell this thread copied into buffer cur is finite, in
+      // A (la) and in B (lb): its own copies, which it sees once its
+      // wait returns; the first reduction is also the barrier that shows
+      // every thread's copies to the block, and the second follows every
+      // read of buffer cur, so a skipped k-tile needs no closing barrier
+      int la = 0, lb = 0;
+      if (j.vec) {
+        for (int e = threadIdx.x; e < BM * MA_BK / 4; e += THREADS) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              &sm.as[cur][e / (MA_BK / 4)][4 * (e % (MA_BK / 4))]);
+          la |= (v.x != inf) | (v.y != inf) | (v.z != inf) | (v.w != inf);
+        }
+        for (int e = threadIdx.x; e < MA_BK * BN / 4; e += THREADS) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              &sm.bs[cur][e / (BN / 4)][4 * (e % (BN / 4))]);
+          lb |= (v.x != inf) | (v.y != inf) | (v.z != inf) | (v.w != inf);
+        }
+      } else {
+        for (int e = threadIdx.x; e < BM * MA_BK; e += THREADS)
+          la |= sm.as[cur][e / MA_BK][e % MA_BK] != inf;
+        for (int e = threadIdx.x; e < MA_BK * BN; e += THREADS)
+          lb |= sm.bs[cur][e / BN][e % BN] != inf;
+      }
+      la = __syncthreads_or(la);
+      lb = __syncthreads_or(lb);
+      if (!(la && lb)) continue;      // uniform
+      touched = true;
+    } else {
+      __syncthreads();
+    }
 #pragma unroll
     for (int k4 = 0; k4 < MA_BK; k4 += 4) {
       float4 av[RM];
@@ -264,7 +340,14 @@ __device__ __forceinline__ void accum_tile(const AccumJob& j, int bx,
     __syncthreads();          // buffer cur free for tile t + NS
   }
   cp_async_wait_all();
+  if (!touched) return;               // uniform: the block's reductions
 
+  float* c = j.c;
+  const float* cin = j.cin;
+  if constexpr (BATCHED) {
+    c += bz * j.bsc;
+    if (CIN) cin += bz * j.bsc;
+  }
 #pragma unroll
   for (int r = 0; r < RM; ++r) {
     const int m = m0 + tm + r * TM;
@@ -273,28 +356,31 @@ __device__ __forceinline__ void accum_tile(const AccumJob& j, int bx,
     for (int q = 0; q < RN; ++q) {
       const int n = n0 + (q / 4) * 4 * TN + 4 * tn + q % 4;
       if (n >= N || (n >= j.sc0 && n < j.sc1)) continue;
-      j.c[(long long)m * j.ldc + n] =
-          CIN ? fminf(j.cin[(long long)m * j.ldcin + n], acc[r][q])
+      c[(long long)m * j.ldc + n] =
+          CIN ? fminf(cin[(long long)m * j.ldcin + n], acc[r][q])
               : acc[r][q];
     }
   }
 }
 
-template <int BM, int BN, int TM, int TN, int NS, bool CIN>
+// grid (column tiles, row tiles, matrices)
+template <int BM, int BN, int TM, int TN, int NS, bool CIN, bool BATCHED>
 __global__ void __launch_bounds__(TM * TN)
-minplus_accum_kernel(const AccumJob j) {
+minplus_accum_kernel(const JobOf<BATCHED> j) {
   __shared__ __align__(16) AccumSmem<BM, BN, NS> sm;
-  accum_tile<BM, BN, TM, TN, NS, CIN>(j, blockIdx.x, blockIdx.y, sm);
+  accum_tile<BM, BN, TM, TN, NS, CIN, BATCHED>(j, blockIdx.x, blockIdx.y,
+                                               blockIdx.z, sm);
 }
 
 // Phase 2's two panels in one launch: blocks [0, row_blocks) take the
 // row panel (one tile high, M <= RBM), the rest the column panel (one
-// tile wide, N <= CBN).  The two write disjoint cells and read only
-// their own cells and the pivot tile, which neither writes.
+// tile wide, N <= CBN); blockIdx.z is the matrix.  The two write
+// disjoint cells and read only their own cells and the pivot tile,
+// which neither writes.
 template <int RBM, int RBN, int RTM, int RTN, int CBM, int CBN, int CTM,
-          int CTN>
+          int CTN, bool BATCHED>
 __global__ void __launch_bounds__(RTM * RTN)
-minplus_panels_kernel(const AccumJob row, const AccumJob col,
+minplus_panels_kernel(const JobOf<BATCHED> row, const JobOf<BATCHED> col,
                       int row_blocks) {
   static_assert(RTM * RTN == CTM * CTN, "one block size");
   __shared__ __align__(16) union {
@@ -302,29 +388,52 @@ minplus_panels_kernel(const AccumJob row, const AccumJob col,
     AccumSmem<CBM, CBN, 4> c;
   } sm;
   if ((int)blockIdx.x < row_blocks)
-    accum_tile<RBM, RBN, RTM, RTN, 4>(row, blockIdx.x, 0, sm.r);
+    accum_tile<RBM, RBN, RTM, RTN, 4, true, BATCHED>(row, blockIdx.x, 0,
+                                                     blockIdx.z, sm.r);
   else
-    accum_tile<CBM, CBN, CTM, CTN, 4>(col, 0, blockIdx.x - row_blocks,
-                                      sm.c);
+    accum_tile<CBM, CBN, CTM, CTN, 4, true, BATCHED>(
+        col, 0, blockIdx.x - row_blocks, blockIdx.z, sm.c);
 }
 
-static AccumJob make_job(const void* cin, long long ldcin, const void* a,
+// A job over `batch` matrices (batch strides in elements; 0 for one).
+static BatchJob make_job(const void* cin, long long ldcin, const void* a,
                          long long lda, const void* b, long long ldb,
                          void* c, long long ldc, int M, int N, int K,
-                         int sr0, int sr1, int sc0, int sc1) {
+                         int sr0, int sr1, int sc0, int sc1, int batch,
+                         long long bsa, long long bsb, long long bsc) {
   const int vec = ((size_t)a % 16 == 0) && ((size_t)b % 16 == 0) &&
-                  lda % 4 == 0 && ldb % 4 == 0 && K % 4 == 0 && N % 4 == 0;
-  return AccumJob{(const float*)cin, ldcin, (const float*)a, lda,
-                  (const float*)b, ldb, (float*)c, ldc, M, N, K, sr0, sr1,
-                  sc0, sc1, vec};
+                  lda % 4 == 0 && ldb % 4 == 0 && bsa % 4 == 0 &&
+                  bsb % 4 == 0 && K % 4 == 0 && N % 4 == 0;
+  return BatchJob{{(const float*)cin, ldcin, (const float*)a, lda,
+                   (const float*)b, ldb, (float*)c, ldc, M, N, K, sr0, sr1,
+                   sc0, sc1, vec},
+                  bsa, bsb, bsc, batch};
 }
 
-template <int BM, int BN, int TM, int TN, int NS, bool CIN>
-static int accum_launch(const AccumJob& j, cudaStream_t s) {
+// Matrices [b0, b0 + gridDim.z) of j: its pointers moved to matrix b0
+// (the grid's z extent is capped at 65,535).
+static BatchJob batch_chunk(BatchJob j, int b0) {
+  if (j.cin) j.cin += b0 * j.bsc;
+  j.a += b0 * j.bsa;
+  j.b += b0 * j.bsb;
+  j.c += b0 * j.bsc;
+  return j;
+}
+
+template <int BM, int BN, int TM, int TN, int NS, bool CIN, bool BATCHED>
+static int accum_launch(const BatchJob& j, cudaStream_t s) {
   if ((j.M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((j.N + BN - 1) / BN, (j.M + BM - 1) / BM);
-  minplus_accum_kernel<BM, BN, TM, TN, NS, CIN><<<grid, TM * TN, 0, s>>>(j);
-  return (int)cudaGetLastError();
+  for (int b0 = 0; b0 < j.batch; b0 += 65535) {
+    const int bc = (j.batch - b0 < 65535) ? j.batch - b0 : 65535;
+    const dim3 grid((j.N + BN - 1) / BN, (j.M + BM - 1) / BM, bc);
+    const BatchJob jc = batch_chunk(j, b0);
+    const JobOf<BATCHED>& arg = jc;   // one matrix: the AccumJob part
+    minplus_accum_kernel<BM, BN, TM, TN, NS, CIN, BATCHED>
+        <<<grid, TM * TN, 0, s>>>(arg);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 // The tile a product of this shape takes: panels get narrow tiles and
@@ -332,27 +441,45 @@ static int accum_launch(const AccumJob& j, cudaStream_t s) {
 // enough to cover the latency; anything wider than a panel (phase 3)
 // 64 x 64 tiles of 4 x 4 for k-blocks of up to 64, 128 x 64 of 8 x 8
 // above (PERF.md).
-template <bool CIN>
-static int accum_dispatch(const AccumJob& j, cudaStream_t s) {
-  if (j.M <= 64) return accum_launch<64, 8, 32, 2, 4, CIN>(j, s);
-  if (j.M <= 128) return accum_launch<128, 8, 64, 2, 4, CIN>(j, s);
-  if (j.N <= 64) return accum_launch<8, 64, 2, 16, 4, CIN>(j, s);
-  if (j.N <= 128) return accum_launch<8, 128, 2, 32, 4, CIN>(j, s);
-  if (j.K <= 64) return accum_launch<64, 64, 16, 16, 4, CIN>(j, s);
-  return accum_launch<128, 64, 16, 8, 3, CIN>(j, s);
+template <bool CIN, bool BATCHED = false>
+static int accum_dispatch(const BatchJob& j, cudaStream_t s) {
+  if (j.M <= 64) return accum_launch<64, 8, 32, 2, 4, CIN, BATCHED>(j, s);
+  if (j.M <= 128) return accum_launch<128, 8, 64, 2, 4, CIN, BATCHED>(j, s);
+  if (j.N <= 64) return accum_launch<8, 64, 2, 16, 4, CIN, BATCHED>(j, s);
+  if (j.N <= 128) return accum_launch<8, 128, 2, 32, 4, CIN, BATCHED>(j, s);
+  if (j.K <= 64) return accum_launch<64, 64, 16, 16, 4, CIN, BATCHED>(j, s);
+  return accum_launch<128, 64, 16, 8, 3, CIN, BATCHED>(j, s);
 }
 
 template <int RBM, int RBN, int RTM, int RTN, int CBM, int CBN, int CTM,
-          int CTN>
-static int panels_launch(const AccumJob& row, const AccumJob& col,
+          int CTN, bool BATCHED>
+static int panels_launch(const BatchJob& row, const BatchJob& col,
                          cudaStream_t s) {
   if (row.M > RBM || col.N > CBN) return (int)cudaErrorInvalidValue;
   const int rb = (row.N + RBN - 1) / RBN;
   const int cb = (col.M + CBM - 1) / CBM;
   if (rb + cb == 0) return (int)cudaSuccess;
-  minplus_panels_kernel<RBM, RBN, RTM, RTN, CBM, CBN, CTM, CTN>
-      <<<rb + cb, RTM * RTN, 0, s>>>(row, col, rb);
-  return (int)cudaGetLastError();
+  for (int b0 = 0; b0 < row.batch; b0 += 65535) {
+    const int bc = (row.batch - b0 < 65535) ? row.batch - b0 : 65535;
+    const dim3 grid(rb + cb, 1, bc);
+    const BatchJob rc = batch_chunk(row, b0), qc = batch_chunk(col, b0);
+    const JobOf<BATCHED>&rarg = rc, &qarg = qc;
+    minplus_panels_kernel<RBM, RBN, RTM, RTN, CBM, CBN, CTM, CTN, BATCHED>
+        <<<grid, RTM * RTN, 0, s>>>(rarg, qarg, rb);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
+// Phase 2's tiles: 64 x 16 and 16 x 64 for k-blocks of up to 64, else
+// 128 x 8 and 8 x 128.
+template <bool BATCHED>
+static int panels_dispatch(const BatchJob& row, const BatchJob& col,
+                           cudaStream_t s) {
+  if (row.M <= 64 && col.N <= 64)
+    return panels_launch<64, 16, 32, 4, 16, 64, 8, 16, BATCHED>(row, col, s);
+  return panels_launch<128, 8, 64, 2, 8, 128, 4, 32, BATCHED>(row, col, s);
 }
 
 #define MG_THREADS 256  // threads a block
@@ -592,59 +719,65 @@ int minplus_gemv(const void* a, const void* b, void* c, int M, int N, int K,
 int minplus_tiles(const void* a, const void* b, void* c, int M, int N,
                   int K, void* stream) {
   if (M <= 0 || N <= 0) return (int)cudaSuccess;
-  const AccumJob j = make_job(nullptr, 0, a, K, b, N, c, N, M, N, K, 0, 0,
-                              0, 0);
+  const BatchJob j = make_job(nullptr, 0, a, K, b, N, c, N, M, N, K, 0, 0,
+                              0, 0, 1, 0, 0, 0);
   return accum_dispatch<false>(j, (cudaStream_t)stream);
 }
 
 // c[i, j] = min(cin[i, j], (a (x) b)[i, j]) for i < M, j < N, but for
 // rows in [sr0, sr1) and columns in [sc0, sc1), which are left as they
-// are.  Row-major views with leading dimensions (elements) ldcin, lda,
-// ldb, ldc.  c may alias cin (same view), and a and b only where every
-// cell of them lies in a skipped row or column of c (phase 3; the note
-// at the top).  Phase 2's aliased panels go through
+// are, in each of `batch` matrices.  Row-major views with leading
+// dimensions ldcin, lda, ldb, ldc and batch strides bsa, bsb, bsc
+// (elements; cin's is c's).  c may alias cin (same view), and a and b
+// only where every cell of them lies in a skipped row or column of c's
+// own matrix (phase 3; the note at the top).  Phase 2's aliased panels go through
 // minplus_accum_panels, whose tiles always span their panel.
 int minplus_accum_ld(const void* cin, long long ldcin, const void* a,
                      long long lda, const void* b, long long ldb, void* c,
                      long long ldc, int M, int N, int K, int sr0, int sr1,
-                     int sc0, int sc1, void* stream) {
-  if (M <= 0 || N <= 0) return (int)cudaSuccess;
-  const AccumJob j = make_job(cin, ldcin, a, lda, b, ldb, c, ldc, M, N, K,
-                              sr0, sr1, sc0, sc1);
-  return accum_dispatch<true>(j, (cudaStream_t)stream);
+                     int sc0, int sc1, int batch, long long bsa,
+                     long long bsb, long long bsc, void* stream) {
+  if (M <= 0 || N <= 0 || batch <= 0) return (int)cudaSuccess;
+  const BatchJob j = make_job(cin, ldcin, a, lda, b, ldb, c, ldc, M, N, K,
+                              sr0, sr1, sc0, sc1, batch, bsa, bsb, bsc);
+  const cudaStream_t s = (cudaStream_t)stream;
+  return batch > 1 ? accum_dispatch<true, true>(j, s)
+                   : accum_dispatch<true, false>(j, s);
 }
 
 // Both panels of phase 2 in one launch, each with minplus_accum_ld's
-// arguments: the row panel (r*, rM <= 128 rows; c may be the same
-// window as b) and the column panel (q*, qN <= 128 columns; c may be
-// the same window as a).  Other operands may alias c only in its
-// skipped cells.  The two must write disjoint cells, neither writing
-// what the other reads.
+// arguments, over the same `batch` matrices: the row panel (r*, rM <=
+// 128 rows; c may be the same window as b) and the column panel (q*,
+// qN <= 128 columns; c may be the same window as a).  Other operands
+// may alias c only in its skipped cells.  The two must write disjoint
+// cells, neither writing what the other reads.
 int minplus_accum_panels(const void* rc, long long ldrc, const void* ra,
                          long long ldra, const void* rb, long long ldrb,
                          int rM, int rN, int rK, int rsc0, int rsc1,
+                         long long rbsc, long long rbsa, long long rbsb,
                          const void* qc, long long ldqc, const void* qa,
                          long long ldqa, const void* qb, long long ldqb,
                          int qM, int qN, int qK, int qsr0, int qsr1,
-                         void* stream) {
-  const AccumJob row = make_job(rc, ldrc, ra, ldra, rb, ldrb, (void*)rc,
+                         long long qbsc, long long qbsa, long long qbsb,
+                         int batch, void* stream) {
+  if (batch <= 0) return (int)cudaSuccess;
+  const BatchJob row = make_job(rc, ldrc, ra, ldra, rb, ldrb, (void*)rc,
                                 ldrc, rM > 0 ? rM : 0, rM > 0 ? rN : 0, rK,
-                                0, 0, rsc0, rsc1);
-  const AccumJob col = make_job(qc, ldqc, qa, ldqa, qb, ldqb, (void*)qc,
+                                0, 0, rsc0, rsc1, batch, rbsa, rbsb, rbsc);
+  const BatchJob col = make_job(qc, ldqc, qa, ldqa, qb, ldqb, (void*)qc,
                                 ldqc, qN > 0 ? qM : 0, qN > 0 ? qN : 0, qK,
-                                qsr0, qsr1, 0, 0);
+                                qsr0, qsr1, 0, 0, batch, qbsa, qbsb, qbsc);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (row.M <= 64 && col.N <= 64)
-    return panels_launch<64, 16, 32, 4, 16, 64, 8, 16>(row, col, s);
-  return panels_launch<128, 8, 64, 2, 8, 128, 4, 32>(row, col, s);
+  return batch > 1 ? panels_dispatch<true>(row, col, s)
+                   : panels_dispatch<false>(row, col, s);
 }
 
 // cin f32 [M, N], a f32 [M, K], b f32 [K, N] (contiguous) -> c =
 // min(cin, a (x) b), c a fresh matrix.
 int minplus_accum(const void* cin, const void* a, const void* b, void* c,
                   int M, int N, int K, void* stream) {
-  return minplus_accum_ld(cin, N, a, K, b, N, c, N, M, N, K, 0, 0, 0, 0,
-                          stream);
+  return minplus_accum_ld(cin, N, a, K, b, N, c, N, M, N, K, 0, 0, 0, 0, 1,
+                          0, 0, 0, stream);
 }
 
 }  // extern "C"

@@ -17,20 +17,26 @@ group closures and the large piece buckets.  ``fw_next_global``, one
 launch per pivot, left the main path with the blocked variant and stays
 callable so the two can be timed side by side.
 
-Distance-only FW, port of ``fw_batch_pallas``: the kernel is
-``csrc/fw_dist.cu`` (each matrix in one block's registers up to n =
-128, in shared memory up to n = 240, one launch per pivot above) and its
-plain version ``ref.fw_batch_ref``.
+Distance-only FW, port of ``fw_batch_pallas``, with plain version
+``ref.fw_batch_ref``: ``fw_batch_cuda`` holds each matrix in one
+block's registers up to n = DIST_REG_MAX_N (``fw_dist_reg`` in
+``csrc/fw_dist.cu``, one launch), and above it runs the blocked
+schedule below over the whole batch at once, in place on its output
+(``fw_dist_blocked_cuda``: 3 launches a k-block of DIST_BLOCK pivots).
+``fw_dist_smem_cuda`` (a matrix in one block's shared memory, n <= 240)
+and ``fw_dist_global_cuda`` (one launch a pivot), which that route
+replaced, stay callable so that the two can be timed beside it.
 
-``fw_blocked`` is the 3-phase blocked APSP of ``fw_blocked`` in the
-reference, run in place on one padded matrix: phase 1 through
-``ops.fw_batch`` on the diagonal tile, phase 2 through
-``ops.minplus_accum_panels`` and phase 3 through
-``ops.minplus_accum_into`` on views of the matrix.  Each kernel wrapper
-counts its launches in ``.launches``; ``fw_batch_cuda`` counts the
-distance-only FW's register and shared-memory variants, and
-``fw_dist_global_cuda``, which it calls above n = 240, the per-pivot
-one.
+``fw_blocked_into`` is the 3-phase blocked APSP of ``fw_blocked`` in the
+reference, run in place on a matrix or on every matrix of a batch at
+once: phase 1 through ``ops.fw_batch`` on the diagonal tiles, phase 2
+through ``ops.minplus_accum_panels`` and phase 3 through
+``ops.minplus_accum_into`` on views of the matrices.  It is the one
+blocked distance schedule: kernel 3's route above n = 128 runs it on a
+batch, ``fw_blocked`` (``ops.fw_apsp``, the hierarchy's top closure) on
+one padded matrix.  Each kernel wrapper counts its launches in
+``.launches``; ``fw_batch_cuda`` counts ``fw_dist_reg``'s (the blocked
+schedule's phase 1 included), ``fw_dist_blocked_cuda`` its calls.
 """
 from __future__ import annotations
 
@@ -53,8 +59,14 @@ REG_MAX_N = REG_SHAPES[-1]
 #: largest n of the distance-only shared-memory variant (FWD_SMEM_MAX_N
 #: in fw_dist.cu): 240 * 240 cells * 4 bytes = 225 KB
 DIST_SMEM_MAX_N = 240
-#: largest n of the distance-only register variant (FWD_REG_MAX_N)
+#: largest n of the distance-only register variant (FWD_REG_MAX_N);
+#: kernel 3 runs the blocked schedule above it
 DIST_REG_MAX_N = 128
+#: k-block width of kernel 3's blocked route: 64 pivots, the register
+#: tile of ``fw_dist_reg`` at n = 64 (timed against 128 at road64k's
+#: fragments [130, 496, 496] by ``scripts/kernel_ab.py --fwdist``,
+#: PERF.md)
+DIST_BLOCK = 64
 #: k-block widths of the blocked APSP: 64 up to n = APSP_WIDE_N, 128
 #: above.  Timed at n = 1,711 and 4,661 by ``scripts/kernel_ab.py
 #: --fwapsp`` (PERF.md): 64 won at 1,711 (its phase 1 is 4x cheaper a
@@ -237,12 +249,13 @@ def _check_rows(d: torch.Tensor, kernel: str) -> tuple[int, int]:
 def fw_batch_cuda(d: torch.Tensor, out: torch.Tensor | None = None
                   ) -> torch.Tensor:
     """Batched distance-only APSP on the card: [b, n, n] -> dist, into
-    ``out`` when given (which may be ``d`` itself) else a new tensor.
-    Up to n = DIST_REG_MAX_N each matrix sits in one block's registers
-    and ``d`` and ``out`` may be strided views (rows contiguous), as the
-    blocked schedule's diagonal tile is; above that ``d`` and ``out``
-    are contiguous, the shared-memory variant takes n <= DIST_SMEM_MAX_N
-    and one launch a pivot the rest."""
+    ``out`` when given (which may be ``d`` itself) else a new tensor
+    (``dist_out``).  ``d`` and ``out`` may be strided views whose rows
+    are contiguous.  Up to n = DIST_REG_MAX_N each matrix sits in one
+    block's registers (``fw_dist_reg``, one launch, as the blocked
+    schedule's diagonal tiles are run); above it the blocked schedule
+    runs over all b matrices at once, in place on ``out``
+    (``fw_dist_blocked_cuda``).  A failed build or launch raises."""
     b, n = _check_rows(d, "fw_dist")
     if out is None:
         out = dist_out(d)
@@ -250,41 +263,70 @@ def fw_batch_cuda(d: torch.Tensor, out: torch.Tensor | None = None
         raise ValueError(f"fw_dist kernel: out is {tuple(out.shape)} on "
                          f"{out.device}, expected {tuple(d.shape)} on "
                          f"{d.device}")
-    if n > DIST_REG_MAX_N and not (d.is_contiguous()
-                                   and out.is_contiguous()):
-        raise ValueError(f"fw_dist kernel takes contiguous tensors above "
-                         f"n = {DIST_REG_MAX_N}")
-    if n > DIST_SMEM_MAX_N:
-        return fw_dist_global_cuda(d, out)
+    if n > DIST_REG_MAX_N:
+        return fw_dist_blocked_cuda(d, out)
     with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if n <= DIST_REG_MAX_N:
-            launch_dist_reg(d.data_ptr(), out.data_ptr(), b, n,
-                            ld_in=d.stride(1), ld_out=out.stride(1),
-                            bs_in=d.stride(0), bs_out=out.stride(0),
-                            stream=stream)
-            return out
-        err = _dist_lib().fw_dist_smem(d.data_ptr(), out.data_ptr(), b, n,
-                                       stream)
-    if err != 0:
-        raise RuntimeError(f"fw_dist_smem launch failed: CUDA error {err}")
-    fw_batch_cuda.launches += 1
+        launch_dist_reg(d.data_ptr(), out.data_ptr(), b, n,
+                        ld_in=d.stride(1), ld_out=out.stride(1),
+                        bs_in=d.stride(0), bs_out=out.stride(0),
+                        stream=torch.cuda.current_stream().cuda_stream)
     return out
 
 
-def fw_dist_global_cuda(d: torch.Tensor, out: torch.Tensor
-                        ) -> torch.Tensor:
-    """The per-pivot variant of kernel 3 (one launch a pivot, any n):
-    ``fw_batch_cuda``'s route above DIST_SMEM_MAX_N, which checks the
-    operands (contiguous [b, n, n] float32 on one card) and calls this.
-    Its launches are counted here, apart from the other variants'."""
+def fw_dist_blocked_cuda(d: torch.Tensor, out: torch.Tensor
+                         ) -> torch.Tensor:
+    """Kernel 3 above DIST_REG_MAX_N (``fw_batch_cuda`` checks the
+    operands and calls this): ``d`` copied into ``out`` (unless it is
+    ``out``), then ``fw_blocked_into`` on ``out`` in k-blocks of
+    DIST_BLOCK, every matrix of the batch at once: per k-block one
+    ``fw_dist_reg`` launch over the b pivot tiles, one
+    ``minplus_accum_panels`` over the 2 b panels and one
+    ``minplus_accum_ld`` over the rest of every matrix.  No padding and
+    no scratch: the last k-block is short and the kernels mask the
+    ragged edge.  Counts its calls; the three kernels count their
+    launches on their own wrappers."""
+    if not (out.data_ptr() == d.data_ptr() and out.stride() == d.stride()):
+        out.copy_(d)
+    _blocked_cuda(out, blocked_steps(d.shape[-1], DIST_BLOCK), DIST_BLOCK)
+    fw_dist_blocked_cuda.launches += 1
+    return out
+
+
+def _dist_baseline(entry: str, d: torch.Tensor, out) -> torch.Tensor:
+    _check(d, entry)
+    if out is None:
+        out = dist_out(d)
+    elif out.shape != d.shape or not out.is_contiguous():
+        raise ValueError(f"{entry} kernel: out must be contiguous "
+                         f"{tuple(d.shape)}, got {tuple(out.shape)}")
     with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _dist_lib().fw_dist_global(d.data_ptr(), out.data_ptr(),
-                                         d.shape[0], d.shape[1], stream)
+        err = getattr(_dist_lib(), entry)(
+            d.data_ptr(), out.data_ptr(), d.shape[0], d.shape[1],
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"fw_dist_global launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+    return out
+
+
+def fw_dist_smem_cuda(d: torch.Tensor, out: torch.Tensor | None = None
+                      ) -> torch.Tensor:
+    """The shared-memory variant of kernel 3 (one block a matrix, n <=
+    DIST_SMEM_MAX_N, contiguous operands): off the route since the
+    blocked one took n above 128, kept to be timed beside it."""
+    if d.shape[-1] > DIST_SMEM_MAX_N:
+        raise ValueError(f"fw_dist_smem takes n <= {DIST_SMEM_MAX_N}, got "
+                         f"{d.shape[-1]}")
+    out = _dist_baseline("fw_dist_smem", d, out)
+    fw_dist_smem_cuda.launches += 1
+    return out
+
+
+def fw_dist_global_cuda(d: torch.Tensor, out: torch.Tensor | None = None
+                        ) -> torch.Tensor:
+    """The per-pivot variant of kernel 3 (an init launch, then one a
+    pivot, any n, contiguous operands): off the route since the blocked
+    one, kept to be timed beside it."""
+    out = _dist_baseline("fw_dist_global", d, out)
     fw_dist_global_cuda.launches += 1
     return out
 
@@ -304,37 +346,38 @@ def launch_dist_reg(din: int, dout: int, b: int, n: int, *, ld_in: int,
 
 
 fw_batch_cuda.launches = 0
+fw_dist_blocked_cuda.launches = 0
+fw_dist_smem_cuda.launches = 0
 fw_dist_global_cuda.launches = 0
 
 
-def blocked_steps(np_: int, block: int):
-    """The launches of the blocked schedule on a padded [np_, np_]
-    matrix, in order, each operand a window (row, col, rows, cols) of
-    the matrix.  Per k-block K = [s, e):
+def blocked_steps(n: int, block: int):
+    """The launches of the blocked schedule on an [n, n] matrix (each
+    matrix of a batch alike), in order, each operand a window (row, col,
+    rows, cols) of the matrix.  Per k-block K = [s, e), e = min(s +
+    block, n) (the last one short where block does not divide n):
       ("fw", tile):                           phase 1 on the pivot tile;
       ("p2", (c, a, b), skip_cols, (c, a, b), skip_rows):
           phase 2, the row panel (C = B, the pivot columns skipped) and
           the column panel (C = A, the pivot rows skipped) at once;
       ("mp", c, a, b, skip_rows, skip_cols):  phase 3 on the whole
           matrix, the band skipped."""
-    for s in range(0, np_, block):
-        e = s + block
-        piv, row, col = (s, s, block, block), (s, 0, block, np_), \
-            (0, s, np_, block)
+    for s in range(0, n, block):
+        e = min(s + block, n)
+        w = e - s
+        piv, row, col = (s, s, w, w), (s, 0, w, n), (0, s, n, w)
         yield ("fw", piv)
         yield ("p2", (row, piv, row), (s, e), (col, col, piv), (s, e))
-        yield ("mp", (0, 0, np_, np_), col, row, (s, e), (s, e))
+        yield ("mp", (0, 0, n, n), col, row, (s, e), (s, e))
 
 
-def fw_blocked(d: torch.Tensor, *, block: int | None = None, force=None
-               ) -> torch.Tensor:
-    """3-phase blocked Floyd-Warshall for one [n, n] matrix, the
-    reference's ``fw_blocked`` schedule, in place on one padded matrix,
-    in k-blocks of ``block`` (default ``apsp_block(n)``).
-
-    Pads to a block multiple with +inf (diagonal 0), allocated once.
-    Per k-block K = [s, e), with P = D[K, K]:
-      phase 1: P = FW(P), in place                     (ops.fw_batch)
+def fw_blocked_into(x: torch.Tensor, *, block: int, force=None
+                    ) -> torch.Tensor:
+    """The 3-phase blocked Floyd-Warshall in place on x, one [n, n]
+    matrix or every matrix of a batch [b, n, n] at once, in k-blocks of
+    ``block`` pivots (at most 128 on the card); returns x.  Per k-block
+    K = [s, e), with P = D[K, K] (of each matrix):
+      phase 1: P = FW(P), in place, diagonal 0           (ops.fw_batch)
       phase 2: D[K, *] = min(D[K, *], P (x) D[K, *]), columns K kept;
                D[*, K] = min(D[*, K], D[*, K] (x) P), rows K kept
                                               (ops.minplus_accum_panels)
@@ -343,14 +386,49 @@ def fw_blocked(d: torch.Tensor, *, block: int | None = None, force=None
     The kept cells are the reference's fixed points: a closed P gives
     min(P, P (x) P) = P, and after phase 2 the bands are closed under
     phase 3, so on integer-valued input (exact sums) this equals the
-    reference, which rewrites them.  The launches are
-    ``blocked_steps``: on the card they go straight to the kernels'
-    launch sites (block <= 128, so each phase-2 panel fits one tile's
-    rows or columns), on the CPU through ``ops`` (the plain versions) on
-    views of the same windows, so the CPU tests hold the windows the
-    card's pointers are computed from.
-    """
+    serial reference, which rewrites them.  A diagonal cell is first
+    read as a pivot's, in its own phase 1, which sets it to 0, so x
+    needs no zeroed diagonal: the result is the reference's.  The
+    launches are ``blocked_steps``: on the card they go straight to the
+    kernels' launch sites (``_card_launches``), elsewhere through
+    ``ops`` (the plain versions) on views of the same windows, so the
+    CPU tests hold the windows the card's pointers are computed from.
+    On ``meta`` nothing is launched or allocated."""
     from . import ops                  # ops imports this module
+    steps = blocked_steps(x.shape[-1], block)
+    if x.device.type == "meta" and force != "ref":
+        return x
+    if ops.use_kernel(x.device, force):
+        _blocked_cuda(x, steps, block)
+        return x
+
+    def view(w):
+        return x[..., w[0]:w[0] + w[2], w[1]:w[1] + w[3]]
+    for step in steps:
+        if step[0] == "fw":
+            tile = view(step[1])
+            tile = tile if tile.dim() == 3 else tile[None]
+            ops.fw_batch(tile, out=tile, force=force)
+        elif step[0] == "p2":
+            _, row, skip_c, col, skip_r = step
+            ops.minplus_accum_panels(
+                tuple(map(view, row)), tuple(map(view, col)),
+                skip_cols=skip_c, skip_rows=skip_r, force=force)
+        else:
+            _, c, a, b, skip_r, skip_c = step
+            ops.minplus_accum_into(view(c), view(a), view(b),
+                                   skip_rows=skip_r, skip_cols=skip_c,
+                                   force=force)
+    return x
+
+
+def fw_blocked(d: torch.Tensor, *, block: int | None = None, force=None
+               ) -> torch.Tensor:
+    """The reference's ``fw_blocked`` for one [n, n] matrix: padded to a
+    multiple of ``block`` (default ``apsp_block(n)``) with +inf,
+    diagonal 0, allocated once (the padded rows keep the card's loads
+    16 bytes wide at any n), closed by ``fw_blocked_into`` in place, the
+    [n, n] corner returned."""
     n = d.shape[0]
     block = block or apsp_block(n)
     np_ = -(-n // block) * block
@@ -358,64 +436,63 @@ def fw_blocked(d: torch.Tensor, *, block: int | None = None, force=None
                      device=d.device)
     pad[:n, :n] = d
     pad.fill_diagonal_(0.0)
-    steps = blocked_steps(np_, block)
-    if pad.device.type == "meta" and force != "ref":
-        pass                       # in place on the card: nothing allocated
-    elif ops.use_kernel(pad.device, force):
-        _blocked_cuda(pad, steps, block)
-    else:
-        def view(w):
-            return pad[w[0]:w[0] + w[2], w[1]:w[1] + w[3]]
-        for step in steps:
-            if step[0] == "fw":
-                tile = view(step[1])[None]
-                ops.fw_batch(tile, out=tile, force=force)
-            elif step[0] == "p2":
-                _, row, skip_c, col, skip_r = step
-                ops.minplus_accum_panels(
-                    tuple(map(view, row)), tuple(map(view, col)),
-                    skip_cols=skip_c, skip_rows=skip_r, force=force)
-            else:
-                _, c, a, b, skip_r, skip_c = step
-                ops.minplus_accum_into(view(c), view(a), view(b),
-                                       skip_rows=skip_r, skip_cols=skip_c,
-                                       force=force)
+    fw_blocked_into(pad, block=block, force=force)
     return pad[:n, :n].contiguous()
 
 
-def _blocked_cuda(pad: torch.Tensor, steps, block: int) -> None:
-    """The blocked schedule's launches on the card: each step's operands
-    computed from its windows (element offset row * np + col into
-    ``pad``) and handed to the kernels' launch sites, with no tensor
-    view or check a launch, since every window lies inside ``pad`` and
-    the aliasing is the one ``csrc/minplus.cu`` allows."""
-    from .minplus import PANEL, Job, launch_into, launch_panels
+def _card_launches(x: torch.Tensor, steps):
+    """The launches of ``steps`` on x (a matrix [n, n] or a batch
+    [b, n, n]) as the card's launch sites take them, every operand's
+    address computed from its window (row r, column c: r * ld + c
+    elements into each matrix), with x's row stride ld and batch stride
+    (0 for one matrix):
+      ("fw", address, b, rows, ld, batch stride)   ``launch_dist_reg``
+      ("p2", row Job, skip_cols, col Job, skip_rows)  ``launch_panels``
+      ("mp", Job, skip_rows, skip_cols)               ``launch_into``"""
+    from .minplus import Job
+    x3 = x if x.dim() == 3 else x[None]
+    b, ld = x3.shape[0], x3.stride(1)
+    bs = x3.stride(0) if b > 1 else 0
+    base = x3.data_ptr()
+
+    def ptr(w):
+        return base + 4 * (w[0] * ld + w[1])
+
+    def job(c, a, bb):
+        return Job(c=ptr(c), ldc=ld, a=ptr(a), lda=ld, b=ptr(bb), ldb=ld,
+                   m=c[2], n=c[3], k=a[3], batch=b, bsc=bs, bsa=bs, bsb=bs)
+    for step in steps:
+        if step[0] == "fw":
+            yield ("fw", ptr(step[1]), b, step[1][2], ld, bs)
+        elif step[0] == "p2":
+            _, row, skip_c, col, skip_r = step
+            yield ("p2", job(*row), skip_c, job(*col), skip_r)
+        else:
+            _, c, a, bb, skip_r, skip_c = step
+            yield ("mp", job(c, a, bb), skip_r, skip_c)
+
+
+def _blocked_cuda(x: torch.Tensor, steps, block: int) -> None:
+    """The blocked schedule's launches on the card (``_card_launches``),
+    with no tensor view or check a launch: every window lies inside
+    each matrix of x, the matrices do not overlap, and the aliasing is
+    the one ``csrc/minplus.cu`` allows."""
+    from .minplus import PANEL, launch_into, launch_panels
     if block > min(PANEL, DIST_REG_MAX_N):
         raise ValueError(f"fw_blocked on the card takes block <= "
                          f"{min(PANEL, DIST_REG_MAX_N)}, got {block}")
-    _check_rows(pad[None], "fw_blocked")
-    if not pad.is_contiguous():
-        raise ValueError("fw_blocked: the padded matrix must be contiguous")
-    np_ = pad.shape[0]
-    base = pad.data_ptr()
-
-    def ptr(w):
-        return base + 4 * (w[0] * np_ + w[1])
-
-    def job(c, a, b):
-        return Job(c=ptr(c), ldc=np_, a=ptr(a), lda=np_, b=ptr(b), ldb=np_,
-                   m=c[2], n=c[3], k=a[3])
-    with torch.cuda.device(pad.device):
+    x3 = x if x.dim() == 3 else x[None]
+    b, n = _check_rows(x3, "fw_blocked")
+    if b > 1 and x3.stride(0) < (n - 1) * x3.stride(1) + n:
+        raise ValueError("fw_blocked: the matrices of the batch overlap")
+    with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for step in steps:
-            if step[0] == "fw":
-                p = ptr(step[1])
-                launch_dist_reg(p, p, 1, block, ld_in=np_, ld_out=np_,
-                                bs_in=np_ * np_, bs_out=np_ * np_,
-                                stream=stream)
-            elif step[0] == "p2":
-                _, row, skip_c, col, skip_r = step
-                launch_panels(job(*row), skip_c, job(*col), skip_r, stream)
+        for launch in _card_launches(x, steps):
+            if launch[0] == "fw":
+                _, p, bt, w, ld, bs = launch
+                launch_dist_reg(p, p, bt, w, ld_in=ld, ld_out=ld, bs_in=bs,
+                                bs_out=bs, stream=stream)
+            elif launch[0] == "p2":
+                launch_panels(*launch[1:], stream)
             else:
-                _, c, a, b, skip_r, skip_c = step
-                launch_into(job(c, a, b), skip_r, skip_c, stream)
+                launch_into(*launch[1:], stream)

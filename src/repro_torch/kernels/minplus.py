@@ -19,9 +19,8 @@ A third wrapper runs the accumulating kernel in place, on strided views:
         c[i, j] = min(c[i, j], (a (x) b)[i, j]), but for the skipped
         rows and columns
 
-which is how the blocked Floyd-Warshall's phase 3 updates its padded
-matrix where it lies, and a fourth runs phase 2's two panels in one
-launch:
+which is how the blocked Floyd-Warshall's phase 3 updates its matrix
+where it lies, and a fourth runs phase 2's two panels in one launch:
 
     minplus_accum_panels_cuda(row, col, skip_cols=, skip_rows=)
         minplus_accum_into_cuda(*row, skip_cols=skip_cols) and
@@ -30,6 +29,8 @@ launch:
 
 (``csrc/minplus.cu`` states when the views may alias; plain versions
 ``ref.minplus_accum_into_ref`` and ``ref.minplus_accum_panels_ref``).
+The two in-place wrappers take matrices [m, n] or batches [b, m, n] of
+them (the blocked FW over a batch of matrices), one launch either way.
 Each wrapper counts its calls in ``.launches``.
 """
 from __future__ import annotations
@@ -79,10 +80,12 @@ def _lib() -> ctypes.CDLL:
         lib.minplus_accum.restype = ctypes.c_int
         ll = ctypes.c_longlong
         lib.minplus_accum_ld.argtypes = [_VP, ll, _VP, ll, _VP, ll, _VP, ll,
-                                         _I, _I, _I, _I, _I, _I, _I, _VP]
+                                         _I, _I, _I, _I, _I, _I, _I, _I, ll,
+                                         ll, ll, _VP]
         lib.minplus_accum_ld.restype = ctypes.c_int
         lib.minplus_accum_panels.argtypes = (
-            [_VP, ll, _VP, ll, _VP, ll, _I, _I, _I, _I, _I] * 2 + [_VP])
+            [_VP, ll, _VP, ll, _VP, ll, _I, _I, _I, _I, _I, ll, ll, ll] * 2
+            + [_I, _VP])
         lib.minplus_accum_panels.restype = ctypes.c_int
     return lib
 
@@ -102,7 +105,7 @@ def _check(kernel: str, ref: torch.Tensor, **mats: torch.Tensor) -> None:
 
 def _shapes(kernel: str, a: torch.Tensor, b: torch.Tensor
             ) -> tuple[int, int, int]:
-    (m, k), (k2, n) = a.shape, b.shape
+    (m, k), (k2, n) = a.shape[-2:], b.shape[-2:]
     if k != k2:
         raise ValueError(f"{kernel} kernel: shapes {tuple(a.shape)} and "
                          f"{tuple(b.shape)} do not chain")
@@ -164,7 +167,8 @@ PANEL = 128
 class Job(NamedTuple):
     """One in-place product as the C entries take it: device addresses
     and leading dimensions (elements) of c (which is also c_in), a and
-    b, and the sizes c [m, n], a [m, k], b [k, n]."""
+    b, the sizes c [m, n], a [m, k], b [k, n], and the number of
+    matrices with each operand's batch stride (elements; 0 for one)."""
     c: int
     ldc: int
     a: int
@@ -174,12 +178,22 @@ class Job(NamedTuple):
     m: int
     n: int
     k: int
+    batch: int = 1
+    bsc: int = 0
+    bsa: int = 0
+    bsb: int = 0
 
 
 def _job(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> Job:
-    return Job(c=c.data_ptr(), ldc=c.stride(0), a=a.data_ptr(),
-               lda=a.stride(0), b=b.data_ptr(), ldb=b.stride(0),
-               m=c.shape[0], n=c.shape[1], k=a.shape[1])
+    """The Job of views c, a, b: matrices, or batches of them."""
+    batch = c.shape[0] if c.dim() == 3 else 1
+
+    def bs(x):
+        return x.stride(0) if x.dim() == 3 and batch > 1 else 0
+    return Job(c=c.data_ptr(), ldc=c.stride(-2), a=a.data_ptr(),
+               lda=a.stride(-2), b=b.data_ptr(), ldb=b.stride(-2),
+               m=c.shape[-2], n=c.shape[-1], k=a.shape[-1], batch=batch,
+               bsc=bs(c), bsa=bs(a), bsb=bs(b))
 
 
 def launch_into(job: Job, skip_rows, skip_cols, stream: int) -> None:
@@ -191,7 +205,8 @@ def launch_into(job: Job, skip_rows, skip_cols, stream: int) -> None:
     (r0, r1), (c0, c1) = skip_rows, skip_cols
     err = _lib().minplus_accum_ld(job.c, job.ldc, job.a, job.lda, job.b,
                                   job.ldb, job.c, job.ldc, job.m, job.n,
-                                  job.k, r0, r1, c0, c1, stream)
+                                  job.k, r0, r1, c0, c1, job.batch, job.bsa,
+                                  job.bsb, job.bsc, stream)
     if err != 0:
         raise RuntimeError(f"minplus_accum_ld launch failed: CUDA error "
                            f"{err}")
@@ -202,25 +217,41 @@ def launch_panels(row: Job, skip_cols, col: Job, skip_rows,
                   stream: int) -> None:
     """One launch of ``minplus_accum_panels`` (the one place that packs
     its C arguments): the launch site of ``minplus_accum_panels_cuda``
-    and of the blocked schedule.  Counts the launch."""
+    and of the blocked schedule.  The two jobs cover the same matrices
+    (the row job's ``batch``).  Counts the launch."""
     err = _lib().minplus_accum_panels(
         row.c, row.ldc, row.a, row.lda, row.b, row.ldb, row.m, row.n,
-        row.k, *skip_cols, col.c, col.ldc, col.a, col.lda, col.b, col.ldb,
-        col.m, col.n, col.k, *skip_rows, stream)
+        row.k, *skip_cols, row.bsc, row.bsa, row.bsb, col.c, col.ldc, col.a,
+        col.lda, col.b, col.ldb, col.m, col.n, col.k, *skip_rows, col.bsc,
+        col.bsa, col.bsb, row.batch, stream)
     if err != 0:
         raise RuntimeError(f"minplus_accum_panels launch failed: CUDA "
                            f"error {err}")
     minplus_accum_panels_cuda.launches += 1
 
 
+def _span(t: torch.Tensor) -> tuple[int, int]:
+    """The first and last byte addresses a view's elements start at."""
+    lo = t.data_ptr()
+    return lo, lo + 4 * sum((n - 1) * st for n, st in zip(t.shape,
+                                                         t.stride()))
+
+
 def _overlap(x: torch.Tensor, y: torch.Tensor) -> bool:
     """Whether the memory spans of two views intersect."""
-    def span(t):
-        lo = t.data_ptr()
-        hi = lo + 4 * sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
-        return lo, hi
-    (a0, a1), (b0, b1) = span(x), span(y)
+    (a0, a1), (b0, b1) = _span(x), _span(y)
     return a0 <= b1 and b0 <= a1
+
+
+def _same_slots(c: torch.Tensor, x: torch.Tensor) -> bool:
+    """For batches c, x [bt, ., .]: whether matrix z of x can share
+    memory only with matrix z of c: one batch stride, and c[0] and x[0]
+    together within one stride's span, so that the matrices of the two
+    lie in the same disjoint slots."""
+    if c.stride(0) != x.stride(0):
+        return False
+    (a0, a1), (b0, b1) = _span(c[0]), _span(x[0])
+    return max(a1, b1) + 4 - min(a0, b0) <= 4 * c.stride(0)
 
 
 def _skipped(c: torch.Tensor, x: torch.Tensor, skip_rows, skip_cols
@@ -240,8 +271,9 @@ def _skipped(c: torch.Tensor, x: torch.Tensor, skip_rows, skip_cols
 
 def _check_views(kernel: str, c: torch.Tensor, a: torch.Tensor,
                  b: torch.Tensor) -> tuple[int, int, int]:
-    """(m, n, k) of views c [m, n], a [m, k], b [k, n]: float32 on c's
-    CUDA device, unit column stride."""
+    """(m, n, k) of views c [m, n], a [m, k], b [k, n], or of three
+    batches [bt, ...] of as many such matrices: float32 on c's CUDA
+    device, unit column stride."""
     for name, x in (("c", c), ("a", a), ("b", b)):
         if not x.is_cuda or x.device != c.device:
             raise ValueError(f"{kernel} kernel: {name} must be a CUDA "
@@ -249,13 +281,18 @@ def _check_views(kernel: str, c: torch.Tensor, a: torch.Tensor,
         if x.dtype != torch.float32:
             raise TypeError(f"{kernel} kernel: {name} must be float32, "
                             f"got {x.dtype}")
-        if x.dim() != 2 or (x.shape[1] > 1 and x.stride(1) != 1):
+        if (x.dim() not in (2, 3) or x.dim() != c.dim()
+                or (x.shape[-1] > 1 and x.stride(-1) != 1)):
             raise ValueError(f"{kernel} kernel: {name} must be a matrix "
-                             f"with unit column stride")
+                             f"(or a batch of them, as c is) with unit "
+                             f"column stride")
+    if c.dim() == 3 and not c.shape[0] == a.shape[0] == b.shape[0]:
+        raise ValueError(f"{kernel} kernel: batches of {c.shape[0]}, "
+                         f"{a.shape[0]} and {b.shape[0]} matrices")
     m, n, k = _shapes(kernel, a, b)
-    if tuple(c.shape) != (m, n):
+    if tuple(c.shape[-2:]) != (m, n):
         raise ValueError(f"{kernel} kernel: c is {tuple(c.shape)}, "
-                         f"expected {(m, n)}")
+                         f"expected {(m, n)} matrices")
     return m, n, k
 
 
@@ -269,7 +306,17 @@ def _check_alias(kernel: str, c: torch.Tensor, a: torch.Tensor,
                  ) -> None:
     """Refuses a or b sharing c's memory beyond c's skipped cells, but
     for the panel operand ``panel`` ("a" or "b"), which may be the same
-    window as c (``csrc/minplus.cu`` says why each case is race-free)."""
+    window as c (``csrc/minplus.cu`` says why each case is race-free).
+    Batches are held to it matrix by matrix: an operand that shares c's
+    memory must lie in c's batch slots (``_same_slots``), and its first
+    matrix is then checked against c's."""
+    if c.dim() == 3:
+        for name, x in (("a", a), ("b", b)):
+            if c.shape[0] > 1 and _overlap(c, x) and not _same_slots(c, x):
+                raise ValueError(f"{kernel} kernel: {name} shares c's "
+                                 f"memory across the matrices of the "
+                                 f"batch")
+        c, a, b = c[0], a[0], b[0]
     for name, x in (("a", a), ("b", b)):
         if (not _overlap(c, x) or _skipped(c, x, skip_rows, skip_cols)
                 or (name == panel and _same_window(c, x))):
@@ -283,11 +330,12 @@ def minplus_accum_into_cuda(c: torch.Tensor, a: torch.Tensor,
                             b: torch.Tensor, *, skip_rows=(0, 0),
                             skip_cols=(0, 0)) -> torch.Tensor:
     """c [m, n], a [m, k], b [k, n]: float32 views on one CUDA device
-    with unit column stride.  Writes min(c, a (x) b) into c in place,
-    but for rows in [skip_rows) and columns in [skip_cols), and returns
-    c.  a and b may share memory with c only in c's skipped cells (the
-    blocked schedule's phase 3: its bands); phase 2's aliased panels go
-    through ``minplus_accum_panels_cuda``."""
+    with unit column stride, or batches [bt, ...] of such views (one
+    launch for all).  Writes min(c, a (x) b) into c in place, but for
+    rows in [skip_rows) and columns in [skip_cols), and returns c.  a
+    and b may share memory with c only in c's skipped cells (the blocked
+    schedule's phase 3: its bands); phase 2's aliased panels go through
+    ``minplus_accum_panels_cuda``."""
     _check_views("minplus_accum_into", c, a, b)
     _check_alias("minplus_accum_into", c, a, b, skip_rows, skip_cols)
     with torch.cuda.device(c.device):
@@ -298,7 +346,8 @@ def minplus_accum_into_cuda(c: torch.Tensor, a: torch.Tensor,
 
 def minplus_accum_panels_cuda(row, col, *, skip_cols=(0, 0),
                               skip_rows=(0, 0)) -> None:
-    """Phase 2 of the blocked FW in one launch: ``row`` = (c, a, b) with
+    """Phase 2 of the blocked FW in one launch (matrices or batches of
+    them, as in ``minplus_accum_into_cuda``): ``row`` = (c, a, b) with
     at most PANEL rows gets ``minplus_accum_into_cuda(*row,
     skip_cols=skip_cols)``, ``col`` = (c, a, b) with at most PANEL
     columns ``minplus_accum_into_cuda(*col, skip_rows=skip_rows)``.  In
@@ -309,6 +358,9 @@ def minplus_accum_panels_cuda(row, col, *, skip_cols=(0, 0),
     both)."""
     (rm, _, _), (_, qn, _) = (_check_views("minplus_accum_panels", *job)
                               for job in (row, col))
+    if row[0].shape[:-2] != col[0].shape[:-2]:
+        raise ValueError("minplus_accum_panels kernel: the row and column "
+                         "panels must cover the same matrices")
     if rm > PANEL or qn > PANEL:
         raise ValueError(f"minplus_accum_panels kernel: the row panel has "
                          f"{rm} rows, the column panel {qn} columns; at "

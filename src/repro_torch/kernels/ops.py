@@ -206,7 +206,10 @@ def minplus_accum_panels(row, col, *, skip_cols=(0, 0), skip_rows=(0, 0),
 def fw_batch(d: torch.Tensor, *, out: torch.Tensor | None = None,
              force: Force = None) -> torch.Tensor:
     """Distance-only batched APSP over [b, n, n] (diagonal forced to 0),
-    into ``out`` when given (which may be ``d``)."""
+    into ``out`` when given (which may be ``d``).  On the card (kernel
+    3, ``fw_batch_cuda``) in registers up to n = 128, by the batched
+    blocked schedule in place on the output above; either way the
+    output is all it allocates, as on ``meta``."""
     r = _route(d, force)
     if r == "meta":
         return dist_out(d) if out is None else out
@@ -218,12 +221,13 @@ def fw_batch(d: torch.Tensor, *, out: torch.Tensor | None = None,
 
 def fw_apsp(d: torch.Tensor, *, block: int | None = None,
             force: Force = None) -> torch.Tensor:
-    """APSP for a single [n, n] matrix: the blocked 3-phase schedule
+    """APSP for a single [n, n] matrix: on the card the blocked 3-phase
+    schedule (``floyd_warshall.fw_blocked``: ``fw_blocked_into`` on one
+    padded matrix, the case b = 1 of kernel 3's route above n = 128)
     over kernels ``fw_batch``, ``minplus_accum_panels`` and
-    ``minplus_accum_into`` on the card, in k-blocks of ``block`` (at
-    most 128 there; default ``floyd_warshall.apsp_block(n)``), the
-    single-pivot plain version ``fw_ref`` on the CPU (as the reference's
-    CPU path runs)."""
+    ``minplus_accum_into``, in k-blocks of ``block`` (at most 128 there;
+    default ``floyd_warshall.apsp_block(n)``); the single-pivot plain
+    version ``fw_ref`` on the CPU (as the reference's CPU path runs)."""
     if use_kernel(d.device, force):
         return fw_blocked(d, block=block, force=force)
     return _ref.fw_ref(d)

@@ -309,17 +309,21 @@ def label_merge_ref(labs: torch.Tensor, labt: torch.Tensor) -> torch.Tensor:
 
 def minplus_ref(a: torch.Tensor, b: torch.Tensor, *, chunk: int = 16
                 ) -> torch.Tensor:
-    """C[i, j] = min_k A[i, k] + B[k, j] (tropical GEMM).
+    """C[i, j] = min_k A[i, k] + B[k, j] (tropical GEMM), over the last
+    two dimensions: A [..., m, k], B [..., k, n], leading (batch)
+    dimensions broadcast.
 
-    k-chunked so the peak intermediate is [m, chunk, n]; min does not
-    depend on order, so the result equals the unchunked oracle.
+    k-chunked so the peak intermediate is [..., m, chunk, n]; min does
+    not depend on order, so the result equals the unchunked oracle.
     """
-    m, k = a.shape
-    out = torch.full((m, b.shape[1]), float("inf"), dtype=a.dtype,
+    m, k = a.shape[-2:]
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    out = torch.full((*lead, m, b.shape[-1]), float("inf"), dtype=a.dtype,
                      device=a.device)
     for i in range(0, k, chunk):
-        out = torch.minimum(out, (a[:, i:i + chunk, None]
-                                  + b[None, i:i + chunk, :]).amin(dim=1))
+        out = torch.minimum(out, (a[..., :, i:i + chunk, None]
+                                  + b[..., None, i:i + chunk, :]
+                                  ).amin(dim=-2))
     return out
 
 
@@ -360,14 +364,15 @@ def minplus_accum_into_ref(c: torch.Tensor, a: torch.Tensor,
                            b: torch.Tensor, *, skip_rows=(0, 0),
                            skip_cols=(0, 0)) -> torch.Tensor:
     """The in-place kernel ``minplus_accum_into_cuda`` in plain torch:
-    c[i, j] = min(c[i, j], (a (x) b)[i, j]) written into the view c, but
-    for rows in [skip_rows) and columns in [skip_cols), which keep their
-    values.  The product is formed before anything is written, which is
-    what the kernels' race-free aliasing gives (c may share memory with
-    a and b in its skipped cells, and in ``minplus_accum_panels_cuda``
-    be the same window as the panel operand)."""
+    c[i, j] = min(c[i, j], (a (x) b)[i, j]) written into the view c (a
+    matrix, or a batch of them with a and b alike), but for rows in
+    [skip_rows) and columns in [skip_cols), which keep their values.
+    The product is formed before anything is written, which is what the
+    kernels' race-free aliasing gives (c may share memory with a and b
+    in its skipped cells, and in ``minplus_accum_panels_cuda`` be the
+    same window as the panel operand)."""
     new = minplus_accum_ref(c, a, b)
-    m, n = c.shape
+    m, n = c.shape[-2:]
     keep = torch.zeros((m, n), dtype=torch.bool, device=c.device)
     keep[skip_rows[0]:skip_rows[1]] = True
     keep[:, skip_cols[0]:skip_cols[1]] = True

@@ -252,11 +252,12 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n", [(1, 64), (1, 128), (3, 100), (2, 240),
-                                 (5, 31), (2, 1)])
+                                 (5, 31), (2, 1), (2, 200), (3, 300),
+                                 (4, 496)])
 def test_fw_batch_kernel_variants_on_card(cuda_device, b, n):
-    """Kernel 3 in each variant (registers n <= 128, shared memory up to
-    240), fresh and, in registers, in place on a strided tile,
-    array-equal to the plain version (one all-+inf entry)."""
+    """Kernel 3 on each route (registers n <= 128, the batched blocked
+    schedule above), fresh and in place on a strided tile, array-equal
+    to the plain version (one all-+inf entry)."""
     rng = np.random.default_rng(b * 131 + n)
     d_np = _int_inf((b, n, n), rng)
     d_np[b - 1] = np.inf
@@ -264,15 +265,14 @@ def test_fw_batch_kernel_variants_on_card(cuda_device, b, n):
     want = ops.fw_batch(d, force="ref")
     assert torch.equal(floyd_warshall.fw_batch_cuda(d),
                        want)
-    if n <= floyd_warshall.DIST_REG_MAX_N:
-        big = torch.full((b, n + 7, n + 9), 5.0, device=cuda_device)
-        tile = big[:, 3:3 + n, 4:4 + n]
-        tile.copy_(d)
-        floyd_warshall.fw_batch_cuda(tile, tile)
-        assert torch.equal(tile, want)
-        rest = torch.ones_like(big, dtype=torch.bool)
-        rest[:, 3:3 + n, 4:4 + n] = False
-        assert bool((big[rest] == 5.0).all())
+    big = torch.full((b, n + 7, n + 9), 5.0, device=cuda_device)
+    tile = big[:, 3:3 + n, 4:4 + n]
+    tile.copy_(d)
+    floyd_warshall.fw_batch_cuda(tile, tile)
+    assert torch.equal(tile, want)
+    rest = torch.ones_like(big, dtype=torch.bool)
+    rest[:, 3:3 + n, 4:4 + n] = False
+    assert bool((big[rest] == 5.0).all())
 
 
 @pytest.mark.cuda

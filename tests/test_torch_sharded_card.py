@@ -7,9 +7,9 @@ included, dense and at 3 levels; an index built on the CPU, served on
 the one-card mesh (its replica copied to the card) and on a mesh of the
 CPU and the card, equals ``serve_step`` on the CPU index;
 ``fw_fragments_sharded`` at n = 100,
-200 and 300 (kernel 3's register, shared-memory and per-pivot variants)
-equals the plain version ``ops.fw_batch(..., force="ref")`` and counts
-each variant's launches where it launches; ``super_apsp_sharded`` (the
+200 and 300 (kernel 3's register route, and its batched blocked route
+above n = 128) equals the plain version ``ops.fw_batch(...,
+force="ref")`` and counts each route's launches where it launches; ``super_apsp_sharded`` (the
 Bellman-Ford sweeps on the card) equals the dense ``d_super``.  Skips
 without a card; on one:
 
@@ -102,8 +102,8 @@ def test_sharded_serve_copies_a_cpu_index_to_the_card(cuda_device, n, seed,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mesh_name", ["one_card", "cuda0_x4"])
-@pytest.mark.parametrize("n,variant", [(100, "reg"), (200, "smem"),
-                                       (300, "global")])
+@pytest.mark.parametrize("n,variant", [(100, "reg"), (200, "blocked"),
+                                       (300, "blocked")])
 def test_fw_fragments_sharded_on_card(cuda_device, mesh_name, n, variant):
     rng = np.random.default_rng(n)
     adj = rng.integers(1, 50, (9, n, n)).astype(np.float32)
@@ -111,6 +111,8 @@ def test_fw_fragments_sharded_on_card(cuda_device, mesh_name, n, variant):
     adj[4] = np.inf
     mesh = _meshes(cuda_device)[mesh_name]
     counters = (floyd_warshall.fw_batch_cuda,
+                floyd_warshall.fw_dist_blocked_cuda,
+                floyd_warshall.fw_dist_smem_cuda,
                 floyd_warshall.fw_dist_global_cuda)
     before = [c.launches for c in counters]
     got = fw_fragments_sharded(mesh, adj)
@@ -119,8 +121,11 @@ def test_fw_fragments_sharded_on_card(cuda_device, mesh_name, n, variant):
     assert got.device == cuda_device
     assert torch.equal(got, want)
     shards = len(mesh.devices)
-    assert launched == ([0, shards] if variant == "global"
-                        else [shards, 0])
+    # the blocked route: one call a shard, its phase 1 one fw_dist_reg
+    # launch a k-block
+    kb = -(-n // floyd_warshall.DIST_BLOCK)
+    assert launched == ([shards * kb, shards, 0, 0] if variant == "blocked"
+                        else [shards, 0, 0, 0])
 
 
 @pytest.mark.cuda
