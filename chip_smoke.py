@@ -66,8 +66,9 @@ prints no result.  Phases, each of which must pass:
      validated); a staged ``RefreshPipeline`` drain of a 5% batch (32
      answers checked on every epoch it publishes, the last == scratch);
   6. the hierarchical main path at road64k (its preset's 3 levels, with
-     2,048 seeded random hub nodes) through the same entry points, 32
-     validated, ``--paths`` at one batch of 16 (all validated), then
+     2,048 seeded random hub nodes) through the same entry points, with
+     the serve CLI's scale gates ``--expect-hierarchy 3 --max-s2-ratio
+     0.5`` (as ``scripts/check.sh`` runs the reference), 32 validated, ``--paths`` at one batch of 16 (all validated), then
      ``serve_one_to_all`` from 3 sources against Dijkstra and, from
      4,096 random pairs of hub nodes, the hub-gated pairs through
      ``query_hub`` (== ``query``, 32 == Dijkstra); counters zeroed just
@@ -157,10 +158,17 @@ prints no result.  Phases, each of which must pass:
      each within ``VS_CARD_RANGE``.  Phase 4's road4000 run also writes
      its records with ``serve --json`` to a temporary history and reads
      them back;
- 13. the ``kernels`` JSON line (launches summed over the main paths of
+ 13. the paper's experiments (``_paper``): Exp-5, Exp-7 and Exp-8 of
+     ``repro_torch.paper.tables`` on the card at the reference's sizes
+     (road_like(6000) and road_like(2500)), counters zeroed just before
+     and read just after (kernels 1, 2 and 6 must launch): every Exp-5
+     bucket's batched ``serve_step`` answers == Dijkstra, ``match == 1``
+     in every Exp-7 round, ``exact == 1`` in Exp-8; the CSV rows printed;
+ 14. the ``kernels`` JSON line (launches summed over the main paths of
      phases 4 and 6, the refresh epochs of phases 5 and 7, the live
-     runs of phase 8 and the sharded path of phase 9, those of phases 8
-     and 9 also apart as ``live_launches`` and ``sharded_launches``;
+     runs of phase 8, the sharded path of phase 9 and the paper phase
+     13, those of phases 8, 9 and 13 also apart as ``live_launches``,
+     ``sharded_launches`` and ``paper_launches``;
      together they must launch both witness FW kernels, the
      grouped twoside, the label merge, the in-place accumulate and
      ``fw_dist_blocked``, and never the per-pivot FWs, kernel 3's
@@ -1170,7 +1178,11 @@ def _main_path(graph: str, validate: int, sources=(), path_args=(),
     hubs = (np.random.default_rng(11).choice(g.n, n_hubs, replace=False)
             if n_hubs else None)
     _reset_counts()
-    g, dix, plan, summary = serve.build(args, hub_nodes=hubs, host=(g, ix))
+    try:
+        g, dix, plan, summary = serve.build(args, hub_nodes=hubs,
+                                            host=(g, ix))
+    except SystemExit as e:            # a scale gate refused the build
+        raise AssertionError(f"{graph}: {e}") from None
     _BUILT[graph] = (g, dix)
     _HOST[graph] = (ix, plan, hubs)
     res = serve.serve(args, g, dix, summary, plan)
@@ -2510,6 +2522,74 @@ def _dryrun_vs_card() -> dict:
                              f"or kernel 2 not launched: {launches}")
     return out
 
+#: kernel entries the paper phase must launch: kernel 1 (either witness
+#: FW route), kernel 2 and kernel 6
+PAPER_KERNELS = ("minplus_twoside_grouped", "minplus_twoside_argmin")
+
+
+def _paper() -> dict:
+    """Exp-5, Exp-7 and Exp-8 of the port's paper harness
+    (``repro_torch.paper.tables``) on the card at the reference's sizes,
+    counters zeroed just before and read just after: every Exp-5
+    bucket's ``disland-batched`` answers == Dijkstra (computed here),
+    ``match == 1`` in every Exp-7 round, ``exact == 1`` in Exp-8; the
+    CSV rows are printed and returned, with the ms of every full
+    (generation-2) garbage collection during each experiment (a pause
+    inside a timed region shows in its row)."""
+    import gc
+
+    import numpy as np
+    from repro_torch.core import dijkstra
+    from repro_torch.paper import tables
+    rows: list = []
+    answers: dict = {}
+    pauses: dict = {}
+    started = [0.0, ""]
+
+    def on_gc(phase, info):
+        if info["generation"] == 2:
+            if phase == "start":
+                started[0] = time.perf_counter()
+            else:
+                pauses.setdefault(started[1], []).append(
+                    (time.perf_counter() - started[0]) * 1e3)
+    gc.callbacks.append(on_gc)
+    _reset_counts()
+    try:
+        for fn, kw in ((tables.exp5_query_latency, {"answers": answers}),
+                       (tables.exp7_incremental_refresh, {}),
+                       (tables.exp8_path_reconstruction, {})):
+            started[1] = fn.__name__
+            fn(rows, device="cuda", **kw)
+    finally:
+        gc.callbacks.remove(on_gc)
+    launches = _read_counts()
+    for row in rows:
+        print(f"  {row}")
+    _name, g = next(tables._graphs((6000,)))
+    bad = {}
+    for bucket, (pairs, served) in answers.items():
+        want = np.asarray([dijkstra.pair(g, int(a), int(b))
+                           for a, b in pairs], np.float32)
+        bad[bucket] = int((served != want).sum())
+    parts = [r.split(",") for r in rows if not r.split(",")[1] == "graph"]
+    match = [p[10] for p in parts if p[0] == "exp7"]
+    exact = [p[5] for p in parts if p[0] == "exp8"]
+    res = {"rows": rows, "launches": launches, "exp5_mismatches": bad,
+           "exp7_match": match, "exp8_exact": exact,
+           "gc_gen2_ms": pauses}
+    print(f"  paper: exp5 batched answers against Dijkstra, mismatches "
+          f"{bad}; exp7 match {match}; exp8 exact {exact}; full GCs (ms) "
+          f"{pauses}; launches {launches}")
+    if (sum(bad.values()) or len(bad) != 6 or match != ["1"] * 3
+            or exact != ["1"] * 3):
+        raise AssertionError(f"paper: {res}")
+    if launches["fw_next_reg"] + launches["fw_next_blocked"] <= 0:
+        raise AssertionError("paper: kernel 1 (witness FW) never launched")
+    _require_launched(res, "paper", PAPER_KERNELS)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2664,7 +2744,8 @@ def main() -> int:
     # ~1.7 s a path there (PERF.md)
     phase("road64k", lambda: _main_path(
         "road64k", 32, sources=(0, 31_000, 61_000),
-        path_args=("--path-batches", "1", "--path-batch-size", "16"),
+        path_args=("--path-batches", "1", "--path-batch-size", "16",
+                   "--expect-hierarchy", "3", "--max-s2-ratio", "0.5"),
         n_hubs=2048))
     phase("twoside_grouped", lambda: _check_twoside_grouped(
         _grouped_cases(), grouped_cases))
@@ -2683,6 +2764,7 @@ def main() -> int:
     finally:
         _stop(sweep[0])
     phase("dryrun_vs_card", _dryrun_vs_card)
+    phase("paper", _paper)
 
     report["fw_cases"], report["ts_cases"] = fw_cases, ts_cases
     report["new_cases"], report["slice3_cases"] = new_cases, slice3_cases
@@ -2728,12 +2810,12 @@ def main() -> int:
                           ("minplus_twoside_grouped", "fw_batch",
                            "fw_dist_blocked", "minplus_accum_panels",
                            "minplus_accum_into"))
-        # the main paths, the refresh epochs, the live runs and the
-        # sharded path (each counted from zero just before it, read just
-        # after)
+        # the main paths, the refresh epochs, the live runs, the
+        # sharded path and the paper phase (each counted from zero just
+        # before it, read just after)
         launches = {name: sum(report[path]["launches"][name] for path in (
             "road4000", "road64k", "road4000_refresh", "road64k_refresh",
-            "road4000_live", "road64k_live", "sharded"))
+            "road4000_live", "road64k_live", "sharded", "paper"))
             for name, _m, _a in KERNELS}
         # the per-pivot FWs, kernel 3's shared-memory kernel and the
         # fresh-output accumulate left the main paths (for the blocked
@@ -2753,6 +2835,7 @@ def main() -> int:
     live_launches = {name: sum(report[path]["launches"][name] for path in (
         "road4000_live", "road64k_live")) for name, _m, _a in KERNELS}
     sharded_launches = report["sharded"]["launches"]
+    paper_launches = report["paper"]["launches"]
     (out_dir / "chip_smoke.json").write_text(
         json.dumps(report, indent=1, default=str))
     rows = [
@@ -2813,6 +2896,7 @@ def main() -> int:
         "replaces": replaces, "launches": launches[name],
         "live_launches": live_launches[name],
         "sharded_launches": sharded_launches[name],
+        "paper_launches": paper_launches[name],
         "max_abs_err": c["max_abs_err"], "ms": c["ms"],
         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,

@@ -140,6 +140,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="overlay closure: 1 (dense), N in 2..5 (N-level "
                          "hierarchy) or auto; default: the preset's "
                          "setting, else auto")
+    # copied from src/repro/launch/serve.py:556-561
+    ap.add_argument("--expect-hierarchy", type=int, default=0,
+                    help="fail unless the built index uses exactly "
+                         "this many overlay levels (CI smoke sanity; "
+                         "catches an auto build silently falling back "
+                         "to a shallower hierarchy)")
+    ap.add_argument("--max-s2-ratio", type=float, default=0.0,
+                    help="fail if the level-2 boundary exceeds this "
+                         "fraction of S (partitioner-quality gate; "
+                         "0 disables)")
     ap.add_argument("--resident-mb", default="auto",
                     help="budget (MiB) for the resident pre-lifted rows "
                          "on hierarchical indices; 0 disables, auto uses "
@@ -253,8 +263,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if args.sharded:
         args.mode = "sharded"
-    # copied from src/repro/launch/serve.py:690-711, for the flags the
+    # copied from src/repro/launch/serve.py:687-711, for the flags the
     # port has
+    if args.expect_hierarchy and args.mode != "planner":
+        # the gates run in the planner's build (_scale_gates); accepting
+        # the flag elsewhere would silently skip the check it exists for
+        ap.error("--expect-hierarchy requires --mode planner")
     if args.update_batches and args.mode != "planner":
         ap.error("--update-batches requires --mode planner")
     if args.check_build_parity and args.mode != "planner":
@@ -292,6 +306,26 @@ def _overlay_record(dix, plan) -> dict:
     dense = 2 * (plan.S + 1) * (plan.S + 1) * 4
     return {"hierarchy_levels": 1, "S": plan.S,
             "overlay_bytes": dense, "overlay_dense_bytes": dense}
+
+
+# copied from src/repro/launch/serve.py:189-201
+def _scale_gates(args: argparse.Namespace, ov: dict) -> None:
+    """``--expect-hierarchy`` and ``--max-s2-ratio`` on the overlay
+    record: exit (SystemExit, the reference's messages) when the built
+    depth differs or the level-2 boundary is too large a share of S."""
+    if args.expect_hierarchy and \
+            ov["hierarchy_levels"] != args.expect_hierarchy:
+        raise SystemExit(
+            f"expected hierarchy_levels={args.expect_hierarchy}, "
+            f"built {ov['hierarchy_levels']} (S={ov['S']})")
+    if args.max_s2_ratio and ov["hierarchy_levels"] >= 2:
+        ratio = ov["S2"] / max(1, ov["S"])
+        if ratio > args.max_s2_ratio:
+            raise SystemExit(
+                f"level-2 boundary too large: S2={ov['S2']} / "
+                f"S={ov['S']} = {ratio:.3f} > --max-s2-ratio "
+                f"{args.max_s2_ratio}")
+        print(f"S2/S ratio {ratio:.3f} <= {args.max_s2_ratio} (ok)")
 
 
 def _build_knobs(args: argparse.Namespace) -> tuple:
@@ -357,6 +391,9 @@ def _summary(args, g, ix, dix, plan, device, device_s: float) -> dict:
               f"{overlay['overlay_bytes'] / 2**20:.1f} MiB (dense would be "
               f"{overlay['overlay_dense_bytes'] / 2**20:.1f} MiB), "
               f"{overlay['resident_groups']} resident groups")
+    if args.mode == "planner":
+        # the reference runs the gates in its planner setup only
+        _scale_gates(args, overlay)
     hub_labels = int(dix.hub_rows.shape[0]) - 1
     if hub_labels:
         print(f"hub labels: {hub_labels} agents x {dix.hub_rows.shape[1]} "

@@ -7,7 +7,9 @@ exact name: ``repro_torch`` itself starts with "repro"), and
 environment variable when imported.  A spawned cover worker
 of the parallel host build imports no torch.  The serve CLI runs end to
 end on the CPU (offline and ``--live``), and ``chip_smoke.py`` refuses
-to report without a card or without the repository around it.
+to report without a card or without the repository around it.  The
+paper harness, the examples and the overhead A/B raise without a card
+unless asked for the CPU.
 """
 import ast
 import json
@@ -81,8 +83,39 @@ def test_port_modules_import_no_jax_and_no_reference_package():
               "repro_torch.launch.mesh", "repro_torch.launch.cells",
               "repro_torch.launch.flops", "repro_torch.launch.traffic",
               "repro_torch.launch.opanalysis", "repro_torch.launch.dryrun",
-              "repro_torch.launch.dryrun_disland"):
+              "repro_torch.launch.dryrun_disland",
+              "repro_torch.launch.dryrun_report", "repro_torch.obs.overhead",
+              "repro_torch.paper", "repro_torch.paper.tables",
+              "repro_torch.paper.run", *_EXAMPLES):
         assert m in res["modules"]
+
+
+#: the port's examples (``src/repro_torch/examples/``)
+_EXAMPLES = tuple(f"repro_torch.examples.{m}" for m in (
+    "quickstart", "serve_roadgraph", "live_traffic", "live_serving",
+    "train_lm", "elastic_failover"))
+
+
+@pytest.mark.parametrize("module,call", [
+    ("repro_torch.paper.run", lambda m: m.main(["--only", "exp5"])),
+    ("repro_torch.obs.overhead", lambda m: m.main(["--nodes", "300"])),
+    ("repro_torch.examples.quickstart", lambda m: m.main()),
+    ("repro_torch.examples.serve_roadgraph",
+     lambda m: m.main(["--nodes", "300"])),
+    ("repro_torch.examples.live_traffic", lambda m: m.main(nodes=300)),
+    ("repro_torch.examples.live_serving", lambda m: m.main(nodes=300)),
+    ("repro_torch.examples.train_lm", lambda m: m.main(["--steps", "1"])),
+    ("repro_torch.examples.elastic_failover", lambda m: m.main()),
+], ids=lambda x: x if isinstance(x, str) else "")
+def test_paper_and_example_entry_points_refuse_cuda_without_a_card(
+        module, call):
+    """Run on the card by default: without one they raise, and run
+    nothing on the CPU in its place."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import importlib
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(importlib.import_module(module))
 
 
 _WORKER_PROBE = r"""
