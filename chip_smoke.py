@@ -73,7 +73,10 @@ prints no result.  Phases, each of which must pass:
      4,096 random pairs of hub nodes, the hub-gated pairs through
      ``query_hub`` (== ``query``, 32 == Dijkstra); counters zeroed just
      before and read just after; then each one-to-all source timed on
-     its own (warm, synchronised, Dijkstra excluded);
+     its own (warm, synchronised, Dijkstra excluded); peak device memory
+     of the build and of serving; the top closure's witnesses
+     (``hierarchy.first_hops`` on the card, plain torch) == the same
+     function on CPU copies on 128 seeded rows, the full table timed;
   7. the grouped twoside kernel (compact rows through id tables)
      array-equal to its plain version: random operands in both regimes
      (ragged, all-+inf rows, ties, duplicate and sentinel ids, one
@@ -89,6 +92,17 @@ prints no result.  Phases, each of which must pass:
      the jam re-closes the top (``full_fw``: kernels 3 and 4); each
      epoch's ``RefreshStats`` (synchronised stage seconds, top closure)
      and the rebuild's seconds are printed;
+ 7b. road250k (``_road250k``), the preset's ``"auto"`` hierarchy at its
+     full 5 levels, through the same entry points as phase 6 with
+     ``--expect-hierarchy 5``, a host build on every core, 32
+     validated, ``--paths`` at one batch of 4, one-to-all from 2
+     sources and 2,048 hub nodes (0 mismatches each); its shapes (n, S,
+     levels, nsf, S2, overlay bytes) == the reference's record in
+     ``BENCH_serve.json``, printed per level; the top witnesses on the
+     card == the CPU's on 128 rows; one 1% traffic epoch through
+     ``refresh_index`` (16 answers == Dijkstra before and after, == its
+     scratch rebuild, ``RefreshStats`` and the ``first_hops`` span
+     printed); every kernel but the per-pivot ones must launch;
   8. the live serving runtime through ``repro_torch.launch.serve``'s
      ``build_engine`` and ``live_loop`` (``serve --live``): road4000
      with a 4-worker parallel host build (== serial) streamed into the
@@ -101,8 +115,7 @@ prints no result.  Phases, each of which must pass:
      with 2,048 Zipf-pool hub nodes: cache off (the label tier serves
      exactly the ``ROAD64K_LIVE_GATED`` pairs the hub gate admits),
      cache on, and 12 s beside one refresh epoch (its ``top_closure``
-     and the serving gap beside it are recorded: a top re-close runs
-     ``first_hops`` on the host);
+     and the serving gap beside it are recorded);
      counters zeroed around each run, and no kernel library built or
      loaded during one;
   9. the sharded path (``_sharded``) on phases 4 and 6's indices:
@@ -165,10 +178,12 @@ prints no result.  Phases, each of which must pass:
      bucket's batched ``serve_step`` answers == Dijkstra, ``match == 1``
      in every Exp-7 round, ``exact == 1`` in Exp-8; the CSV rows printed;
  14. the ``kernels`` JSON line (launches summed over the main paths of
-     phases 4 and 6, the refresh epochs of phases 5 and 7, the live
+     phases 4, 6 and 7b, the refresh epochs of phases 5, 7 and 7b, the
+     live
      runs of phase 8, the sharded path of phase 9 and the paper phase
-     13, those of phases 8, 9 and 13 also apart as ``live_launches``,
-     ``sharded_launches`` and ``paper_launches``;
+     13, those of phases 8, 9, 13 and 7b also apart as
+     ``live_launches``, ``sharded_launches``, ``paper_launches`` and
+     ``road250k_launches``;
      together they must launch both witness FW kernels, the
      grouped twoside, the label merge, the in-place accumulate and
      ``fw_dist_blocked``, and never the per-pivot FWs, kernel 3's
@@ -1164,6 +1179,7 @@ def _main_path(graph: str, validate: int, sources=(), path_args=(),
     import tempfile
 
     import numpy as np
+    import torch
     from repro_torch import perflog
     from repro_torch.core import dijkstra
     from repro_torch.core.device_engine import serve_one_to_all
@@ -1185,7 +1201,14 @@ def _main_path(graph: str, validate: int, sources=(), path_args=(),
         raise AssertionError(f"{graph}: {e}") from None
     _BUILT[graph] = (g, dix)
     _HOST[graph] = (ix, plan, hubs)
+    # peak device memory of the build (reset in serve.build), then of
+    # serving alone (the index held): serve() reads it as peak_device_mb
+    peak_build_mb = torch.cuda.max_memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
     res = serve.serve(args, g, dix, summary, plan)
+    res["peak_build_mb"] = peak_build_mb
+    print(f"  {graph} peak device memory: build {peak_build_mb:.1f} MiB, "
+          f"serving {res['peak_device_mb']:.1f} MiB")
     if args.json:
         wrote = serve.write_records(args.json, serve.records(args, res))
         back = perflog.read_records(args.json)
@@ -1403,70 +1426,87 @@ def _road4000_refresh() -> dict:
     return res
 
 
-def _road64k_refresh() -> dict:
-    """Two refresh epochs on phase 6's road64k index (no second build),
-    through ``refresh_index`` directly: a decrease-only batch
-    (``traffic_updates(frac=0.001, jam_frac=0)``), then a jam
-    (``frac=0.005, jam_frac=1``).  Launch counters zeroed just before
-    each refresh and read just after; each epoch == the scratch reweight
-    rebuild with the same hub set, 32 answers == Dijkstra, hub answers
-    on gated pairs == ``query`` (``_hub_check``), one one-to-all source
-    == Dijkstra."""
-    import numpy as np
+def _refresh_epoch(g, dix, ix, plan, hubs, frac: float, jam: float,
+                   seed: int, n_check: int, rng) -> tuple:
+    """One ``refresh_index`` epoch on the card (``traffic_updates(g,
+    frac, seed=seed, jam_frac=jam)``), launch counters zeroed just
+    before and read just after, with the tracer on: the epoch against
+    its scratch reweight rebuild with the same hub set, and ``n_check``
+    random answers against Dijkstra on the new weights.  Returns (the
+    record, the new graph, the new index)."""
     import torch
     from repro_torch.core import dijkstra
-    from repro_torch.core.device_engine import (refresh_index,
-                                                serve_one_to_all)
+    from repro_torch.core.device_engine import refresh_index
     from repro_torch.core.dist_engine import QueryPlanner
     from repro_torch.core.graph import traffic_updates
     from repro_torch.obs import trace
+    tracer = trace.get_tracer()
+    u, v, w = traffic_updates(g, frac, seed=seed, jam_frac=jam)
+    w_old = g.edge_w[g.edge_ids(u, v)]
+    g2 = g.with_edge_weights(u, v, w)
+    torch.cuda.synchronize()
+    _reset_counts()
+    tracer.clear()
+    tracer.enable()
+    t0 = time.perf_counter()
+    dix2, stats = refresh_index(dix, plan, g2, u, v, w, w_old=w_old)
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    tracer.enable(False)
+    launches = _read_counts()
+    # seconds of the spans inside the stages (the top closure's FW and
+    # first_hops, the dirty groups' FW, the resident re-lift)
+    spans: dict = {}
+    for ev in tracer.drain():
+        spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e6
+    differ, scratch_s = _scratch_equal(dix2, g2, ix, plan, hubs)
+    s, t = rng.integers(0, g2.n, n_check), rng.integers(0, g2.n, n_check)
+    got = QueryPlanner(dix2).query(s, t)
+    bad = sum(dijkstra.mismatches_oracle(
+        dijkstra.pair(g2, int(a), int(b)), float(x))
+        for a, b, x in zip(s, t, got))
+    rec = {"update_frac": frac, "jam_frac": jam, "updates": int(u.size),
+           "refresh_wall_s": refresh_s, **stats.as_record(),
+           "stage_s": dict(stats.timings), "spans_s": spans,
+           "n_eb_slots": stats.n_eb_slots,
+           "scratch_reweight_s": scratch_s, "scratch_differ": differ,
+           "checked": int(n_check), "mismatches": bad,
+           "launches": launches}
+    return rec, g2, dix2
+
+
+def _road64k_refresh() -> dict:
+    """Two refresh epochs on phase 6's road64k index (no second build),
+    through ``refresh_index`` directly (``_refresh_epoch``): a
+    decrease-only batch (``traffic_updates(frac=0.001, jam_frac=0)``),
+    then a jam (``frac=0.005, jam_frac=1``).  Each epoch == the scratch
+    reweight rebuild with the same hub set, 32 answers == Dijkstra, hub
+    answers on gated pairs == ``query`` (``_hub_check``), one one-to-all
+    source == Dijkstra."""
+    import numpy as np
+    from repro_torch.core import dijkstra
+    from repro_torch.core.device_engine import serve_one_to_all
     g, dix = _BUILT["road64k"]
     ix, plan, hubs = _HOST["road64k"]
     rng = np.random.default_rng(12)
-    tracer = trace.get_tracer()
     out = []
     for label, frac, jam in (("decrease", 0.001, 0.0), ("jam", 0.005, 1.0)):
-        u, v, w = traffic_updates(g, frac, seed=10, jam_frac=jam)
-        w_old = g.edge_w[g.edge_ids(u, v)]
-        g2 = g.with_edge_weights(u, v, w)
-        torch.cuda.synchronize()
-        _reset_counts()
-        tracer.clear()
-        tracer.enable()
-        t0 = time.perf_counter()
-        dix2, stats = refresh_index(dix, plan, g2, u, v, w, w_old=w_old)
-        torch.cuda.synchronize()
-        refresh_s = time.perf_counter() - t0
-        tracer.enable(False)
-        launches = _read_counts()
-        # seconds of the spans inside the stages (the top closure's FW and
-        # first_hops, the dirty groups' FW, the resident re-lift)
-        spans: dict = {}
-        for ev in tracer.drain():
-            spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e6
-        differ, scratch_s = _scratch_equal(dix2, g2, ix, plan, hubs)
-        s, t = rng.integers(0, g2.n, 32), rng.integers(0, g2.n, 32)
-        got = QueryPlanner(dix2).query(s, t)
-        bad = sum(dijkstra.mismatches_oracle(
-            dijkstra.pair(g2, int(a), int(b)), float(x))
-            for a, b, x in zip(s, t, got))
+        rec, g2, dix2 = _refresh_epoch(g, dix, ix, plan, hubs, frac, jam,
+                                       10, 32, rng)
         hub = _hub_check(g2, dix2, hubs)
         src = g2.n // 2
         o2a = serve_one_to_all(dix2, src).cpu().numpy()
         bad_o2a = int((o2a != dijkstra.sssp(g2, src).astype(
             np.float32)).sum())
-        rec = {"batch": label, "update_frac": frac, "jam_frac": jam,
-               "refresh_wall_s": refresh_s, **stats.as_record(),
-               "stage_s": dict(stats.timings), "spans_s": spans,
-               "n_eb_slots": stats.n_eb_slots,
-               "scratch_reweight_s": scratch_s, "scratch_differ": differ,
-               "mismatches": bad, "one_to_all_mismatches": bad_o2a,
-               "hub_gated": hub["gated"], "launches": launches}
-        print(f"  road64k {label} epoch: {stats.as_record()}; spans "
-              f"{ {k: round(x, 4) for k, x in spans.items()} }; scratch "
-              f"reweight rebuild {scratch_s:.2f}s, match={not differ}; "
-              f"{bad} mismatches of 32; one-to-all {bad_o2a}; launches "
-              f"{launches}")
+        rec = {"batch": label, **rec, "one_to_all_mismatches": bad_o2a,
+               "hub_gated": hub["gated"]}
+        print(f"  road64k {label} epoch: top_closure "
+              f"{rec['top_closure']}, stages {rec['stage_s']}; spans "
+              f"{ {k: round(x, 4) for k, x in rec['spans_s'].items()} }; "
+              f"scratch reweight rebuild {rec['scratch_reweight_s']:.2f}s,"
+              f" match={not rec['scratch_differ']}; {rec['mismatches']} "
+              f"mismatches of 32; one-to-all {bad_o2a}; launches "
+              f"{rec['launches']}")
         out.append(rec)
         g, dix = g2, dix2
     need = {"decrease": ("fw_next_blocked", "fw_next_reg"),
@@ -1483,6 +1523,127 @@ def _road64k_refresh() -> dict:
                         for k in out[0]["launches"]}}
     if not all(checks.values()):
         raise AssertionError(f"road64k refresh: {checks}")
+    return res
+
+
+def _first_hops_check(graph: str, n_rows: int = 128) -> dict:
+    """The top closure's witnesses of the index built for ``graph``
+    (before any refresh moves its plan's weights): ``hierarchy.first_hops``
+    on the card (plain torch, no kernel) array-equal to the same function
+    on CPU copies of the inputs on ``n_rows`` seeded rows, and the card's
+    full table (timed with CUDA events) == the built ``d2_next``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import hierarchy
+    _g, dix = _BUILT[graph]
+    plan = _HOST[graph][1]
+    h = plan.hier[-1]
+    n = h.S2
+    adj = hierarchy.to_device(hierarchy.l2_overlay(h), dix.device)
+    d = dix.d2[:n, :n]
+    rows = np.sort(np.random.default_rng(3).choice(n, min(n_rows, n),
+                                                   replace=False))
+    got = hierarchy.first_hops(adj, d, rows=rows).cpu()
+    t0 = time.perf_counter()
+    want = hierarchy.first_hops(adj.cpu(), d.cpu(), rows=rows)
+    cpu_rows_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    full = hierarchy.first_hops(adj, d)
+    end.record()
+    end.synchronize()
+    res = {"n": int(n), "rows": int(rows.size),
+           "rows_equal_cpu": bool(torch.equal(got, want)),
+           "full_equal_d2_next": bool(torch.equal(full,
+                                                  dix.d2_next[:n, :n])),
+           "full_ms": start.elapsed_time(end),
+           "cpu_rows_s": cpu_rows_s,
+           "build_s": plan.build_timings.get("first_hops")}
+    print(f"  {graph} first_hops on the card: {res}")
+    if not (res["rows_equal_cpu"] and res["full_equal_d2_next"]):
+        raise AssertionError(f"{graph} first_hops: {res}")
+    return res
+
+
+def _reference_record(graph: str) -> dict:
+    """The reference's ``exp10_scale`` record of ``graph`` in the
+    repository's ``BENCH_serve.json``."""
+    recs = json.loads((ROOT / "BENCH_serve.json").read_text())
+    return next(r for r in recs if r.get("section") == "exp10_scale"
+                and r.get("graph") == graph)
+
+
+#: the shape columns of road250k's build held equal to the reference's
+#: record (``_reference_record``)
+SHAPE_KEYS = ("n", "S", "hierarchy_levels", "nsf", "S2", "overlay_bytes",
+              "overlay_dense_bytes")
+
+
+def _road250k() -> dict:
+    """road250k (the preset's ``"auto"`` hierarchy, 5 levels) through
+    the serve CLI's entry points (``_main_path``: ``--expect-hierarchy
+    5``, a host build on every core, 32 validated, ``--paths`` at one
+    batch of 4, one-to-all from 2 sources, 2,048 hub nodes); its shapes
+    == the reference's record; the top witnesses on the card ==
+    the CPU's (``_first_hops_check``); then one 1% traffic epoch
+    (``_refresh_epoch``), 16 answers == Dijkstra before and after it and
+    == its scratch rebuild."""
+    import os
+
+    import numpy as np
+    from repro_torch.core import dijkstra
+    from repro_torch.core.dist_engine import QueryPlanner
+    from repro_torch.core.hierarchy import hier_overlay_stats
+    workers = max(2, os.cpu_count() or 2)
+    try:
+        res = _main_path(
+            "road250k", 32, sources=(0, 120_000),
+            path_args=("--path-batches", "1", "--path-batch-size", "4",
+                       "--expect-hierarchy", "5", "--build-workers",
+                       str(workers)),
+            n_hubs=2048)
+        g, dix = _BUILT["road250k"]
+        ix, plan, hubs = _HOST["road250k"]
+        st = hier_overlay_stats(plan.hier, plan.S)
+        shapes = {"n": g.n, **{k: st[k] for k in SHAPE_KEYS[1:]}}
+        want = {k: _reference_record("road250k")[k] for k in SHAPE_KEYS}
+        res["shapes"] = shapes
+        res["levels"] = [
+            {"level": li + 1, "nsf": h.nsf, "m2": h.m2, "S2": h.S2,
+             "sf_closure": list(dix.sf_closure[li].shape)}
+            for li, h in enumerate(plan.hier)]
+        res["top"] = list(dix.d2.shape)
+        print(f"  road250k shapes {shapes} (reference {want}); per level "
+              f"{res['levels']}; top {res['top']}")
+        if shapes != want:
+            raise AssertionError(f"road250k shapes {shapes} != the "
+                                 f"reference's {want}")
+        res["first_hops"] = _first_hops_check("road250k")
+        rng = np.random.default_rng(13)
+        s, t = rng.integers(0, g.n, 16), rng.integers(0, g.n, 16)
+        before = sum(dijkstra.mismatches_oracle(
+            dijkstra.pair(g, int(a), int(b)), float(x))
+            for a, b, x in zip(s, t, QueryPlanner(dix).query(s, t)))
+        # the 1% batch of Exp-10 (``traffic_updates(g, 0.01, seed=11)``)
+        rec, _g2, _dix2 = _refresh_epoch(g, dix, ix, plan, hubs, 0.01,
+                                         0.5, 11, 16, rng)
+        rec["mismatches_before"] = before
+        res["refresh"] = rec
+        print(f"  road250k 1% epoch ({rec['updates']} updates): top_closure"
+              f" {rec['top_closure']}, refresh {rec['refresh_wall_s']:.2f}s,"
+              f" stages {rec['stage_s']}; spans "
+              f"{ {k: round(x, 4) for k, x in rec['spans_s'].items()} }; "
+              f"scratch reweight rebuild {rec['scratch_reweight_s']:.2f}s, "
+              f"match={not rec['scratch_differ']}; mismatches of 16 before "
+              f"{before}, after {rec['mismatches']}; launches "
+              f"{rec['launches']}")
+        if before or rec["mismatches"] or rec["scratch_differ"]:
+            raise AssertionError(f"road250k refresh: {rec}")
+    finally:
+        _BUILT.pop("road250k", None)
+        _HOST.pop("road250k", None)
     return res
 
 
@@ -1643,8 +1804,7 @@ def _road64k_live() -> dict:
     qps with the cache off, where the label tier must serve exactly the
     pairs the hub gate admits (``ROAD64K_LIVE_GATED``), then with the
     cache on, then 12 s beside one refresh round (0.1% of the edges, one
-    epoch; a top re-close runs ``first_hops`` on the host beside the
-    flusher): its longest serving gap and the epoch's ``top_closure``
+    epoch): its longest serving gap and the epoch's ``top_closure``
     are recorded, not bounded.  128
     responses of each run against the oracle of their epochs."""
     from repro_torch.data.queries import workload_pairs
@@ -2742,14 +2902,20 @@ def main() -> int:
     phase("road4000_refresh", _road4000_refresh)
     # road64k's path loop is one batch of 16: the host unwinder takes
     # ~1.7 s a path there (PERF.md)
-    phase("road64k", lambda: _main_path(
-        "road64k", 32, sources=(0, 31_000, 61_000),
-        path_args=("--path-batches", "1", "--path-batch-size", "16",
-                   "--expect-hierarchy", "3", "--max-s2-ratio", "0.5"),
-        n_hubs=2048))
+    def road64k():
+        res = _main_path(
+            "road64k", 32, sources=(0, 31_000, 61_000),
+            path_args=("--path-batches", "1", "--path-batch-size", "16",
+                       "--expect-hierarchy", "3", "--max-s2-ratio", "0.5"),
+            n_hubs=2048)
+        res["first_hops"] = _first_hops_check("road64k")
+        return res
+
+    phase("road64k", road64k)
     phase("twoside_grouped", lambda: _check_twoside_grouped(
         _grouped_cases(), grouped_cases))
     phase("road64k_refresh", _road64k_refresh)
+    phase("road250k", _road250k)
     phase("road4000_live", _road4000_live)
     # the dry-run sweep needs no card: it runs at nice 19 in its own
     # processes beside the phases from here on (none of them gated on
@@ -2802,6 +2968,11 @@ def main() -> int:
                            "minplus_accum_into", "minplus",
                            "fw_next_blocked", "minplus_twoside_grouped",
                            "minplus_twoside_argmin", "label_merge"))
+        _require_launched(report["road250k"], "road250k",
+                          ("fw_next_reg", "fw_batch", "minplus_accum_panels",
+                           "minplus_accum_into", "minplus",
+                           "fw_next_blocked", "minplus_twoside_grouped",
+                           "minplus_twoside_argmin", "label_merge"))
         for path in ("road4000_live", "road64k_live"):
             _require_launched(report[path], path,
                               ("label_merge", "minplus_twoside_grouped",
@@ -2815,7 +2986,8 @@ def main() -> int:
         # before it, read just after)
         launches = {name: sum(report[path]["launches"][name] for path in (
             "road4000", "road64k", "road4000_refresh", "road64k_refresh",
-            "road4000_live", "road64k_live", "sharded", "paper"))
+            "road4000_live", "road64k_live", "sharded", "paper",
+            "road250k")) + report["road250k"]["refresh"]["launches"][name]
             for name, _m, _a in KERNELS}
         # the per-pivot FWs, kernel 3's shared-memory kernel and the
         # fresh-output accumulate left the main paths (for the blocked
@@ -2836,6 +3008,9 @@ def main() -> int:
         "road4000_live", "road64k_live")) for name, _m, _a in KERNELS}
     sharded_launches = report["sharded"]["launches"]
     paper_launches = report["paper"]["launches"]
+    road250k_launches = {name: report["road250k"]["launches"][name]
+                         + report["road250k"]["refresh"]["launches"][name]
+                         for name, _m, _a in KERNELS}
     (out_dir / "chip_smoke.json").write_text(
         json.dumps(report, indent=1, default=str))
     rows = [
@@ -2897,6 +3072,7 @@ def main() -> int:
         "live_launches": live_launches[name],
         "sharded_launches": sharded_launches[name],
         "paper_launches": paper_launches[name],
+        "road250k_launches": road250k_launches[name],
         "max_abs_err": c["max_abs_err"], "ms": c["ms"],
         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,

@@ -74,6 +74,7 @@ from ..kernels import ops
 from ..kernels.ref import scatter_rows as _scatter_rows
 from ..obs import trace
 from . import hierarchy, padding
+from .hierarchy import _sync
 from .supergraph import DislandIndex
 
 INF = np.float32(np.inf)
@@ -94,14 +95,6 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
     return dev
-
-
-def _sync(device: torch.device) -> None:
-    """Wait for the card's current stream, so a stage's wall time covers
-    its kernels (and only its own: a refresh on its own stream does not
-    wait for a serving thread's batches)."""
-    if device.type == "cuda":
-        torch.cuda.current_stream(device).synchronize()
 
 
 def _dummy(shape, fill, dtype):
@@ -481,15 +474,38 @@ def super_stage(plan: BuildPlan, device: torch.device, *, force=None
     return d_super, super_next
 
 
-def _piece_adj(g, members: np.ndarray, cap: int) -> np.ndarray:
-    sub, _ids = g.subgraph(members)
-    adj = np.full((cap, cap), INF, dtype=np.float32)
-    adj[sub.edge_u, sub.edge_v] = sub.edge_w.astype(np.float32)
-    adj[sub.edge_v, sub.edge_u] = sub.edge_w.astype(np.float32)
+def _piece_adjs(g, plan: BuildPlan, gids, cap: int) -> np.ndarray:
+    """[len(gids), cap, cap] adjacency of the pieces ``gids`` (bucket
+    ``cap``): each piece's induced subgraph in its sorted members'
+    order, as ``g.subgraph(plan.piece_members[gid])`` gives it (the
+    reference builds it so, one piece at a time: an O(m) pass a piece,
+    minutes at road250k's 24,707 pieces), from one pass over the edge
+    list.  A piece's members are its inner nodes (``piece_gid`` == gid)
+    and its agent, so an edge lies in the piece of either endpoint's
+    ``piece_gid`` when both endpoints are members there."""
+    gids = np.asarray(gids, np.int64)
+    adj = np.full((gids.size, cap, cap), INF, dtype=np.float32)
+    slot = np.full(plan.piece_cap.size, -1, np.int64)
+    slot[gids] = np.arange(gids.size)
+    u, v = g.edge_u.astype(np.int64), g.edge_v.astype(np.int64)
+    w = g.edge_w.astype(np.float32)
+    gu, gv = plan.piece_gid[u], plan.piece_gid[v]
+    # the piece of u's piece_gid, then of v's where it differs
+    for gid in (gu, np.where(gv != gu, gv, -1)):
+        safe = np.maximum(gid, 0)
+        agent = plan.piece_agent[safe]
+        in_u = (gu == gid) | (u == agent)
+        in_v = (gv == gid) | (v == agent)
+        e = np.nonzero((gid >= 0) & in_u & in_v & (slot[safe] >= 0))[0]
+        apos = plan.piece_agent_pos[safe[e]]
+        pu = np.where(gu[e] == gid[e], plan.pos_in_piece[u[e]], apos)
+        pv = np.where(gv[e] == gid[e], plan.pos_in_piece[v[e]], apos)
+        adj[slot[safe[e]], pu, pv] = w[e]
+        adj[slot[safe[e]], pv, pu] = w[e]
     return adj
 
 
-def _fw_bucket(adjs: List[np.ndarray], device: torch.device, *,
+def _fw_bucket(adjs: np.ndarray, device: torch.device, *,
                force=None) -> tuple[np.ndarray, np.ndarray]:
     """Batched witness FW over equally-padded piece matrices ->
     (dist blocks, next blocks) on the host.  The reference rounds a
@@ -498,7 +514,7 @@ def _fw_bucket(adjs: List[np.ndarray], device: torch.device, *,
     batch shapes; the CUDA kernels take any batch and FW is independent
     across it, so build and refresh both run exactly the matrices they
     need."""
-    out, nxt = ops.fw_batch_next(_to(np.stack(adjs), device), force=force)
+    out, nxt = ops.fw_batch_next(_to(adjs, device), force=force)
     out = out.cpu().numpy()
     # +inf padding only ever ADDS (inf + inf = inf, never inf - inf), so
     # no NaN can arise; a kernel regression here must fail the build
@@ -521,9 +537,8 @@ def piece_stage(plan: BuildPlan, g, device: torch.device, *, force=None
         gids = np.nonzero(plan.piece_cap == cap)[0]
         if gids.size == 0:
             continue
-        adjs = [_piece_adj(g, plan.piece_members[gid], cap)
-                for gid in gids]
-        blocks, nexts = _fw_bucket(adjs, device, force=force)
+        blocks, nexts = _fw_bucket(_piece_adjs(g, plan, gids, cap), device,
+                                   force=force)
         for gid, block, nxt in zip(gids, blocks, nexts):
             base = plan.piece_base[gid]
             flat[base:base + cap * cap] = block.reshape(-1)
@@ -546,7 +561,7 @@ def hier_super_stage(plan: BuildPlan, device: torch.device, *,
     DeviceIndex field dict (per-level tuples) plus the host-side
     provenance sidecars (one SlotMap per level).  Per-level FW seconds
     (``sf_stage_l<i>``), the top closure (``l2_fw``) and ``first_hops``
-    land in ``plan.build_timings``.
+    (on the card, as the closure) land in ``plan.build_timings``.
     """
     levels = plan.hier
     bt = plan.build_timings
@@ -1299,9 +1314,8 @@ def refresh_piece_stage(plan: BuildPlan, g_new, dirty_gids: np.ndarray,
         gids = [g for g in dirty_gids if plan.piece_cap[g] == cap]
         if not gids:
             continue
-        adjs = [_piece_adj(g_new, plan.piece_members[gid], cap)
-                for gid in gids]
-        blocks, nexts = _fw_bucket(adjs, device, force=force)
+        blocks, nexts = _fw_bucket(_piece_adjs(g_new, plan, gids, cap),
+                                   device, force=force)
         for gid, block, nxt in zip(gids, blocks, nexts):
             base = plan.piece_base[gid]
             piece_flat[base:base + cap * cap] = block.reshape(-1)

@@ -20,10 +20,11 @@ min-merged weights) and
 
 ``plan_hierarchy`` stacks levels until the remaining boundary is small
 enough to close densely: the top closure ``d2`` (``l2_stage``, the
-blocked FW of ``ops.fw_apsp``), whose first-hop witnesses come from the
-host function ``first_hops``.  ``hierarchy_levels = 1 + len(levels)``.
+blocked FW of ``ops.fw_apsp``), whose first-hop witnesses come from
+``first_hops`` on the same device.  ``hierarchy_levels = 1 + len(levels)``.
 A refresh whose top slot weights only went down re-closes the top with
-``l2_decrease_stage`` (a bounded (min,+) relaxation on the host) instead.
+``l2_decrease_stage`` (a bounded (min,+) relaxation on the host, its
+witnesses re-derived on the index's device) instead.
 
 The host-side planner and weight caches are numpy, copied from the
 reference and marked with their source lines there; keep the two in
@@ -58,6 +59,14 @@ AUTO_THRESHOLD = 1024
 #: boundary shrinks geometrically, so depth beyond this is a planner
 #: bug, not a bigger graph.
 MAX_LEVELS = 5
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the card's current stream, so a stage's wall time covers
+    its kernels (and only its own: a refresh on its own stream does not
+    wait for a serving thread's batches)."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
 
 
 def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -533,10 +542,14 @@ def l2_overlay(hier: HierPlan) -> np.ndarray:
     return m
 
 
-# copied from src/repro/core/hierarchy.py:527
-def first_hops(adj: np.ndarray, dist: np.ndarray,
-               rows: Optional[np.ndarray] = None,
-               cols: Optional[np.ndarray] = None) -> np.ndarray:
+#: ``first_hops`` chunks its rows so the [c, n, m] candidate cube holds at
+#: most this many elements (256 MiB of float32 at the cap)
+FIRST_HOPS_CUBE = 1 << 26
+
+
+# the contract of src/repro/core/hierarchy.py:527, in torch
+def first_hops(adj: torch.Tensor, dist: torch.Tensor,
+               rows=None, cols=None) -> torch.Tensor:
     """Canonical first-hop witnesses from (adjacency, exact closure).
 
     next[i, j] = the smallest k != i with adj[i, k] finite and
@@ -547,27 +560,37 @@ def first_hops(adj: np.ndarray, dist: np.ndarray,
     witness tables, extending the refresh == rebuild contract to
     ``d2_next``.  Positive edge weights make the chase strictly
     decrease dist[., j], so it always terminates.  ``rows``/``cols``
-    restrict the output block (the decrease fast path re-derives only
-    the rows/columns whose inputs changed).
+    (index arrays or tensors) restrict the output block (the decrease
+    fast path re-derives only the rows/columns whose inputs changed).
+
+    Runs on the device of ``dist`` (``adj`` is moved there) and returns
+    an int32 [rows, cols] tensor there.  Integer weights keep every
+    float32 sum exact, so the equality test is exact.  The smallest k
+    is ``amin`` of ``where(ok, k, n)``; rows go in chunks so the
+    [c, n, m] candidate cube stays under ``FIRST_HOPS_CUBE``.
     """
+    dev = dist.device
     n = dist.shape[0]
-    rows = np.arange(n, dtype=np.int64) if rows is None else rows
-    cols = np.arange(n, dtype=np.int64) if cols is None else cols
-    a = adj.astype(np.float32, copy=True)
-    np.fill_diagonal(a, INF)                     # k == i never witnesses
+    rows = (torch.arange(n, device=dev) if rows is None
+            else torch.as_tensor(rows, dtype=torch.int64).to(dev))
+    cols = (torch.arange(n, device=dev) if cols is None
+            else torch.as_tensor(cols, dtype=torch.int64).to(dev))
+    a = adj.to(device=dev, dtype=torch.float32).clone()
+    a.fill_diagonal_(_INF)                       # k == i never witnesses
     dc = dist[:, cols]                           # [n, m] candidate tails
-    out = np.full((rows.size, cols.size), -1, np.int32)
-    # chunk rows so the [c, n, m] candidate cube stays ~64 MiB
-    chunk = max(1, (1 << 24) // max(1, n * cols.size))
-    for i0 in range(0, rows.size, chunk):
+    out = torch.empty((rows.numel(), cols.numel()), dtype=torch.int32,
+                      device=dev)
+    k = torch.arange(n, dtype=torch.int32, device=dev).view(1, n, 1)
+    chunk = max(1, FIRST_HOPS_CUBE // max(1, n * cols.numel()))
+    for i0 in range(0, rows.numel(), chunk):
         ri = rows[i0:i0 + chunk]
-        ar = a[ri]                               # [c, n]
-        tgt = dist[np.ix_(ri, cols)]             # [c, m]
-        ok = (np.isfinite(ar)[:, :, None]
-              & (ar[:, :, None] + dc[None, :, :] == tgt[:, None, :]))
-        hop = np.argmax(ok, axis=1).astype(np.int32)
-        out[i0:i0 + chunk] = np.where(
-            ok.any(axis=1) & np.isfinite(tgt), hop, -1)
+        tgt = dist[ri][:, cols]                  # [c, m]
+        # a hop through an +inf edge sums to +inf, which equals only an
+        # unreachable target, and those are masked to -1 below
+        ok = (a[ri][:, :, None] + dc[None, :, :]) == tgt[:, None, :]
+        hop = torch.where(ok, k, n).amin(dim=1)  # [c, m]
+        out[i0:i0 + chunk] = torch.where(
+            (hop < n) & torch.isfinite(tgt), hop, -1)
     return out
 
 
@@ -577,11 +600,11 @@ def l2_stage(hier: HierPlan, device: torch.device, *, force=None,
     """Top stage: dense closure of the LAST level's boundary set ->
     (d2, d2_next) with the +inf sentinel row/col appended.  The closure
     runs through ``ops.fw_apsp`` (the blocked FW kernels on the card);
-    witnesses come from the host ``first_hops`` on the closed distances
-    rather than a kernel's pivot-order-dependent tie-breaks, so any
-    exact closure schedule gives the same table.  ``timings`` (when
-    given) receives the seconds of the closure (``l2_fw``, synchronised
-    by its device-to-host copy) and of ``first_hops``."""
+    witnesses come from ``first_hops`` on the closed distances, on the
+    same device, rather than a kernel's pivot-order-dependent
+    tie-breaks, so any exact closure schedule gives the same table.
+    ``timings`` (when given) receives the seconds of the closure
+    (``l2_fw``) and of ``first_hops``, each synchronised."""
     S2 = hier.S2
     with trace.span("hierarchy.l2_stage", S2=int(S2)):
         d2 = torch.full((S2 + 1, S2 + 1), _INF, dtype=torch.float32,
@@ -590,15 +613,14 @@ def l2_stage(hier: HierPlan, device: torch.device, *, force=None,
                              device=device)
         if S2 == 0 or hier.l2_src.size == 0:
             return d2, d2_next
-        adj = l2_overlay(hier)
+        adj = to_device(l2_overlay(hier), device)
         with trace.timed("hierarchy.l2_fw", timings, "l2_fw", S2=int(S2)):
-            d_s = ops.fw_apsp(to_device(adj, device),
-                              force=force).cpu().numpy()
+            d2[:S2, :S2] = ops.fw_apsp(adj, force=force)
+            _sync(device)
         with trace.timed("hierarchy.first_hops", timings, "first_hops",
                          S2=int(S2)):
-            n_s = first_hops(adj, d_s)
-        d2[:S2, :S2] = to_device(d_s, device)
-        d2_next[:S2, :S2] = to_device(n_s, device)
+            d2_next[:S2, :S2] = first_hops(adj, d2[:S2, :S2])
+            _sync(device)
         return d2, d2_next
 
 
@@ -608,7 +630,8 @@ def l2_stage(hier: HierPlan, device: torch.device, *, force=None,
 DECREASE_MAX_FRAC = 8
 
 
-# copied from src/repro/core/hierarchy.py:590 (host numpy, as there)
+# copied from src/repro/core/hierarchy.py:590 (the relaxation in host
+# numpy, as there; the witnesses on the index's device)
 def l2_decrease_stage(hier: HierPlan, d2_old: torch.Tensor,
                       d2_next_old: torch.Tensor,
                       changed_slots: np.ndarray
@@ -630,9 +653,9 @@ def l2_decrease_stage(hier: HierPlan, d2_old: torch.Tensor,
     ``first_hops`` only on the rows/columns whose adjacency row or
     closure column changed; everything else carries over.
 
-    The old epoch's tables are read on the host and never written: the
-    result is a new sentinel-padded (d2, d2_next) pair on ``d2_old``'s
-    device, or None when the touched endpoint set is too large for the
+    The old epoch's tables are read and never written: the result is a
+    new sentinel-padded (d2, d2_next) pair on ``d2_old``'s device (the
+    witnesses derived there), or None when the touched endpoint set is too large for the
     fast path to pay (the caller falls back to the full ``l2_stage``).
     """
     S2 = hier.S2
@@ -644,7 +667,6 @@ def l2_decrease_stage(hier: HierPlan, d2_old: torch.Tensor,
         return None
     with trace.span("hierarchy.l2_decrease_stage", S2=int(S2), r=r):
         d_old = d2_old.cpu().numpy()[:S2, :S2]
-        nxt_old = d2_next_old.cpu().numpy()[:S2, :S2]
         # seed block: old closure restricted to U, min-merged with the NEW
         # changed-slot weights, then closed by a tiny r x r FW
         m = d_old[np.ix_(u_ids, u_ids)].copy()
@@ -673,20 +695,20 @@ def l2_decrease_stage(hier: HierPlan, d2_old: torch.Tensor,
         # symmetric, so changed rows == changed columns)
         touched = np.union1d(
             u_ids, np.nonzero((d_new != d_old).any(axis=1))[0])
-        adj = l2_overlay(hier)
-        nxt_new = nxt_old.copy()
-        nxt_new[touched, :] = first_hops(adj, d_new, rows=touched)
-        rest = np.setdiff1d(np.arange(S2, dtype=np.int64), touched)
-        if rest.size and touched.size:
-            nxt_new[np.ix_(rest, touched)] = first_hops(
-                adj, d_new, rows=rest, cols=touched)
         dev = d2_old.device
         d2 = torch.full((S2 + 1, S2 + 1), _INF, dtype=torch.float32,
                         device=dev)
-        d2_next = torch.full((S2 + 1, S2 + 1), -1, dtype=torch.int32,
-                             device=dev)
         d2[:S2, :S2] = to_device(d_new, dev)          # fresh tensors
-        d2_next[:S2, :S2] = to_device(nxt_new, dev)
+        d2_next = d2_next_old.clone()
+        adj = to_device(l2_overlay(hier), dev)
+        t_dev = to_device(touched, dev)
+        d_dev = d2[:S2, :S2]
+        d2_next[t_dev, :S2] = first_hops(adj, d_dev, rows=t_dev)
+        rest = np.setdiff1d(np.arange(S2, dtype=np.int64), touched)
+        if rest.size and touched.size:
+            r_dev = to_device(rest, dev)
+            d2_next[r_dev[:, None], t_dev[None, :]] = first_hops(
+                adj, d_dev, rows=r_dev, cols=t_dev)
         return d2, d2_next
 
 

@@ -1,6 +1,7 @@
 # Copied from src/repro/core/paths.py; keep the two in step.  The port
 # reads its torch index tables through _host (a CPU numpy copy) where
-# the reference calls np.asarray.
+# the reference calls np.asarray, and computes the hierarchical distance
+# blocks on the index's device (``_dist_block_t``).
 """Host-side exact path reconstruction over the witness tables
 (DESIGN.md §10).
 
@@ -38,11 +39,16 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
+from ..kernels import ops
 from . import hierarchy
 from .device_engine import (WIT_LOCAL, WIT_NONE, WIT_PIECE, BuildPlan,
                             DeviceIndex, _overlay_size,
                             overlay_slot_table)
+
+
+_INF = float("inf")
 
 
 def _host(x) -> np.ndarray:
@@ -64,9 +70,10 @@ class PathUnwinder:
     Hierarchical epochs (DESIGN.md §12/§13) have no dense
     ``super_next``; the overlay walk x -> y is instead *derived* here
     from the per-level snapshots (each level's group closures + the
-    top closure): the winning route is recomputed host-side over the
-    small per-pair candidate sets — O(mb2^2) numpy per level, exact
-    because every table entry is the same f32 the device served — and
+    top closure): the winning route is recomputed over the per-pair
+    candidate sets — the distance blocks as (min,+) products on the
+    index's device, the argmin on the host, exact because every table
+    entry is the same f32 the device served — and
     then expanded level by level (``_route`` recursing down the
     ladder) until every hop is overlay-adjacent, at which point the
     ordinary slot expansion below takes over.
@@ -84,12 +91,21 @@ class PathUnwinder:
         self.super_next = _host(dix.super_next)
         self.hier = plan.hier if len(dix.sf_of) else None
         if self.hier is not None:
-            # per-grouping-level snapshots (lists indexed by lvl - 1)
-            self.sf_closure = [_host(a) for a in dix.sf_closure]
+            # per-grouping-level tables (lists indexed by lvl - 1): the
+            # successor tables snapshotted to the host for the walks; the
+            # distance tables stay on the index's device, where the
+            # distance blocks are computed (no refresh writes a tensor of
+            # a published epoch, so holding them pins this epoch)
             self.sf_next = [_host(a) for a in dix.sf_next]
-            self.l2row_t = [_host(a) for a in dix.l2row]
-            self.d2 = _host(dix.d2)
             self.d2_next = _host(dix.d2_next)
+            self.sf_closure = list(dix.sf_closure)
+            self.l2row = list(dix.l2row)
+            self.d2 = dix.d2
+            self.dev = dix.d2.device
+            self.hier_t = [tuple(torch.as_tensor(a).to(self.dev) for a in (
+                h.sf_of.astype(np.int64), h.pos_in_sf.astype(np.int64),
+                h.bnd2_valid, h.bnd2_sid.astype(np.int64)))
+                for h in self.hier]
             l2s = getattr(dix, "host_l2_slot", None)
             self.l2_slot = (list(l2s) if l2s is not None
                             else [hierarchy.l2_slot_map(h)
@@ -229,37 +245,56 @@ class PathUnwinder:
         min(same-group closure, lift through the group boundary one
         level up) — the same recurrence the device combine evaluates.
         Integer edge weights keep every f32 sum exact, so an argmin
-        over this block always reproduces a servable route."""
-        xs = np.asarray(xs, np.int64)
-        ys = np.asarray(ys, np.int64)
+        over this block always reproduces a servable route.  Computed
+        on the index's device (``_dist_block_t``), returned on the
+        host."""
+        dev = self.dev
+        return self._dist_block_t(
+            lvl, torch.as_tensor(np.asarray(xs, np.int64), device=dev),
+            torch.as_tensor(np.asarray(ys, np.int64), device=dev)
+        ).cpu().numpy()
+
+    def _dist_block_t(self, lvl: int, xs: torch.Tensor,
+                      ys: torch.Tensor) -> torch.Tensor:
+        """``_dist_block`` on the index's device.  Where the reference
+        closes one level up the whole [U, U] block of both sides'
+        boundary ids U and contracts it through a [|xs|, mb2, |U|]
+        gather cube (O(S^3) host memory at road250k's depth), this
+        closes only [x side's ids, y side's ids] one level up and
+        contracts it as two (min,+) products (``ops.minplus``) of the
+        boundary rows scattered to those ids: the same candidates, so
+        the same exact values."""
         if lvl == len(self.hier) + 1:
-            return self.d2[np.ix_(xs, ys)]
-        inf = np.float32(np.inf)
-        if xs.size == 0 or ys.size == 0:
-            return np.full((xs.size, ys.size), inf, np.float32)
-        h = self.hier[lvl - 1]
-        sfx, px = h.sf_of[xs], h.pos_in_sf[xs]
-        sfy, py = h.sf_of[ys], h.pos_in_sf[ys]
+            return self.d2[xs][:, ys]
+        if xs.numel() == 0 or ys.numel() == 0:
+            return torch.full((xs.numel(), ys.numel()), _INF,
+                              dtype=torch.float32, device=self.dev)
+        sf_of, pos_in_sf, valid, sid = self.hier_t[lvl - 1]
+        sfx, px = sf_of[xs], pos_in_sf[xs]
+        sfy, py = sf_of[ys], pos_in_sf[ys]
         cls = self.sf_closure[lvl - 1]
         same = sfx[:, None] == sfy[None, :]
-        out = np.where(same,
-                       cls[sfx[:, None], px[:, None], py[None, :]], inf)
-        if h.bnd2_valid.shape[1] == 0:
+        out = torch.where(same, cls[sfx[:, None], px[:, None], py[None, :]],
+                          _INF)
+        if valid.shape[1] == 0:
             return out
-        row = self.l2row_t[lvl - 1]
-        RX = np.where(h.bnd2_valid[sfx], row[sfx, px], inf)
-        RY = np.where(h.bnd2_valid[sfy], row[sfy, py], inf)
-        IX = np.where(h.bnd2_valid[sfx], h.bnd2_sid[sfx], 0)
-        IY = np.where(h.bnd2_valid[sfy], h.bnd2_sid[sfy], 0)
-        U, inv = np.unique(np.concatenate([IX.ravel(), IY.ravel()]),
-                           return_inverse=True)
-        mix = inv[:IX.size].reshape(IX.shape)
-        miy = inv[IX.size:].reshape(IY.shape)
-        B = self._dist_block(lvl + 1, U, U)
-        # tropical RX*B then gather-min against each y's boundary rows
-        x2 = np.min(RX[:, :, None] + B[mix], axis=1)       # [nx, |U|]
-        vb = np.min(x2[:, miy] + RY[None, :, :], axis=2)   # [nx, ny]
-        return np.minimum(out, vb)
+        row = self.l2row[lvl - 1]
+
+        def side(sf, p):
+            # boundary rows scattered to their next-level ids: [n, |ids|]
+            ok = valid[sf]
+            r = torch.where(ok, row[sf, p], _INF)
+            ids, inv = torch.unique(torch.where(ok, sid[sf], 0),
+                                    return_inverse=True)
+            dense = torch.full((r.shape[0], ids.numel()), _INF,
+                               dtype=torch.float32, device=self.dev)
+            return ids, dense.scatter_reduce_(1, inv, r, reduce="amin")
+
+        ax, rx = side(sfx, px)
+        ay, ry = side(sfy, py)
+        b = self._dist_block_t(lvl + 1, ax, ay)
+        vb = ops.minplus(ops.minplus(rx, b), ry.t().contiguous())
+        return torch.minimum(out, vb)
 
     def _expand_hop(self, lvl: int, a: int, b: int) -> List[int]:
         """One level-``lvl`` adjacency hop -> level-(lvl-1) ids AFTER
@@ -298,14 +333,14 @@ class PathUnwinder:
         h = self.hier[lvl - 1]
         sfx, sfy = int(h.sf_of[x]), int(h.sf_of[y])
         px, py = int(h.pos_in_sf[x]), int(h.pos_in_sf[y])
-        va = (self.sf_closure[lvl - 1][sfx, px, py] if sfx == sfy
-              else np.float32(np.inf))
+        va = np.float32(self.sf_closure[lvl - 1][sfx, px, py].item()
+                        if sfx == sfy else np.inf)
         vx = np.nonzero(h.bnd2_valid[sfx])[0]
         vy = np.nonzero(h.bnd2_valid[sfy])[0]
         vb = np.float32(np.inf)
         if vx.size and vy.size:
-            a_row = self.l2row_t[lvl - 1][sfx, px, vx]
-            b_row = self.l2row_t[lvl - 1][sfy, py, vy]
+            a_row = _host(self.l2row[lvl - 1][sfx, px])[vx]
+            b_row = _host(self.l2row[lvl - 1][sfy, py])[vy]
             d_blk = self._dist_block(lvl + 1, h.bnd2_sid[sfx, vx],
                                      h.bnd2_sid[sfy, vy])
             tot = a_row[:, None] + d_blk + b_row[None, :]
