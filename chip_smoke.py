@@ -118,6 +118,16 @@ prints no result.  Phases, each of which must pass:
      and the serving gap beside it are recorded);
      counters zeroed around each run, and no kernel library built or
      loaded during one;
+ 8b. the bench gate (``_gate``): ``python -m
+     repro_torch.launch.bench_gate`` and its ``--live``, ``--refresh``
+     and ``--host-build`` sections at road4000 against the committed
+     ``BENCH_torch_serve.json`` (the median of the last 5 card records
+     of the same configuration and card); each section of
+     ``GATED_SECTIONS`` must pass, the others run with their numbers
+     printed; the fresh ``serve_live`` records carry every tier and
+     histogram field; ``--inject-slowdown 10`` must exit 1.  Each run
+     is a serve CLI process of its own on the road4000 path that phase
+     4 counts launches on;
   9. the sharded path (``_sharded``) on phases 4 and 6's indices:
      road4000 through ``serve --mode fused`` and ``--mode sharded`` (5
      batches of 1,024, 64 validated, 0 mismatches); road64k through ``serve_sharded`` on a one-card mesh
@@ -1215,7 +1225,7 @@ def _main_path(graph: str, validate: int, sources=(), path_args=(),
         tmp.cleanup()
         res["json_sections"] = [r["section"] for r in back]
         if back != json.loads(json.dumps(wrote, default=str)) or res[
-                "json_sections"] != ["serve", "serve_paths"]:
+                "json_sections"] != ["host_build", "serve", "serve_paths"]:
             raise AssertionError(f"{graph} --json: read back "
                                  f"{res['json_sections']}")
     if n_hubs:
@@ -1847,6 +1857,139 @@ def _road64k_live() -> dict:
     if not all(checks.values()):
         raise AssertionError(f"road64k live: {checks}")
     return res
+
+
+#: the bench gate's sections that the ``gate`` phase gates on the card:
+#: each one's max/min over the committed history's 5 card runs stays
+#: under the gate's 2.5x factor (``serve`` 1.64, ``host_build`` 1.09).
+#: ``live`` (p99 3.39) is not; nor is ``refresh``, whose history passes
+#: (1.75-2.31) but whose serving gap in this script's first card run was
+#: 5.15x the history's median, as the live tail is (PERF.md §5 "Bench
+#: gate"; ROADMAP queue 2 item 9)
+GATED_SECTIONS = ("serve", "host_build")
+
+#: the gate's sections in the order the phase runs them, each with its
+#: flag of ``python -m repro_torch.launch.bench_gate``
+GATE_SECTIONS = (("serve", ()), ("live", ("--live",)),
+                 ("refresh", ("--refresh",)),
+                 ("host_build", ("--host-build",)))
+
+
+def _gate_run(flags, fresh: Path, history: Path | None = None) -> dict:
+    """One ``python -m repro_torch.launch.bench_gate`` run (road4000,
+    the gate's defaults) with its fresh records in ``fresh`` -> its exit
+    code, its ``bench_gate:`` lines, its seconds and its fresh records."""
+    import os
+
+    from repro_torch.perflog import read_records
+    fresh.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.bench_gate",
+           "--fresh", str(fresh), *flags]
+    if history is not None:
+        cmd += ["--history", str(history)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("BENCH_GATE_FACTOR", None)      # the gate's own 2.5x
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    took = time.perf_counter() - t0
+    lines = [x for x in proc.stdout.splitlines()
+             if x.startswith("bench_gate:") and "running" not in x]
+    for x in lines:
+        print(f"  {x}")
+    if proc.returncode not in (0, 1) or (
+            proc.returncode and not any("FAIL —" in x for x in lines)):
+        # the serve run or a field contract failed: not a gate verdict
+        print(proc.stdout[-4000:])
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"bench_gate {list(flags)}: exit "
+                             f"{proc.returncode} with no gate verdict")
+    return {"rc": proc.returncode, "lines": lines, "s": took,
+            "records": read_records(str(fresh))}
+
+
+def _gate() -> dict:
+    """``python -m repro_torch.launch.bench_gate`` on the card: its four
+    sections at road4000 (``serve`` 3 batches of 1,024; ``--live`` and
+    ``--refresh`` Zipf at 500 qps for 3 s beside one refresh round;
+    ``--host-build`` 2 workers) against the committed
+    ``BENCH_torch_serve.json``.  A section of ``GATED_SECTIONS`` must
+    pass (exit 0); another one runs, its fresh number printed, with no
+    verdict taken.  The fresh ``serve_live`` records of the live and
+    refresh runs must carry every tier and histogram field, and the
+    refresh run's ``serve_refresh`` record both gated metrics.  Then
+    the self-test: ``serve`` with ``--inject-slowdown 10`` must exit 1
+    (against the fresh ``serve`` record when the committed history has
+    none of this card).  Each run is a serve CLI process of its own,
+    the road4000 path phase ``road4000`` counts launches on; fresh
+    records land in ``chiprun_out/bench_gate_fresh_torch_*.json``."""
+    import torch
+
+    from repro_torch.launch import bench_gate
+    from repro_torch.perflog import read_records
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    history = ROOT / "BENCH_torch_serve.json"
+    card = torch.cuda.get_device_name(0)
+    committed = [r for r in read_records(str(history))
+                 if r.get("device_name") == card]
+    res: dict = {"card": card, "committed_records": len(committed),
+                 "gated": list(GATED_SECTIONS), "runs": {}}
+    print(f"  gate: {len(committed)} committed records of {card}")
+    for name, flags in GATE_SECTIONS:
+        run = _gate_run(flags, out_dir / f"bench_gate_fresh_torch_{name}"
+                        ".json")
+        res["runs"][name] = run
+        if name in GATED_SECTIONS and run["rc"]:
+            raise AssertionError(f"gate {name} failed: {run['lines']}")
+    for name in ("live", "refresh"):
+        recs = res["runs"][name]["records"]
+        live = [r for r in recs if r["section"] == "serve_live"]
+        if len(live) != 1 or live[0]["oracle_bad"]:
+            raise AssertionError(f"gate {name}: serve_live {live}")
+        bench_gate.require_tier_fields(live[0])
+        bench_gate.require_hist_fields(live[0])
+    refresh = [r for r in res["runs"]["refresh"]["records"]
+               if r["section"] == "serve_refresh"]
+    if len(refresh) != 1 or not all(
+            isinstance(refresh[0].get(k), (int, float))
+            for k in ("refresh_max_s", "max_serving_gap_ms")):
+        raise AssertionError(f"gate refresh: serve_refresh {refresh}")
+    selftest_history = None
+    if not any(r["section"] == "serve" for r in committed):
+        selftest_history = out_dir / "bench_gate_selftest_history.json"
+        selftest_history.write_text(json.dumps(
+            res["runs"]["serve"]["records"]))
+    res["selftest_history"] = ("committed" if selftest_history is None
+                               else "fresh serve record")
+    run = _gate_run(("--inject-slowdown", "10"),
+                    out_dir / "bench_gate_fresh_torch_selftest.json",
+                    history=selftest_history)
+    res["runs"]["selftest"] = run
+    if run["rc"] != 1:
+        raise AssertionError(f"gate self-test: --inject-slowdown 10 "
+                             f"exited {run['rc']}: {run['lines']}")
+    res["numbers"] = {
+        "serve_us_per_query": _fresh(res, "serve", "serve", "us_per_query"),
+        "live_p99_ms": _fresh(res, "live", "serve_live", "p99_ms"),
+        "refresh_max_s": _fresh(res, "refresh", "serve_refresh",
+                                "refresh_max_s"),
+        "max_serving_gap_ms": _fresh(res, "refresh", "serve_refresh",
+                                     "max_serving_gap_ms"),
+        "host_build_wall_s": _fresh(res, "host_build", "host_build",
+                                    "wall_s"),
+        "seconds": {k: v["s"] for k, v in res["runs"].items()}}
+    print(f"  gate: {res['numbers']}")
+    for run in res["runs"].values():
+        del run["records"]
+    return res
+
+
+def _fresh(res: dict, run: str, section: str, key: str):
+    """``key`` of the gate run ``run``'s fresh ``section`` record."""
+    recs = [r for r in res["runs"][run]["records"]
+            if r["section"] == section]
+    return recs[-1][key] if recs else None
 
 
 def _events_ms(fn) -> tuple:
@@ -2917,6 +3060,7 @@ def main() -> int:
     phase("road64k_refresh", _road64k_refresh)
     phase("road250k", _road250k)
     phase("road4000_live", _road4000_live)
+    phase("gate", _gate)
     # the dry-run sweep needs no card: it runs at nice 19 in its own
     # processes beside the phases from here on (none of them gated on
     # time), and phase dryrun waits for it

@@ -2020,13 +2020,17 @@ def serve_step_w(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
 
 def serve_hub(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
               force=None) -> torch.Tensor:
-    """The hub-label tier: both endpoints' agents labeled and in
-    different TOP groups (dense: different fragments), which the
-    planner's hub_mask guarantees; then the query is two label-row
-    gathers and one ``ops.label_merge``.  A mis-gated pair gathers the
-    all-INF sentinel row and returns +inf, never a wrong distance.  The
-    gathers are indexed by agent, never by fragment id; a fragment id
-    of -1 only masks the answer to +inf."""
+    """The hub-label tier: two label-row gathers and one
+    ``ops.label_merge``.  The answer is exact only on pairs whose agents
+    are both labeled and in different TOP groups (dense: different
+    fragments), so callers gate with the planner's ``hub_mask`` first,
+    as ``serving/runtime.py`` does.  Off the gate, a pair with an
+    unlabeled agent gathers the all-INF sentinel row and gets +inf; a
+    labeled pair the gate rejects (same TOP group, same fragment) gets
+    a finite answer, the length of a real path through the top
+    boundary: never below the true distance, but possibly above it.
+    The gathers are indexed by agent, never by fragment id; a fragment
+    id of -1 only masks the answer to +inf."""
     s, t = s.long(), t.long()
     us, ut = dix.agent_of[s].long(), dix.agent_of[t].long()
     valid = (dix.frag_of[us] >= 0) & (dix.frag_of[ut] >= 0)

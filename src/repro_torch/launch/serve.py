@@ -78,11 +78,16 @@ build's streaming handoff (``EpochedEngine(build_workers=)``).
 Chrome trace.
 
 ``--json PATH`` (default off) appends the run's records to the history
-at PATH (``repro_torch.perflog``): ``serve``, ``serve_paths``,
-``refresh`` (one an epoch) and ``serve_live``/``serve_refresh``, each
-printed first beside the previous record of its section and graph
-(``perflog.latest``).  The port never writes the reference's
-``BENCH_serve.json``.
+at PATH (``repro_torch.perflog``): ``host_build`` (every run),
+``serve``, ``serve_paths``, ``refresh`` (one an epoch) and
+``serve_live``/``serve_refresh``, each printed first beside the previous
+record of its section and graph (``perflog.latest``).  Every record
+carries the reference's keys of its section, ``backend`` the device
+type among them, and the card it ran on: ``device_name`` and, on a
+card, ``power_limit_w`` from nvidia-smi.  ``python -m
+repro_torch.launch.bench_gate`` gates these records against the
+committed ``BENCH_torch_serve.json``.  The port never writes the
+reference's ``BENCH_serve.json``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --nodes 900 --live --rate 500 --live-seconds 1 \
@@ -92,7 +97,9 @@ printed first beside the previous record of its section and graph
 from __future__ import annotations
 
 import argparse
+import functools
 import json
+import subprocess
 import sys
 import time
 
@@ -308,6 +315,55 @@ def _overlay_record(dix, plan) -> dict:
             "overlay_bytes": dense, "overlay_dense_bytes": dense}
 
 
+@functools.lru_cache(maxsize=None)
+def _power_limit_w(index: int) -> float | None:
+    """The card's power limit in W from ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` (line ``index``), read once a
+    card; None when nvidia-smi gives none."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+        return float(out[index].rsplit(",", 1)[1].split()[0])
+    except (OSError, subprocess.SubprocessError, IndexError, ValueError):
+        return None
+
+
+def device_fields(device) -> dict:
+    """What every record says of the device it ran on: ``backend`` (the
+    device type, the reference's key), ``device_name`` (the card's name,
+    or ``cpu``) and, on a card, ``power_limit_w``.  The gate keys its
+    histories on ``device_name``, so card and CPU records never mix."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {"backend": device.type, "device_name": device.type}
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return {"backend": "cuda",
+            "device_name": torch.cuda.get_device_name(index),
+            "power_limit_w": _power_limit_w(index)}
+
+
+# copied from src/repro/launch/serve.py:111-123
+def host_build_record(args, timings: dict, device) -> dict:
+    """``section: "host_build"`` perf record from the host index stage
+    timings, the bench gate's ``host_build`` section: ``wall_s`` sums
+    the numeric stage entries of ``timings`` as the reference does; the
+    port's own total ``host_build_s`` is not a stage and is left out."""
+    stages = {k: round(float(v), 4) for k, v in timings.items()
+              if k != "host_build_s" and isinstance(v, (int, float))
+              and not isinstance(v, bool)}
+    return {
+        "section": "host_build",
+        "graph": args.graph or f"road{args.nodes}",
+        **device_fields(device),
+        "build_workers": int(getattr(args, "build_workers", 1) or 1),
+        "wall_s": round(sum(stages.values()), 4),
+        **{f"stage_{k}_s": v for k, v in stages.items()},
+    }
+
+
 # copied from src/repro/launch/serve.py:189-201
 def _scale_gates(args: argparse.Namespace, ov: dict) -> None:
     """``--expect-hierarchy`` and ``--max-s2-ratio`` on the overlay
@@ -404,6 +460,7 @@ def _summary(args, g, ix, dix, plan, device, device_s: float) -> dict:
         "maxf": plan.maxf, "mb": plan.mb, "overlay": overlay,
         "hub_labels": hub_labels,
         "host_build_s": ix.timings["host_build_s"],
+        "host_timings": dict(ix.timings),
         "device_build_s": device_s, "stages_s": dict(plan.build_timings)}
 
 
@@ -517,7 +574,7 @@ def serve(args: argparse.Namespace, g, dix, summary: dict,
     res = dict(
         summary, mode=args.mode, warmup_s=warmup_s,
         median_batch_ms=med * 1e3, us_per_query=per_q * 1e6,
-        buckets=totals, peak_device_mb=peak_mb, mismatches=bad,
+        qps=1 / per_q, buckets=totals, peak_device_mb=peak_mb, mismatches=bad,
         answers_finite=bool(last is not None
                             and np.isfinite(last[2]).all()))
     if args.paths:
@@ -873,6 +930,7 @@ def live_loop(engine: EpochedEngine, args: argparse.Namespace) -> dict:
         "section": "serve_live",
         "graph": args.graph or f"road{args.nodes}",
         "device": str(engine.device),
+        **device_fields(engine.device),
         "mix": args.mix,
         "rate_qps": args.rate,
         "deadline_ms": args.deadline_ms,
@@ -893,6 +951,7 @@ def live_loop(engine: EpochedEngine, args: argparse.Namespace) -> dict:
             "section": "serve_refresh",
             "graph": rec["graph"],
             "device": rec["device"],
+            **device_fields(engine.device),
             "mix": args.mix,
             "rate_qps": args.rate,
             "update_frac": args.update_frac,
@@ -947,7 +1006,8 @@ def run(args: argparse.Namespace) -> dict:
 
 #: what identifies "the same run" of a section when the previous record
 #: is looked up
-_PREV_KEYS = {"serve": ("graph", "mode"), "serve_paths": ("graph",),
+_PREV_KEYS = {"host_build": ("graph", "build_workers"),
+              "serve": ("graph", "mode"), "serve_paths": ("graph",),
               "refresh": ("graph",), "serve_live": ("graph", "mix",
                                                      "rate_qps", "cache",
                                                      "refresh"),
@@ -956,26 +1016,35 @@ _PREV_KEYS = {"serve": ("graph", "mode"), "serve_paths": ("graph",),
 
 def records(args: argparse.Namespace, res: dict) -> list:
     """The run's records, as ``run`` returns them in ``res``: one
-    ``serve`` record (the offline batches), one ``serve_paths`` a path
-    loop, one ``refresh`` an update round, and the live records; each
-    with its ``section``, ``graph`` and ``device``."""
+    ``host_build`` record (the host build's stages), one ``serve``
+    record (the offline batches), one ``serve_paths`` a path loop, one
+    ``refresh`` an update round, and the live records; each with its
+    ``section``, ``graph``, ``device`` and ``device_fields``, and with
+    every key of the reference's record of its section."""
     graph = args.graph or f"road{args.nodes}"
-    base = {"graph": graph, "device": res.get("device")}
+    device = res.get("device")
+    base = {"graph": graph, "device": device,
+            **(device_fields(device) if device else {})}
     out = []
+    if "host_timings" in res:
+        out.append({**host_build_record(args, res["host_timings"],
+                                        device), "device": device})
     if "median_batch_ms" in res:
         out.append({"section": "serve", **base, "mode": res["mode"],
                     "batch_size": args.batch_size,
                     **{k: res[k] for k in (
-                        "median_batch_ms", "us_per_query", "warmup_s",
-                        "peak_device_mb", "mismatches", "host_build_s",
-                        "device_build_s", "S", "overlay")}})
+                        "median_batch_ms", "us_per_query", "qps",
+                        "warmup_s", "peak_device_mb", "mismatches",
+                        "host_build_s", "device_build_s")},
+                    **res["overlay"]})
     for key in ("paths", "paths_last_epoch"):
         if key in res:
             out.append({"section": "serve_paths", **base,
                         "last_epoch": key == "paths_last_epoch",
                         **res[key]})
     for rec in res.get("refresh", ()):
-        out.append({"section": "refresh", **base, **rec})
+        out.append({"section": "refresh", **base,
+                    "initial_build_s": res.get("engine_s"), **rec})
     live = res.get("live")
     if live:
         out += [r for r in (live["serve_live"], live["serve_refresh"]) if r]

@@ -173,3 +173,38 @@ def test_convert_carries_hub_tables_and_sidecar():
     back = convert.device_index_to_numpy(cdix)
     for name in ("hub_rows", "hub_of_agent", "host_hub_agent"):
         np.testing.assert_array_equal(back[name], fields[name])
+
+
+@pytest.mark.parametrize("lv", (2, 3))
+def test_rejected_labeled_pair_is_finite_and_never_short(lv):
+    """``query_hub`` off the gate: labeled pairs that ``hub_mask``
+    rejects (both agents labeled, in different fragments of one TOP
+    group) get a finite answer, the length of a real path through the
+    top boundary, so never below Dijkstra, and ``==`` the reference's
+    ``query_hub``.  Callers gate first; this pins what the docstrings
+    of ``serve_hub`` and ``QueryPlanner.query_hub`` say."""
+    g, dix, jdix = _built(lv)
+    planner = QueryPlanner(dix)
+    s, t = _candidates(g, n_cand=20000, seed=7)
+    agent_of = dix.agent_of.numpy()
+    frag_of = dix.frag_of.numpy()
+    us, ut = agent_of[s], agent_of[t]
+    topgrp = dix.host_topgrp_frag
+    assert topgrp is not None
+    labeled = ((dix.host_hub_agent[us] >= 0) & (dix.host_hub_agent[ut] >= 0)
+               & (frag_of[us] >= 0) & (frag_of[ut] >= 0))
+    same_top = (frag_of[us] != frag_of[ut]) & (
+        topgrp[np.maximum(frag_of[us], 0)]
+        == topgrp[np.maximum(frag_of[ut], 0)])
+    pick = labeled & same_top & (s != t)
+    assert pick.sum() >= 4, "no labeled same-top-group pair: fixture"
+    s, t = s[pick][:64], t[pick][:64]
+    assert not planner.hub_mask(s, t).any()
+    got = planner.query_hub(s, t)
+    want = JQueryPlanner(jdix).query_hub(s.astype(np.int32),
+                                         t.astype(np.int32))
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert np.isfinite(got).all()
+    oracle = np.asarray([dijkstra.pair(g, int(a), int(b))
+                         for a, b in zip(s, t)], np.float32)
+    assert (got >= oracle).all(), (got - oracle).min()

@@ -85,6 +85,7 @@ def test_port_modules_import_no_jax_and_no_reference_package():
               "repro_torch.launch.opanalysis", "repro_torch.launch.dryrun",
               "repro_torch.launch.dryrun_disland",
               "repro_torch.launch.dryrun_report", "repro_torch.obs.overhead",
+              "repro_torch.launch.bench_gate",
               "repro_torch.paper", "repro_torch.paper.tables",
               "repro_torch.paper.run", *_EXAMPLES):
         assert m in res["modules"]

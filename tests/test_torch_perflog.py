@@ -115,8 +115,10 @@ def test_serve_json_appends_and_prints_the_previous(tmp_path, capsys,
     assert serve.main(argv + ["--json", hist, "--paths"]) == 0
     out = capsys.readouterr().out
     recs = perflog.read_records(hist)
-    assert [r["section"] for r in recs] == ["serve", "serve",
+    assert [r["section"] for r in recs] == ["host_build", "serve",
+                                            "host_build", "serve",
                                             "serve_paths"]
-    assert f"previous serve record: {json.dumps(recs[0])}" in out
-    assert recs[1]["graph"] == "road400" and recs[1]["mode"] == "planner"
-    assert recs[2]["mismatches"] == 0
+    assert f"previous serve record: {json.dumps(recs[1])}" in out
+    assert f"previous host_build record: {json.dumps(recs[0])}" in out
+    assert recs[3]["graph"] == "road400" and recs[3]["mode"] == "planner"
+    assert recs[4]["mismatches"] == 0
