@@ -38,8 +38,11 @@ prints no result.  Phases, each of which must pass:
      array-equal; tie-heavy values from {0, 1, 2}, and road4000's
      serve-shaped scattered boundary rows at q = 16 and 1,024, sorted
      and tie-heavy variants included, with the share of rows tiles the
-     kernel cannot skip) and the hub-label merge (timed over input
-     copies larger than the L2);
+     kernel cannot skip) and the hub-label merge, dense and through the
+     label table's row ids (q = 8 to 4,096 at W = 480, 1,712 and 4,661,
+     (0, 0) pads, the sentinel row and repeated ids),
+     timed over input copies larger than the L2 together, beside an
+     empty launch;
   3. small end-to-end references: road_like(900) with 96 seeded hub
      nodes, built and served on the card, equals the same run on the
      CPU (plain versions), table for table (hub tables and sidecars
@@ -71,7 +74,9 @@ prints no result.  Phases, each of which must pass:
      0.5`` (as ``scripts/check.sh`` runs the reference), 32 validated, ``--paths`` at one batch of 16 (all validated), then
      ``serve_one_to_all`` from 3 sources against Dijkstra and, from
      4,096 random pairs of hub nodes, the hub-gated pairs through
-     ``query_hub`` (== ``query``, 32 == Dijkstra); counters zeroed just
+     ``query_hub`` (== ``query``, 32 == Dijkstra), one ``serve_hub`` call
+     on them and its label merge on the real table timed (launches of
+     the timing taken back off the counter); counters zeroed just
      before and read just after; then each one-to-all source timed on
      its own (warm, synchronised, Dijkstra excluded); peak device memory
      of the build and of serving; the top closure's witnesses
@@ -99,7 +104,10 @@ prints no result.  Phases, each of which must pass:
      sources and 2,048 hub nodes (0 mismatches each); its shapes (n, S,
      levels, nsf, S2, overlay bytes) == the reference's record in
      ``BENCH_serve.json``, printed per level; the top witnesses on the
-     card == the CPU's on 128 rows; one 1% traffic epoch through
+     card == the CPU's on 128 rows; kernels 1 (fragments [246, 992,
+     992], group closures [10, 2048, 2048] and [4, 4096, 4096]), 2
+     (cross_frag against S_top+1 = 4,661) and 7 (the hub check at W =
+     4,661) timed on its own tables; one 1% traffic epoch through
      ``refresh_index`` (16 answers == Dijkstra before and after, == its
      scratch rebuild, ``RefreshStats`` and the ``first_hops`` span
      printed); every kernel but the per-pivot ones must launch;
@@ -195,10 +203,10 @@ prints no result.  Phases, each of which must pass:
      ``live_launches``, ``sharded_launches``, ``paper_launches`` and
      ``road250k_launches``;
      together they must launch both witness FW kernels, the
-     grouped twoside, the label merge, the in-place accumulate and
-     ``fw_dist_blocked``, and never the per-pivot FWs, kernel 3's
-     shared-memory kernel or the fresh-output accumulate; times and
-     bounds from phases 2, 7 and 9),
+     grouped twoside, the label merge through row ids, the in-place
+     accumulate and ``fw_dist_blocked``, and never the per-pivot FWs,
+     kernel 3's shared-memory kernel, the fresh-output accumulate or the
+     dense label merge; times and bounds from phases 2, 7 and 9),
      the card's name and power limit from nvidia-smi, and the
      ``{"ok": true, ...}`` line last.
 
@@ -212,6 +220,7 @@ is timed against the grouped kernel by ``scripts/kernel_ab.py
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -568,6 +577,123 @@ def _check_label_merge(cases, out):
             "plain_ms": _time_ms(lambda: ops.label_merge(labs, labt,
                                                          force="ref"), 10),
             "bound_ms": bound, "bound_by": by}, ok)
+
+
+#: the indexed merge case the ``kernels`` line reports
+MERGE_ROWS_MAIN = "rows q=1024 W=1712 (2,035 rows)"
+
+#: (label, q, W, table rows, ids): kernel 7 through row ids at the hub
+#: tier's widths (road4000's W = 480 with 257 label rows, road64k's
+#: 1,712 with 2,035, road250k's 4,661 with 2,049), a batch of 1,024;
+#: road250k's hub call (2,070 gated pairs padded to 4,096); the live
+#: flush sizes; a small ragged case (``_merge_rows_inputs``)
+MERGE_ROWS_CASES = (
+    ("rows q=1024 W=480 (257 rows)", 1024, 480, 257, "random"),
+    (MERGE_ROWS_MAIN, 1024, 1712, 2035, "random"),
+    ("rows q=1024 W=4661 (2,049 rows)", 1024, 4661, 2049, "random"),
+    ("rows q=4096 W=4661 half pads (2,049 rows)", 4096, 4661, 2049,
+     "pads"),
+    ("rows q=8 W=480 (live flush)", 8, 480, 257, "random"),
+    ("rows q=256 W=480 (live flush)", 256, 480, 257, "random"),
+    ("rows q=37 W=299 sentinel, repeated ids", 37, 299, 41, "sentinel"))
+
+
+def _merge_rows_inputs(q, w, h, kind, rng):
+    """(rows [h, w], ids_s, ids_t [q] int32) on the card: integers with
+    ~10% +inf, the last row the all-+inf sentinel; ids uniform over the
+    h rows ("random"), the same with the second half of the batch (0, 0)
+    pads, as ``query_hub`` pads a batch to a power of two ("pads"), or
+    from 8 rows and the sentinel, so that ids repeat ("sentinel")."""
+    import numpy as np
+    import torch
+    rows = _int_inf((h, w), rng, 0.1)
+    rows[h - 1] = np.inf
+    if kind == "sentinel":
+        ids = rng.integers(0, 9, (2, q))
+        ids[ids == 8] = h - 1
+    else:
+        ids = rng.integers(0, h, (2, q))
+    if kind == "pads":
+        ids[:, q // 2:] = 0
+    ids = torch.from_numpy(ids.astype(np.int32)).cuda()
+    return torch.from_numpy(rows).cuda(), ids[0].clone(), ids[1].clone()
+
+
+def _merge_rows_times(rows, ids_s, ids_t) -> dict:
+    """Kernel 7 through row ids on (rows, ids_s, ids_t), timed with the
+    table out of L2 (copies of ``rows``, together larger than the L2, one
+    a call, so a call reads every row it needs from HBM): device and
+    CUDA-event ms; warm device ms on ``rows`` itself; the route it replaced (two
+    gathers, then the dense merge: every kernel of it) from the same
+    copies; the bound (the distinct rows the ids reach, 8 bytes of ids
+    and 4 of output a query) and the dense route's bound 8qW + 4q."""
+    import functools
+
+    import torch
+    from repro_torch.kernels import label_merge as lm
+    from repro_torch.kernels import ops
+    q, w = ids_s.shape[0], rows.shape[1]
+    distinct = int(torch.unique(torch.cat([ids_s, ids_t])).numel())
+    bound, by = _bound_ms(4.0 * distinct * w + 12.0 * q, 2.0 * q * w)
+    n = min(1024, max(2, -(-_COLD_BYTES // (4 * rows.numel()))))
+    copies = [rows.clone() for _ in range(n)]
+    turn = iter(range(1 << 30))
+
+    def cold():
+        return lm.label_merge_rows_cuda(copies[next(turn) % n], ids_s,
+                                        ids_t)
+
+    def gathers():
+        r = copies[next(turn) % n]
+        return ops.label_merge(r[ids_s.long()], r[ids_t.long()])
+    return {
+        "q": q, "w": w, "table_rows": rows.shape[0],
+        "distinct_rows": distinct, "copies": n, "team": lm.team(q, w),
+        "ms": _time_ms(cold, 50), "device_ms": _device_ms(cold, 50),
+        "hot_device_ms": _device_ms(functools.partial(
+            lm.label_merge_rows_cuda, rows, ids_s, ids_t), 50),
+        "gather_route_device_ms": _device_ms(gathers, 50),
+        "bound_ms": bound, "bound_by": by,
+        "dense_bound_ms": _bound_ms(8.0 * q * w + 4.0 * q, 2.0 * q * w)[0]}
+
+
+def _check_label_merge_rows(cases, out) -> dict:
+    """(label, q, W, table rows, kind): kernel 7 through row ids against
+    its plain version, array-equal, and through the dense entry on the
+    gathered rows (``_merge_rows_inputs``), timed by
+    ``_merge_rows_times``.  Returns the empty kernel's device and event
+    ms on one block and on the grid of a q = 1,024 merge (1,024 blocks):
+    the fixed cost of a launch, which the merge's time is read beside."""
+    import functools
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import label_merge as lm
+    from repro_torch.kernels import ops
+    for label, q, w, h, kind in cases:
+        rng = np.random.default_rng(q * 7 + w)
+        rows, ids_s, ids_t = _merge_rows_inputs(q, w, h, kind, rng)
+        want = ops.label_merge_rows(rows, ids_s, ids_t, force="ref")
+        got = [lm.label_merge_rows_cuda(rows, ids_s, ids_t),
+               lm.label_merge_cuda(rows[ids_s.long()], rows[ids_t.long()])]
+        torch.cuda.synchronize()
+        ok = all(torch.equal(x, want) for x in got)
+        _record(out, {
+            "case": label, "kernel": "label_merge_rows_cuda", "kind": kind,
+            "equal": ok, "max_abs_err": max(_max_abs_err(x, want)
+                                            for x in got),
+            **_merge_rows_times(rows, ids_s, ids_t),
+            "plain_ms": _time_ms(lambda: ops.label_merge_rows(
+                rows, ids_s, ids_t, force="ref"), 10)}, ok)
+        del rows, ids_s, ids_t
+        torch.cuda.empty_cache()
+    floor = {}
+    for blocks in (1, 1024):
+        fn = functools.partial(lm.empty_launch_cuda, blocks)
+        floor[f"blocks={blocks}"] = {"device_ms": _device_ms(fn, 50),
+                                     "ms": _time_ms(fn, 50)}
+    print(f"  empty launch: {floor}")
+    return {"empty_launch": floor}
 
 
 #: (graph, index) of each main path, for the serve-shaped grouped cases
@@ -983,12 +1109,14 @@ KERNELS = (("fw_next_reg", "floyd_warshall", "fw_next_reg_cuda"),
            ("minplus", "minplus", "minplus_cuda"),
            ("minplus_twoside_argmin", "minplus_twoside",
             "minplus_twoside_argmin_cuda"),
-           ("label_merge", "label_merge", "label_merge_cuda"))
+           ("label_merge", "label_merge", "label_merge_cuda"),
+           ("label_merge_rows", "label_merge", "label_merge_rows_cuda"))
 
 
-#: kernel entries the main paths must not launch
+#: kernel entries the main paths must not launch (the dense label merge
+#: left them when ``serve_hub`` took the row ids)
 OFF_MAIN_PATH = ("fw_next_global", "minplus_accum", "fw_dist_smem",
-                 "fw_dist_global")
+                 "fw_dist_global", "label_merge")
 
 
 def _wrapper(module: str, attr: str):
@@ -1005,6 +1133,18 @@ def _reset_counts():
 def _read_counts() -> dict:
     return {name: _wrapper(module, attr).launches
             for name, module, attr in KERNELS}
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """Launches inside are timing runs, not the path's: every counter is
+    put back as it was on the way out."""
+    saved = _read_counts()
+    try:
+        yield
+    finally:
+        for name, module, attr in KERNELS:
+            _wrapper(module, attr).launches = saved[name]
 
 
 def _differ(a: dict, b: dict) -> list:
@@ -1141,10 +1281,16 @@ def _hub_check(g, dix, hubs, seed: int = 5) -> dict:
     hub set was chosen for: a deployment pins its most frequent ones):
     the hub gate must admit some pairs, ``query_hub`` must equal the
     planner's ``query`` on every admitted pair and Dijkstra on 32 of
-    them; times both on the gated pairs."""
+    them; times both on the gated pairs (host clock), then one
+    ``serve_hub`` call on them as ``query_hub`` pads them (device time:
+    every kernel it launches; CUDA events) and its label merge on the
+    index's own table (``_merge_rows_times``), uncounted."""
+    import functools
+
     import numpy as np
     import torch
-    from repro_torch.core import dijkstra
+    from repro_torch.core import dijkstra, padding
+    from repro_torch.core.device_engine import serve_hub
     from repro_torch.core.dist_engine import QueryPlanner
     rng = np.random.default_rng(seed)
     s, t = rng.choice(hubs, 4096), rng.choice(hubs, 4096)
@@ -1169,6 +1315,19 @@ def _hub_check(g, dix, hubs, seed: int = 5) -> dict:
            "hub_us_per_query": [times[k] / max(1, s.size) * 1e6
                                 for k in ("hub", "hub_again")],
            "planner_us_per_query": times["planner"] / max(1, s.size) * 1e6}
+    if s.size:
+        m = int(padding.pad_pow2(s.size))
+        sp, tp = (torch.zeros(m, dtype=torch.int64, device="cuda")
+                  for _ in range(2))
+        sp[:s.size], tp[:s.size] = torch.from_numpy(s), torch.from_numpy(t)
+        call = functools.partial(serve_hub, dix, sp, tp)
+        with _uncounted():
+            res["serve_hub"] = {
+                "q": m, "device_ms": _device_ms(call, 20),
+                "ms": _time_ms(call, 20),
+                "merge": _merge_rows_times(
+                    dix.hub_rows, dix.hub_of_agent[dix.agent_of[sp].long()],
+                    dix.hub_of_agent[dix.agent_of[tp].long()])}
     print(f"  hub tier: {res}")
     if not (mask.any() and res["hub_equal_planner"]
             and res["hub_equal_dijkstra"]):
@@ -1599,7 +1758,8 @@ def _road250k() -> dict:
     == the reference's record; the top witnesses on the card ==
     the CPU's (``_first_hops_check``); then one 1% traffic epoch
     (``_refresh_epoch``), 16 answers == Dijkstra before and after it and
-    == its scratch rebuild."""
+    == its scratch rebuild.  Between the two, kernels 1 and 2 timed on
+    its own tables (``_road250k_kernels``)."""
     import os
 
     import numpy as np
@@ -1631,6 +1791,7 @@ def _road250k() -> dict:
             raise AssertionError(f"road250k shapes {shapes} != the "
                                  f"reference's {want}")
         res["first_hops"] = _first_hops_check("road250k")
+        res["kernel_times"] = _road250k_kernels(g, dix, plan)
         rng = np.random.default_rng(13)
         s, t = rng.integers(0, g.n, 16), rng.integers(0, g.n, 16)
         before = sum(dijkstra.mismatches_oracle(
@@ -1654,6 +1815,48 @@ def _road250k() -> dict:
     finally:
         _BUILT.pop("road250k", None)
         _HOST.pop("road250k", None)
+    return res
+
+
+def _road250k_kernels(g, dix, plan) -> dict:
+    """Kernels 1 and 2 timed on road250k's own tables (phase 7b's build
+    plan and index; no second build), uncounted: the blocked witness FW
+    (``ops.fw_batch_next``, CUDA events and device time) on the fragment
+    batch and on the widest group batch at n = 2,048 and at 4,096, and
+    the grouped twoside on the operands the planner hands it for a
+    batch of 1,024 (``_check_twoside_grouped``: array-equal to its plain
+    version).  Kernel 7 at W = 4,661 is timed by the hub check."""
+    import functools
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    batches = [("fragments", plan.frag_adj)]
+    for n in (2048, 4096):
+        adjs = [h.sf_adj for h in plan.hier if h.sf_adj.shape[-1] == n]
+        if adjs:
+            batches.append((f"groups n={n}",
+                            max(adjs, key=lambda a: a.shape[0])))
+    res: dict = {"fw_next_blocked": [], "grouped": []}
+    with _uncounted():
+        for label, adj in batches:
+            d = torch.from_numpy(np.ascontiguousarray(adj,
+                                                      np.float32)).cuda()
+            b, n = d.shape[0], d.shape[-1]
+            fn = functools.partial(ops.fw_batch_next, d)
+            bound, by = _bound_ms(12.0 * b * n * n, 2.0 * b * n ** 3)
+            rec = {"case": f"road250k {label} [{b},{n},{n}]", "b": b,
+                   "n": n, "ms": _time_ms(fn, 2),
+                   "device_ms": _device_ms(fn, 2), "bound_ms": bound,
+                   "bound_by": by}
+            print(f"  {rec}")
+            res["fw_next_blocked"].append(rec)
+            del d, fn
+            torch.cuda.empty_cache()
+        calls = _capture_grouped(dix, g.n, 21)
+        _check_twoside_grouped([(f"serve road250k {site}",
+                                 args) for site, args in calls.items()],
+                               res["grouped"])
     return res
 
 
@@ -1800,7 +2003,7 @@ def _road4000_live() -> dict:
             sum(c[k] for c in live["refresh_launches"]) > 0
             for k in ("fw_next_blocked", "fw_next_reg")),
         "serving_kernels": all(live["launches"][k] > 0 for k in (
-            "label_merge", "minplus_twoside_grouped")),
+            "label_merge_rows", "minplus_twoside_grouped")),
     }
     res["checks"] = checks
     if not all(checks.values()):
@@ -1851,7 +2054,7 @@ def _road64k_live() -> dict:
         "label_share_is_gate_share": label == gated == ROAD64K_LIVE_GATED,
         "refresh_epoch_published": len(stats) == 1,
         "serving_kernels": all(runs["cache_off"]["launches"][k] > 0 for k in (
-            "label_merge", "minplus_twoside_grouped")),
+            "label_merge_rows", "minplus_twoside_grouped")),
     }
     res["checks"] = checks
     if not all(checks.values()):
@@ -3033,12 +3236,17 @@ def main() -> int:
         ("argmin serve ties q=16 S+1=480", 16, 480, "serve ties"),
         ("argmin serve ties q=1024 S+1=480", 1024, 480, "serve ties"),
     ], slice3_cases))
-    phase("label_merge_kernel", lambda: _check_label_merge([
-        ("merge q=1024 W=1712", 1024, 1712, None),
-        ("merge q=1024 W=480", 1024, 480, None),
-        ("merge q=37 W=300 one all-inf row", 37, 300, 5),
-        ("merge q=33 W=299 (scalar loads)", 33, 299, 0),
-    ], slice3_cases))
+    def label_merge_kernel():
+        _check_label_merge([
+            ("merge q=1024 W=1712", 1024, 1712, None),
+            ("merge q=1024 W=480", 1024, 480, None),
+            ("merge q=1024 W=4661 (odd W)", 1024, 4661, None),
+            ("merge q=37 W=300 one all-inf row", 37, 300, 5),
+            ("merge q=33 W=299 (odd W)", 33, 299, 0),
+        ], slice3_cases)
+        return _check_label_merge_rows(MERGE_ROWS_CASES, slice3_cases)
+
+    phase("label_merge_kernel", label_merge_kernel)
     phase("small_reference", _small_reference)
     phase("road4000", lambda: _main_path("road4000", 64, json_out=True))
     phase("road4000_levels", _level_differential)
@@ -3111,16 +3319,17 @@ def main() -> int:
                           ("fw_next_reg", "fw_batch", "minplus_accum_panels",
                            "minplus_accum_into", "minplus",
                            "fw_next_blocked", "minplus_twoside_grouped",
-                           "minplus_twoside_argmin", "label_merge"))
+                           "minplus_twoside_argmin", "label_merge_rows"))
         _require_launched(report["road250k"], "road250k",
                           ("fw_next_reg", "fw_batch", "minplus_accum_panels",
                            "minplus_accum_into", "minplus",
                            "fw_next_blocked", "minplus_twoside_grouped",
-                           "minplus_twoside_argmin", "label_merge"))
+                           "minplus_twoside_argmin", "label_merge_rows"))
         for path in ("road4000_live", "road64k_live"):
             _require_launched(report[path], path,
-                              ("label_merge", "minplus_twoside_grouped",
-                               "fw_next_reg", "fw_next_blocked"))
+                              ("label_merge_rows",
+                               "minplus_twoside_grouped", "fw_next_reg",
+                               "fw_next_blocked"))
         _require_launched(report["sharded"], "sharded",
                           ("minplus_twoside_grouped", "fw_batch",
                            "fw_dist_blocked", "minplus_accum_panels",
@@ -3133,10 +3342,11 @@ def main() -> int:
             "road4000_live", "road64k_live", "sharded", "paper",
             "road250k")) + report["road250k"]["refresh"]["launches"][name]
             for name, _m, _a in KERNELS}
-        # the per-pivot FWs, kernel 3's shared-memory kernel and the
-        # fresh-output accumulate left the main paths (for the blocked
-        # FWs and the in-place accumulate): timed beside their
-        # replacements, never run there
+        # the per-pivot FWs, kernel 3's shared-memory kernel, the
+        # fresh-output accumulate and the dense label merge left the main
+        # paths (for the blocked FWs, the in-place accumulate and the
+        # merge through row ids): timed beside their replacements, never
+        # run there
         for name in OFF_MAIN_PATH:
             if launches.pop(name):
                 raise AssertionError(f"main paths launched {name}")
@@ -3207,6 +3417,9 @@ def main() -> int:
          "src/repro_torch/csrc/minplus_twoside_argmin.cu",
          "src/repro/kernels/minplus_twoside.py:191"),
         ("label_merge", pick(slice3_cases, "merge q=1024 W=1712"),
+         "src/repro_torch/csrc/label_merge.cu",
+         "src/repro/kernels/label_merge.py:66"),
+        ("label_merge_rows", pick(slice3_cases, MERGE_ROWS_MAIN),
          "src/repro_torch/csrc/label_merge.cu",
          "src/repro/kernels/label_merge.py:66"),
     ]

@@ -3,7 +3,7 @@
 
     python3 scripts/kernel_ab.py --src SRC_DIR --tag NAME [--road64k]
                                  [--serve] [--twoside FILE] [--fwapsp]
-                                 [--small] [--fwdist FILE]
+                                 [--small] [--fwdist FILE] [--hub]
 
 Needs one NVIDIA card and ``nvcc``.  Imports ``repro_torch`` from
 ``SRC_DIR`` (the ``src`` directory of this checkout, or of an unpacked
@@ -72,7 +72,19 @@ profiler's device time:
     beside the shared-memory kernel (``fw_dist_smem``: the route of a
     checkout without the blocked one, else ``fw_dist_smem_cuda``) at
     b = 2, n = 200 and 240, and ``ops.fw_batch`` at [3, 300, 300] and
-    [4, 496, 496] (seeded integers, ~20% +inf).
+    [4, 496, 496] (seeded integers, ~20% +inf);
+  * with ``--hub`` alone, the hub tier on synthetic label tables of the
+    three widths the hub tier serves (W = 480 with 257 rows, 1,712 with
+    2,035, 4,661 with 2,049: road4000, road64k and road250k) over 4
+    nodes a row, each node its own agent, an eighth of the agents on
+    the sentinel row, at q = 8, 256, 1,024 and 4,096 (the last with
+    half of it (0, 0) pads, as road250k's padded hub call): the
+    checkout's ``serve_hub`` (device time: every kernel it launches;
+    CUDA events), its label table read as it lies (warm) and from
+    copies together larger than the L2 (cold), answers against
+    ``force="ref"``; the dense ``ops.label_merge`` on the two gathered
+    [q, W] blocks, and ``ops.label_merge_rows`` where the checkout has
+    it, warm and cold.  Only ``label_merge.cu`` is built.
 
 Prints one JSON line tagged NAME and the card's name and power limit.
 """
@@ -103,6 +115,7 @@ def main() -> int:
     ap.add_argument("--fwapsp", action="store_true")
     ap.add_argument("--small", action="store_true")
     ap.add_argument("--fwdist")
+    ap.add_argument("--hub", action="store_true")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -115,6 +128,12 @@ def main() -> int:
                             _time_ms)
     sys.path.insert(0, str(Path(args.src).resolve()))
     from repro_torch.kernels import _build, ops
+    if args.hub:
+        _build.build(("label_merge",))
+        print(json.dumps({"tag": args.tag, "src": args.src,
+                          "hub": _hub(ops), "profiler_windows": WINDOWS}),
+              flush=True)
+        return _print_card()
     _build.build()
     rec: dict = {"tag": args.tag, "src": args.src, "argmin": {}, "fw": {}}
     if args.fwapsp:
@@ -179,11 +198,110 @@ def main() -> int:
         rec["twoside"] = _twoside(args.twoside, grouped, ops)
         rec["profiler_windows"] = WINDOWS
     print(json.dumps(rec), flush=True)
+    return _print_card()
+
+
+def _print_card() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip())
     return 0
+
+
+#: (W, label rows) of the hub tables ``--hub`` times: road4000's live
+#: tier, road64k's and road250k's
+HUB_TABLES = ((480, 257), (1712, 2035), (4661, 2049))
+HUB_Q = (8, 256, 1024, 4096)
+
+
+def _hub_index(w, h, rng):
+    """A synthetic index with what ``serve_hub`` reads: label table
+    [h, w] (integers, ~10% +inf, the all-+inf sentinel last row) over
+    4h nodes, each node its own agent in a fragment, ``hub_of_agent``
+    uniform over the rows with an eighth of the agents on the sentinel,
+    integer ``dist_to_agent``."""
+    import types
+
+    import numpy as np
+    import torch
+    from chip_smoke import _int_inf
+    n = 4 * h
+    rows = _int_inf((h, w), rng, 0.1)
+    rows[h - 1] = np.inf
+    hub = rng.integers(0, h, n)
+    hub[rng.random(n) < 0.125] = h - 1
+    host = {"agent_of": np.arange(n), "frag_of": np.zeros(n),
+            "hub_of_agent": hub,
+            "dist_to_agent": rng.integers(0, 50, n).astype(np.float32)}
+    return types.SimpleNamespace(
+        hub_rows=torch.from_numpy(rows).cuda(),
+        **{k: torch.from_numpy(v.astype(np.float32 if k == "dist_to_agent"
+                                        else np.int32)).cuda()
+           for k, v in host.items()})
+
+
+def _hub(ops) -> dict:
+    """The ``--hub`` readings of this checkout (see the module note):
+    {"W=w q=q": {"equal", "serve_hub": {...}, "merge_dense": {...}[,
+    "merge_rows": {...}]}}, each with warm and cold device ms."""
+    import copy
+    import functools
+
+    import numpy as np
+    import torch
+    from chip_smoke import _COLD_BYTES, _device_ms, _time_ms
+    from repro_torch.core.device_engine import serve_hub
+    out = {}
+
+    def cycled(fn, variants):
+        turn = iter(range(1 << 30))
+        return lambda: fn(*variants[next(turn) % len(variants)])
+    for w, h in HUB_TABLES:
+        rng = np.random.default_rng(w)
+        dix = _hub_index(w, h, rng)
+        n_cp = max(2, -(-_COLD_BYTES // (4 * dix.hub_rows.numel())))
+        dixs = [copy.copy(dix) for _ in range(n_cp)]
+        for d in dixs:
+            d.hub_rows = dix.hub_rows.clone()
+        for q in HUB_Q:
+            nodes = dix.agent_of.shape[0]
+            s, t = (torch.from_numpy(rng.integers(0, nodes, q)).cuda()
+                    for _ in range(2))
+            if q == 4096:
+                s[q // 2:], t[q // 2:] = 0, 0
+            got = serve_hub(dix, s, t)
+            want = serve_hub(dix, s, t, force="ref")
+            ids = [dix.hub_of_agent[dix.agent_of[x].long()] for x in (s, t)]
+            ls, lt = (dix.hub_rows[i.long()] for i in ids)
+            n_dense = max(2, -(-_COLD_BYTES // (8 * ls.numel())))
+            blocks = [(ls.clone(), lt.clone()) for _ in range(n_dense)]
+            hot = functools.partial(serve_hub, dix, s, t)
+            cold = cycled(serve_hub, [(d, s, t) for d in dixs])
+            rec = {"equal": bool(torch.equal(got, want)),
+                   "copies": n_cp, "serve_hub": {
+                       "device_ms": _device_ms(hot, 20),
+                       "cold_device_ms": _device_ms(cold, 20),
+                       "ms": _time_ms(hot, 20),
+                       "cold_ms": _time_ms(cold, 20)},
+                   "merge_dense": {
+                       "device_ms": _device_ms(
+                           functools.partial(ops.label_merge, ls, lt), 20),
+                       "cold_device_ms": _device_ms(
+                           cycled(ops.label_merge, blocks), 20)}}
+            if hasattr(ops, "label_merge_rows"):
+                rec["merge_rows"] = {
+                    "device_ms": _device_ms(functools.partial(
+                        ops.label_merge_rows, dix.hub_rows, *ids), 20),
+                    "cold_device_ms": _device_ms(cycled(
+                        ops.label_merge_rows,
+                        [(d.hub_rows, *ids) for d in dixs]), 20)}
+            out[f"W={w} q={q}"] = rec
+            print(f"  hub W={w} q={q}: {rec}", flush=True)
+            del blocks, ls, lt
+        del dix, dixs
+        torch.cuda.empty_cache()
+    return out
 
 
 def _fwapsp(ops) -> dict:

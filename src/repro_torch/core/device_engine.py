@@ -43,7 +43,7 @@ gathers keep the peak intermediate at [q, c, width] (``_chunk``).
 distance (the winning overlay pair from the ``minplus_twoside_argmin``
 kernel on the card), which ``paths.PathUnwinder`` expands into a node
 sequence; ``serve_hub`` answers hub-gated pairs with one
-``label_merge`` of two label rows.
+``label_merge_rows`` of two label rows, read through their row ids.
 
 Everything is exact: integer weights make every float32 (min,+) sum
 exactly representable, so every table and answer is bit-for-bit the
@@ -2020,23 +2020,23 @@ def serve_step_w(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
 
 def serve_hub(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
               force=None) -> torch.Tensor:
-    """The hub-label tier: two label-row gathers and one
-    ``ops.label_merge``.  The answer is exact only on pairs whose agents
-    are both labeled and in different TOP groups (dense: different
-    fragments), so callers gate with the planner's ``hub_mask`` first,
-    as ``serving/runtime.py`` does.  Off the gate, a pair with an
-    unlabeled agent gathers the all-INF sentinel row and gets +inf; a
-    labeled pair the gate rejects (same TOP group, same fragment) gets
-    a finite answer, the length of a real path through the top
-    boundary: never below the true distance, but possibly above it.
-    The gathers are indexed by agent, never by fragment id; a fragment
-    id of -1 only masks the answer to +inf."""
+    """The hub-label tier: one ``ops.label_merge_rows`` over the label
+    table through each endpoint's row id (the two label rows are read
+    where they lie, never gathered into [q, W] copies).  The answer is
+    exact only on pairs whose agents are both labeled and in different
+    TOP groups (dense: different fragments), so callers gate with the
+    planner's ``hub_mask`` first, as ``serving/runtime.py`` does.  Off
+    the gate, a pair with an unlabeled agent reads the all-INF sentinel
+    row and gets +inf; a labeled pair the gate rejects (same TOP group,
+    same fragment) gets a finite answer, the length of a real path
+    through the top boundary: never below the true distance, but
+    possibly above it.  The row ids are looked up by agent, never by
+    fragment id; a fragment id of -1 only masks the answer to +inf."""
     s, t = s.long(), t.long()
     us, ut = dix.agent_of[s].long(), dix.agent_of[t].long()
     valid = (dix.frag_of[us] >= 0) & (dix.frag_of[ut] >= 0)
-    ls = dix.hub_rows[dix.hub_of_agent[us].long()]   # [q, W]
-    lt = dix.hub_rows[dix.hub_of_agent[ut].long()]
-    mid = ops.label_merge(ls, lt, force=force)
+    mid = ops.label_merge_rows(dix.hub_rows, dix.hub_of_agent[us],
+                               dix.hub_of_agent[ut], force=force)
     d = dix.dist_to_agent[s] + mid + dix.dist_to_agent[t]
     return torch.where(valid, d, _INF)
 

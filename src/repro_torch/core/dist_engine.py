@@ -235,16 +235,16 @@ class QueryPlanner:
     def query_hub(self, s, t, *, dix: DeviceIndex | None = None
                   ) -> np.ndarray:
         """The label merge for hub_mask-gated pairs: one pow2-padded
-        program (two label gathers and ``ops.label_merge``), no planner
-        buckets.  On gated pairs the answers equal ``query``'s, so
-        callers gate with ``hub_mask`` first, as ``serving/runtime.py``
-        does.  Off the gate, a pair with an unlabeled agent gets +inf; a
-        labeled pair the gate rejects (in one TOP group, say) gets a
-        finite answer, the length of a real path through the top
-        boundary: never below the true distance, but possibly above it.
-        An index without labels answers +inf, as the reference's
-        sentinel row does.  ``dix`` pins the epoch (default: the current
-        one)."""
+        program (``ops.label_merge_rows`` over the label table's row
+        ids), no planner buckets.  On gated pairs the answers equal
+        ``query``'s, so callers gate with ``hub_mask`` first, as
+        ``serving/runtime.py`` does.  Off the gate, a pair with an
+        unlabeled agent gets +inf; a labeled pair the gate rejects (in
+        one TOP group, say) gets a finite answer, the length of a real
+        path through the top boundary: never below the true distance,
+        but possibly above it.  An index without labels answers +inf, as
+        the reference's sentinel row does.  ``dix`` pins the epoch
+        (default: the current one)."""
         dix = self.dix if dix is None else dix
         s = np.asarray(s, np.int64)
         t = np.asarray(t, np.int64)

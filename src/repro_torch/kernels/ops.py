@@ -28,7 +28,7 @@ from . import ref as _ref
 from .floyd_warshall import (blocked_scratch_bytes, dist_out, fw_batch_cuda,
                              fw_batch_next_cuda, fw_blocked, next_buffers,
                              route as fw_route)
-from .label_merge import label_merge_cuda, merge_out
+from .label_merge import label_merge_cuda, label_merge_rows_cuda, merge_out
 from .minplus import (minplus_accum_cuda, minplus_accum_into_cuda,
                       minplus_accum_panels_cuda, minplus_cuda, product_out)
 from .minplus_twoside import (argmin_buffers, argmin_outputs,
@@ -147,6 +147,21 @@ def label_merge(labs: torch.Tensor, labt: torch.Tensor, *,
     if r == "kernel":
         return label_merge_cuda(labs, labt)
     return _ref.label_merge_ref(labs, labt)
+
+
+def label_merge_rows(rows: torch.Tensor, ids_s: torch.Tensor,
+                     ids_t: torch.Tensor, *, force: Force = None
+                     ) -> torch.Tensor:
+    """Hub-label merge through the label table's row ids: out[i] =
+    min_j rows[ids_s[i], j] + rows[ids_t[i], j] (rows [H+1, W], ids
+    int32 [q]), equal to ``label_merge(rows[ids_s], rows[ids_t])``
+    without the two [q, W] gathers."""
+    r = _route(rows, force)
+    if r == "meta":
+        return merge_out(ids_s)
+    if r == "kernel":
+        return label_merge_rows_cuda(rows, ids_s, ids_t)
+    return _ref.label_merge_rows_ref(rows, ids_s, ids_t)
 
 
 def minplus(a: torch.Tensor, b: torch.Tensor, *, force: Force = None

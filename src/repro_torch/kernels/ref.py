@@ -307,6 +307,13 @@ def label_merge_ref(labs: torch.Tensor, labt: torch.Tensor) -> torch.Tensor:
     return (labs + labt).amin(dim=1)
 
 
+def label_merge_rows_ref(rows: torch.Tensor, ids_s: torch.Tensor,
+                         ids_t: torch.Tensor) -> torch.Tensor:
+    """out[i] = min_j rows[ids_s[i], j] + rows[ids_t[i], j]: the two
+    label rows gathered, then ``label_merge_ref``."""
+    return label_merge_ref(rows[ids_s.long()], rows[ids_t.long()])
+
+
 def minplus_ref(a: torch.Tensor, b: torch.Tensor, *, chunk: int = 16
                 ) -> torch.Tensor:
     """C[i, j] = min_k A[i, k] + B[k, j] (tropical GEMM), over the last

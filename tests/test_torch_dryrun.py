@@ -236,6 +236,8 @@ def _ops_cases():
             (r(300, 100), zeros, ids(20, 1, 100), D, r(300, 100), zeros,
              ids(30, 1, 100)), {}),
         "label_merge": (ops.label_merge, (q, q), {}),
+        "label_merge_rows": (ops.label_merge_rows,
+                             (t, ids(10, 7), ids(10, 7)), {}),
         "minplus": (ops.minplus, (q, D), {}),
         "minplus gemv": (ops.minplus, (r(1, 20), D), {}),
         "minplus_accum": (ops.minplus_accum, (t, q, D), {}),
