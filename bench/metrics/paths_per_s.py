@@ -1,0 +1,12 @@
+"""Exact paths returned per second: the paths of the batches through
+``EpochedEngine.query_path`` that completed inside the window, over the
+window's length."""
+from portbench import stats
+
+
+def read(ctx):
+    if ctx.get("entry") != "query_path" or ctx.get("batch_ends") is None:
+        return None
+    ends = ctx["batch_ends"]
+    return stats.rate([ctx["batch_size"]] * len(ends), ends, ctx["t0"],
+                      ctx["t_end"])
