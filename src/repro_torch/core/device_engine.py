@@ -1641,19 +1641,21 @@ def _hier_leg(dix: DeviceIndex, li: int, row_s, grp_s, pos_s,
     """Same-group leg at grouping level ``li``: min over slot pairs
     (i, j) in the SAME level-li group of
     row_s[i] + sf_closure[li][g, pos_i, pos_j] + row_t[j], chunked over
-    the s-axis (``_chunk``) so the gathered block stays [q, c, width]."""
+    the s-axis (``_chunk``) so the gathered block stays [q, c, width].
+    Traced as ``serve.leg`` (``level`` li + 1) with its card time."""
     q, mbs = row_s.shape
     c = _chunk(row_s, row_t.shape[1])
     clo = dix.sf_closure[li]
-    acc = torch.full((q, row_t.shape[1]), _INF, dtype=row_s.dtype,
-                     device=row_s.device)
-    for i in range(0, mbs, c):
-        g_c, p_c = grp_s[:, i:i + c, None], pos_s[:, i:i + c, None]
-        blk = clo[g_c, p_c, pos_t[:, None, :]]          # [q, c, mbt]
-        same = g_c == grp_t[:, None, :]
-        cand = torch.where(same, row_s[:, i:i + c, None] + blk, _INF)
-        acc = torch.minimum(acc, cand.amin(dim=1))
-    return (acc + row_t).amin(dim=1)
+    with trace.span("serve.leg", device=row_s.device, level=li + 1):
+        acc = torch.full((q, row_t.shape[1]), _INF, dtype=row_s.dtype,
+                         device=row_s.device)
+        for i in range(0, mbs, c):
+            g_c, p_c = grp_s[:, i:i + c, None], pos_s[:, i:i + c, None]
+            blk = clo[g_c, p_c, pos_t[:, None, :]]          # [q, c, mbt]
+            same = g_c == grp_t[:, None, :]
+            cand = torch.where(same, row_s[:, i:i + c, None] + blk, _INF)
+            acc = torch.minimum(acc, cand.amin(dim=1))
+        return (acc + row_t).amin(dim=1)
 
 
 def _lift_compact(dix: DeviceIndex, li: int, row, grp, pos):
@@ -1662,16 +1664,20 @@ def _lift_compact(dix: DeviceIndex, li: int, row, grp, pos):
     share one group per level (groups nest), so the output stays
     COMPACT: its next-level ids are that group's bnd2_sid row, read by
     the caller.  Chunked (``_chunk``) so the gathered block stays
-    [q, c, mb']."""
+    [q, c, mb'].  Traced as ``serve.lift`` (``level`` li + 1, ``kind``
+    "compact") with its card time."""
     q, mb = row.shape
     l2 = dix.l2row[li]
     c = _chunk(row, l2.shape[2])
-    acc = torch.full((q, l2.shape[2]), _INF, dtype=row.dtype,
-                     device=row.device)
-    for i in range(0, mb, c):
-        l2_c = l2[grp[:, i:i + c], pos[:, i:i + c]]      # [q, c, mb']
-        acc = torch.minimum(acc, (row[:, i:i + c, None] + l2_c).amin(dim=1))
-    return acc
+    with trace.span("serve.lift", device=row.device, level=li + 1,
+                    kind="compact"):
+        acc = torch.full((q, l2.shape[2]), _INF, dtype=row.dtype,
+                         device=row.device)
+        for i in range(0, mb, c):
+            l2_c = l2[grp[:, i:i + c], pos[:, i:i + c]]      # [q, c, mb']
+            acc = torch.minimum(acc,
+                                (row[:, i:i + c, None] + l2_c).amin(dim=1))
+        return acc
 
 
 def _scatter_top(dix: DeviceIndex, row, ids):
@@ -1840,42 +1846,47 @@ def serve_step(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
 def _hier_leg_w(dix: DeviceIndex, li: int, row_s, ids_s, grp_s, pos_s,
                 row_t, ids_t, grp_t, pos_t):
     """_hier_leg carrying its argmin -> (va, xa, ya), the winning pair
-    as level-li overlay ids."""
+    as level-li overlay ids (traced as ``serve.leg``, as _hier_leg)."""
     q, mbs = row_s.shape
     mbt = row_t.shape[1]
     c = _chunk(row_s, mbt)
     clo = dix.sf_closure[li]
-    acc = torch.full((q, mbt), _INF, dtype=row_s.dtype, device=row_s.device)
-    accb = torch.full((q, mbt), -1, dtype=torch.long, device=row_s.device)
-    for i in range(0, mbs, c):
-        g_c, p_c = grp_s[:, i:i + c, None], pos_s[:, i:i + c, None]
-        blk = clo[g_c, p_c, pos_t[:, None, :]]          # [q, c, mbt]
-        same = g_c == grp_t[:, None, :]
-        acc, accb = _carry_min(acc, accb, torch.where(
-            same, row_s[:, i:i + c, None] + blk, _INF), i)
-    va, pos_tw = _first_min(acc + row_t, 1)
-    pos_sw = accb.gather(1, pos_tw[:, None]).clamp(0, mbs - 1)
-    return (va, ids_s.gather(1, pos_sw)[:, 0],
-            ids_t.gather(1, pos_tw[:, None])[:, 0])
+    dev = row_s.device
+    with trace.span("serve.leg", device=dev, level=li + 1):
+        acc = torch.full((q, mbt), _INF, dtype=row_s.dtype, device=dev)
+        accb = torch.full((q, mbt), -1, dtype=torch.long, device=dev)
+        for i in range(0, mbs, c):
+            g_c, p_c = grp_s[:, i:i + c, None], pos_s[:, i:i + c, None]
+            blk = clo[g_c, p_c, pos_t[:, None, :]]          # [q, c, mbt]
+            same = g_c == grp_t[:, None, :]
+            acc, accb = _carry_min(acc, accb, torch.where(
+                same, row_s[:, i:i + c, None] + blk, _INF), i)
+        va, pos_tw = _first_min(acc + row_t, 1)
+        pos_sw = accb.gather(1, pos_tw[:, None]).clamp(0, mbs - 1)
+        return (va, ids_s.gather(1, pos_sw)[:, 0],
+                ids_t.gather(1, pos_tw[:, None])[:, 0])
 
 
 def _lift_src_of(dix: DeviceIndex, li: int, row, ids, grp, pos, wc):
     """Witness recovery for one lift: the level-li id whose lifted
     contribution achieved the next-level row at target id ``wc``
     (``_lift_compact``'s chunked schedule carrying a running argmin; an
-    exact float32 re-comparison)."""
+    exact float32 re-comparison).  Traced as ``serve.lift`` (``kind``
+    "src_of")."""
     q, mb = row.shape
     l2 = dix.l2row[li]
     c = _chunk(row, l2.shape[2])
-    best = torch.full((q,), _INF, dtype=row.dtype, device=row.device)
-    besti = torch.zeros((q,), dtype=torch.long, device=row.device)
-    for i in range(0, mb, c):
-        g_c = grp[:, i:i + c]
-        l2_c = l2[g_c, pos[:, i:i + c]]                  # [q, c, mb']
-        hit = dix.bnd2_sid[li][g_c] == wc[:, None, None]
-        best, besti = _carry_min(best, besti, torch.where(
-            hit, row[:, i:i + c, None] + l2_c, _INF).amin(dim=2), i)
-    return ids.gather(1, besti[:, None])[:, 0]
+    with trace.span("serve.lift", device=row.device, level=li + 1,
+                    kind="src_of"):
+        best = torch.full((q,), _INF, dtype=row.dtype, device=row.device)
+        besti = torch.zeros((q,), dtype=torch.long, device=row.device)
+        for i in range(0, mb, c):
+            g_c = grp[:, i:i + c]
+            l2_c = l2[g_c, pos[:, i:i + c]]                  # [q, c, mb']
+            hit = dix.bnd2_sid[li][g_c] == wc[:, None, None]
+            best, besti = _carry_min(best, besti, torch.where(
+                hit, row[:, i:i + c, None] + l2_c, _INF).amin(dim=2), i)
+        return ids.gather(1, besti[:, None])[:, 0]
 
 
 def _combine_mid_h_w(dix: DeviceIndex, row_s, bs, row_t, bt, *,
@@ -2046,16 +2057,20 @@ def _lift_res(dix: DeviceIndex, row, pos, ridx, cols):
     endpoint's own top-group boundary columns, outside which the lifted
     row is +inf): rs[q, c] = min_b row[q, b] +
     res_rows[ridx, pos_b, cols[q, c]], the whole per-level lift ladder
-    collapsed into one chunked gather against the pre-composed rows."""
+    collapsed into one chunked gather against the pre-composed rows.
+    Traced as ``serve.lift`` (``level`` 1, ``kind`` "res")."""
     q, mb = row.shape
     width = cols.shape[1]
     c = _chunk(row, width)
-    acc = torch.full((q, width), _INF, dtype=row.dtype, device=row.device)
-    for i in range(0, mb, c):
-        blk = dix.res_rows[ridx[:, None, None], pos[:, i:i + c, None],
-                           cols[:, None, :]]             # [q, c, w]
-        acc = torch.minimum(acc, (row[:, i:i + c, None] + blk).amin(dim=1))
-    return acc
+    with trace.span("serve.lift", device=row.device, level=1, kind="res"):
+        acc = torch.full((q, width), _INF, dtype=row.dtype,
+                         device=row.device)
+        for i in range(0, mb, c):
+            blk = dix.res_rows[ridx[:, None, None], pos[:, i:i + c, None],
+                               cols[:, None, :]]             # [q, c, w]
+            acc = torch.minimum(acc,
+                                (row[:, i:i + c, None] + blk).amin(dim=1))
+        return acc
 
 
 def serve_cross_res(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,

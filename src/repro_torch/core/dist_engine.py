@@ -45,6 +45,7 @@ import torch
 
 from .. import convert
 from ..kernels import ops
+from ..obs import trace
 from . import padding, refresh_pipeline, sssp
 from .device_engine import (DeviceIndex, RefreshStats, _sync,
                             build_device_index_with_plan, refresh_index,
@@ -266,24 +267,43 @@ class QueryPlanner:
         index's device and scatter every output into the matching array
         of ``outs``.  ``dix`` pins the epoch; by default the current
         one, read ONCE, so a publish between two buckets cannot split a
-        batch across epochs."""
+        batch across epochs.
+
+        While the tracer records, the call is one ``serve.batch`` scope
+        (its ``batch`` id tags every span below it): ``planner.plan``
+        around the bucketing, and per non-empty bucket a
+        ``planner.bucket`` (``case``, ``queries``, ``padded``) holding
+        ``serve.program``, the call that issues the program's torch ops,
+        and ``planner.readback``, the blocking copies of its outputs to
+        the host.  What the batch's span holds beyond those two is the
+        planner's own host work: bucketing, padding and staging,
+        scatter."""
         dix = self.dix if dix is None else dix
-        plan = self.plan(s, t, dix)
-        self.last_counts = {c: int(ix.size) for c, ix in plan.items()}
-        for case, idx in plan.items():
-            if idx.size == 0:
-                continue
-            m = _pad_pow2(idx.size)
-            sp = np.zeros(m, np.int64)
-            tp = np.zeros(m, np.int64)
-            sp[:idx.size] = s[idx]
-            tp[:idx.size] = t[idx]
-            res = fns[case](dix, torch.from_numpy(sp).to(dix.device),
-                            torch.from_numpy(tp).to(dix.device))
-            if len(outs) == 1:
-                res = (res,)
-            for out, r in zip(outs, res):
-                out[idx] = r.cpu().numpy()[:idx.size]
+        with trace.scope("serve.batch", "batch", queries=int(s.size),
+                         witness=fns is self._wfns):
+            with trace.span("planner.plan"):
+                plan = self.plan(s, t, dix)
+            self.last_counts = {c: int(ix.size) for c, ix in plan.items()}
+            for case, idx in plan.items():
+                if idx.size == 0:
+                    continue
+                m = _pad_pow2(idx.size)
+                with trace.span("planner.bucket", case=case,
+                                queries=int(idx.size), padded=m):
+                    sp = np.zeros(m, np.int64)
+                    tp = np.zeros(m, np.int64)
+                    sp[:idx.size] = s[idx]
+                    tp[:idx.size] = t[idx]
+                    sd = torch.from_numpy(sp).to(dix.device)
+                    td = torch.from_numpy(tp).to(dix.device)
+                    with trace.span("serve.program"):
+                        res = fns[case](dix, sd, td)
+                    if len(outs) == 1:
+                        res = (res,)
+                    with trace.span("planner.readback"):
+                        host = [r.cpu().numpy() for r in res]
+                    for out, h in zip(outs, host):
+                        out[idx] = h[:idx.size]
 
     def __call__(self, s, t) -> np.ndarray:
         return self.query(s, t)

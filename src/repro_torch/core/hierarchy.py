@@ -519,15 +519,13 @@ def sf_stage(hier: HierPlan, device: torch.device, *, force=None
     """Per-level stage: batched witness FW over every group's induced
     overlay subgraph at the one pow2 tile shape [nsf, m2, m2] ->
     (sf_closure, sf_next, l2row), sentinel block appended."""
-    with trace.span("hierarchy.sf_stage", nsf=int(hier.nsf),
-                    m2=int(hier.m2)):
-        closure, nxt = ops.fw_batch_next(to_device(hier.sf_adj, device),
-                                         force=force)
-        rows = l2row_from(closure, hier.bnd2_pos, hier.bnd2_valid)
-        closure, nxt = _pad_sentinel(closure, nxt)
-        r_s = torch.full((1,) + tuple(rows.shape[1:]), _INF,
-                         dtype=rows.dtype, device=rows.device)
-        return closure, nxt, torch.cat([rows, r_s])
+    closure, nxt = ops.fw_batch_next(to_device(hier.sf_adj, device),
+                                     force=force)
+    rows = l2row_from(closure, hier.bnd2_pos, hier.bnd2_valid)
+    closure, nxt = _pad_sentinel(closure, nxt)
+    r_s = torch.full((1,) + tuple(rows.shape[1:]), _INF,
+                     dtype=rows.dtype, device=rows.device)
+    return closure, nxt, torch.cat([rows, r_s])
 
 
 def l2_overlay(hier: HierPlan) -> np.ndarray:

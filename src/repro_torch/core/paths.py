@@ -1,7 +1,8 @@
 # Copied from src/repro/core/paths.py; keep the two in step.  The port
 # reads its torch index tables through _host (a CPU numpy copy) where
-# the reference calls np.asarray, and computes the hierarchical distance
-# blocks on the index's device (``_dist_block_t``).
+# the reference calls np.asarray, computes the hierarchical distance
+# blocks on the index's device (``_dist_block_t``), and, while the
+# tracer records, counts the walk's waits on the card (``_wait``).
 """Host-side exact path reconstruction over the witness tables
 (DESIGN.md §10).
 
@@ -36,12 +37,15 @@ builds it).
 """
 from __future__ import annotations
 
+import threading
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..kernels import ops
+from ..obs import trace
 from . import hierarchy
 from .device_engine import (WIT_LOCAL, WIT_NONE, WIT_PIECE, BuildPlan,
                             DeviceIndex, _overlay_size,
@@ -82,6 +86,9 @@ class PathUnwinder:
     def __init__(self, dix: DeviceIndex, plan: BuildPlan):
         self.plan = plan
         self.s1 = _overlay_size(dix)                 # S + 1
+        # per thread: [reads, seconds] of the walk's waits on the card
+        # while the tracer records (``_wait``), else absent
+        self._waits = threading.local()
         # device tables, snapshotted to host numpy
         self.agent_of = _host(dix.agent_of)
         self.piece_gid = _host(dix.piece_gid)
@@ -202,6 +209,19 @@ class PathUnwinder:
                     f"inconsistent super_next walk ({x}->{y})")
             seq.append(u)
         return seq
+
+    def _wait(self, read, *args):
+        """``read(*args)``, a read that waits on the card; counted and
+        timed while ``unwind_many`` traces."""
+        w = getattr(self._waits, "acc", None)
+        if w is None:
+            return read(*args)
+        t0 = time.perf_counter()
+        try:
+            return read(*args)
+        finally:
+            w[0] += 1
+            w[1] += time.perf_counter() - t0
 
     # ---- hierarchical overlay walks (DESIGN.md §12/§13) ----------------
     # id/level vocabulary: "level-1 ids" are super (overlay) ids;
@@ -333,16 +353,17 @@ class PathUnwinder:
         h = self.hier[lvl - 1]
         sfx, sfy = int(h.sf_of[x]), int(h.sf_of[y])
         px, py = int(h.pos_in_sf[x]), int(h.pos_in_sf[y])
-        va = np.float32(self.sf_closure[lvl - 1][sfx, px, py].item()
-                        if sfx == sfy else np.inf)
+        va = np.float32(
+            self._wait(self.sf_closure[lvl - 1][sfx, px, py].item)
+            if sfx == sfy else np.inf)
         vx = np.nonzero(h.bnd2_valid[sfx])[0]
         vy = np.nonzero(h.bnd2_valid[sfy])[0]
         vb = np.float32(np.inf)
         if vx.size and vy.size:
-            a_row = _host(self.l2row[lvl - 1][sfx, px])[vx]
-            b_row = _host(self.l2row[lvl - 1][sfy, py])[vy]
-            d_blk = self._dist_block(lvl + 1, h.bnd2_sid[sfx, vx],
-                                     h.bnd2_sid[sfy, vy])
+            a_row = self._wait(_host, self.l2row[lvl - 1][sfx, px])[vx]
+            b_row = self._wait(_host, self.l2row[lvl - 1][sfy, py])[vy]
+            d_blk = self._wait(self._dist_block, lvl + 1,
+                               h.bnd2_sid[sfx, vx], h.bnd2_sid[sfy, vy])
             tot = a_row[:, None] + d_blk + b_row[None, :]
             ai, bi = np.unravel_index(int(np.argmin(tot)), tot.shape)
             vb = tot[ai, bi]
@@ -415,9 +436,26 @@ class PathUnwinder:
         return path + leg_t[::-1][1:]
 
     def unwind_many(self, s, t, dist, wit) -> List[Optional[List[int]]]:
-        return [self.unwind(a, b, d, w)
-                for a, b, d, w in zip(np.asarray(s), np.asarray(t),
-                                      np.asarray(dist), np.asarray(wit))]
+        """``unwind`` of each (s, t, dist, wit).  While the tracer
+        records, the call is one ``paths.unwind`` event: ``paths``,
+        ``nodes`` (of the paths found), and ``syncs`` / ``sync_s``, the
+        walk's reads that wait on the card (``_host``, ``_dist_block``,
+        ``.item()``) and the host seconds spent in them."""
+        args = (np.asarray(s), np.asarray(t), np.asarray(dist),
+                np.asarray(wit))
+        if not trace.recording():
+            return [self.unwind(a, b, d, w) for a, b, d, w in zip(*args)]
+        acc = self._waits.acc = [0, 0.0]
+        t0 = time.perf_counter()
+        try:
+            out = [self.unwind(a, b, d, w) for a, b, d, w in zip(*args)]
+        finally:
+            self._waits.acc = None
+        trace.event("paths.unwind", t0, time.perf_counter(),
+                    paths=len(out),
+                    nodes=sum(len(p) for p in out if p is not None),
+                    syncs=acc[0], sync_s=acc[1])
+        return out
 
 
 def unwind_path(dix: DeviceIndex, plan: BuildPlan, s: int, t: int,

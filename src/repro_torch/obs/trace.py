@@ -1,31 +1,53 @@
-# Copied from src/repro/obs/trace.py (standard library only); keep the two in step.
+# Adapted from src/repro/obs/trace.py (standard library only; torch is
+# looked up, never imported).  What differs from it: the tracer also
+# records while a torch.profiler session runs (``recording()``), exposes
+# its clock origin (``origin``), can time a span's work on the card
+# (``span(..., device=...)``), tags nested spans with a scope id
+# (``scope``), and gives each event the thread's native id.
 """Tracing spans with a near-zero-cost disabled path (DESIGN.md §16).
 
 One ``Tracer`` holds a bounded in-memory buffer of Chrome-trace
-"complete" events (``ph: "X"``, microsecond timestamps).  The API is
+"complete" events (``ph: "X"``, microsecond timestamps from the
+tracer's ``origin``, a ``time.perf_counter`` reading).  The API is
 built so that EVERY production call site stays hot-path-safe when
 tracing is off:
 
-* ``span(name, **tags)`` — context manager.  Disabled, it returns a
-  shared no-op singleton whose ``__enter__``/``__exit__`` are empty
-  methods: no allocation, no clock read, no tag dict materialized
-  beyond the call itself.
+* ``span(name, **tags)`` — context manager.  Not recording, it returns
+  a shared no-op singleton whose ``__enter__``/``__exit__`` are empty
+  methods: no allocation, no clock read.  ``span(name, device=dev,
+  **tags)`` also times the span's work on the card: a pair of CUDA
+  timing events on the current stream of ``dev`` (a ``torch.device``,
+  or True for the current CUDA device), drawn from a pool.  The event
+  then carries ``device_ts`` (microseconds from ``origin``, the host
+  clock) and ``device_ms`` in ``args``, resolved when ``events()`` or
+  ``drain()`` is called; on the CPU both stay absent.  One anchor event
+  per device and recording session, recorded on an idle card at a
+  known ``perf_counter`` reading, places these intervals on the host
+  clock.  A session starts at ``enable()``, ``clear()`` or ``drain()``.
+* ``scope(name, key, **tags)`` — a span tagged ``key`` = a fresh id,
+  which also tags every span its thread emits while it is open (the
+  spans of one serve batch share its ``batch`` id).
 * ``timed(name, out, key, **tags)`` — like ``span`` but ALWAYS times
   (one ``perf_counter`` pair) and writes the elapsed seconds into
   ``out[key]``.  This is the migration target for the hand-rolled
   ``timings["stage"] = time.perf_counter() - t0`` pattern in
   ``refresh_index``/``build_index``: the dict consumers keep their
   numbers, and the same measurement becomes a trace event when the
-  tracer is on — one clock, two views.
+  tracer is recording — one clock, two views.
 * ``event(name, t0, t1, **tags)`` — post-hoc emission for intervals
   the caller already measured (per-request lifecycle events derived
-  from ``Request.t_sched``/``t_done``).  Disabled, it's one attribute
-  check.
+  from ``Request.t_sched``/``t_done``).  Not recording, it's one
+  attribute check.
+
+The tracer records while its ``enabled`` flag is set and while a
+``torch.profiler`` session runs (torch's own ``_is_profiler_enabled``
+flag), so an operator who profiles the process gets the program's spans
+without a second switch.
 
 Spans nest per-thread: each thread's open-span depth is tracked so
 tests can assert nesting/ordering invariants, and events carry the
-thread id so chrome://tracing lays concurrent flusher/refresh/export
-activity out on separate rows.
+thread's native id so chrome://tracing lays concurrent flusher/refresh/
+export activity out on separate rows.
 
 A module-level default tracer (``get_tracer()``) is what the library
 call sites use; ``serve.py --trace-out`` enables it and drains the
@@ -33,8 +55,36 @@ buffer into a Chrome-trace JSON at exit.
 """
 from __future__ import annotations
 
+import itertools
+import sys
 import threading
 import time
+
+# unresolved device intervals above which a new one first collects the
+# finished ones (without waiting), so the event pool stays bounded; high
+# enough that a window of a few seconds resolves only when read
+_REAP_AT = 8192
+
+
+def _profiling() -> bool:
+    """True while a torch.profiler session runs; False where torch was
+    never imported."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+def _card(device):
+    """The CUDA device index ``device`` names, or None (a CPU device,
+    or True before CUDA was initialised)."""
+    if device is True:
+        torch = sys.modules.get("torch")
+        return (torch.cuda.current_device() if torch is not None
+                and torch.cuda.is_initialized() else None)
+    if device.type != "cuda":
+        return None
+    index = device.index
+    return index if index is not None \
+        else sys.modules["torch"].cuda.current_device()
 
 
 class _NullSpan:
@@ -76,13 +126,82 @@ class _Span:
         return False
 
 
+class _DeviceSpan(_Span):
+    """A span that also records a CUDA timing event on the current
+    stream at each end (the hot path: few Python frames)."""
+
+    __slots__ = ("_dev", "_start", "_end", "_anchor", "_stream")
+
+    def __init__(self, tracer, name, tags, dev: int):
+        self._tracer = tracer
+        self.name = name
+        self.tags = tags
+        self._dev = dev
+
+    def __enter__(self):
+        tr = self._tracer
+        self._depth = tr._enter_depth()
+        self._t0 = time.perf_counter()
+        (self._start, self._end, self._anchor,
+         self._stream) = tr._device_begin(self._dev)
+        return self
+
+    def __exit__(self, *exc):
+        _record(self._end, self._stream)
+        t1 = time.perf_counter()
+        tr = self._tracer
+        tr._exit_depth()
+        ev = tr._emit(self.name, self._t0, t1, self.tags, self._depth)
+        with tr._lock:
+            tr._pending.append((ev, self._start, self._end, self._anchor,
+                                self._dev))
+        return False
+
+
+def _record(event, stream) -> None:
+    """``event.record(stream)`` without ``torch.cuda.Event``'s Python
+    frame."""
+    sys.modules["torch"]._C._CudaEventBase.record(event, stream)
+
+
+class _Scope(_Span):
+    """A span whose tags ``key`` = its id also go on every span its
+    thread emits while it is open."""
+
+    __slots__ = ("_key", "_outer")
+
+    def __init__(self, tracer, name, tags, key):
+        super().__init__(tracer, name, tags)
+        self._key = key
+
+    def __enter__(self):
+        local = self._tracer._local
+        self._outer = getattr(local, "scope", None)
+        local.scope = {**(self._outer or {}), self._key: self.tags[self._key]}
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        self._tracer._local.scope = self._outer
+        return super().__exit__(*exc)
+
+
+def _open(tracer, name: str, device, tags: dict):
+    """A recording span: on a card (``device``, see ``_card``) also its
+    device interval."""
+    if device is not None:
+        dev = _card(device)
+        if dev is not None:
+            return _DeviceSpan(tracer, name, tags, dev)
+    return _Span(tracer, name, tags)
+
+
 class _Timed:
     """Always-on timer that doubles as a span: elapsed seconds land in
     ``out[key]`` unconditionally, and in the trace buffer when the
-    tracer is enabled.  ``.elapsed`` is readable after exit."""
+    tracer is recording.  ``.elapsed`` is readable after exit."""
 
     __slots__ = ("_tracer", "name", "_out", "_key", "tags", "_t0",
-                 "_depth", "elapsed")
+                 "_depth", "_rec", "elapsed")
 
     def __init__(self, tracer, name, out, key, tags):
         self._tracer = tracer
@@ -93,8 +212,8 @@ class _Timed:
         self.elapsed = 0.0
 
     def __enter__(self):
-        self._depth = self._tracer._enter_depth() \
-            if self._tracer.enabled else 0
+        self._rec = self._tracer.recording()
+        self._depth = self._tracer._enter_depth() if self._rec else 0
         self._t0 = time.perf_counter()
         return self
 
@@ -103,7 +222,7 @@ class _Timed:
         self.elapsed = t1 - self._t0
         if self._out is not None:
             self._out[self._key] = self.elapsed
-        if self._tracer.enabled:
+        if self._rec:
             self._tracer._exit_depth()
             self._tracer._emit(self.name, self._t0, t1, self.tags,
                                self._depth)
@@ -125,8 +244,22 @@ class Tracer:
         self._events: list[dict] = []
         self.dropped = 0
         self._local = threading.local()
-        # one fixed origin so every event's ts is a positive offset
-        self._origin = time.perf_counter()
+        # one fixed origin so every event's ts is a positive offset;
+        # ts * 1e-6 + origin is the event's perf_counter reading
+        self.origin = time.perf_counter()
+        self._ids = itertools.count(1)
+        # device intervals: (event, start, end, anchor, device) not yet
+        # resolved; free (start, end) event pairs and the anchors, by
+        # device index
+        self._pending: list[tuple] = []
+        self._pool: dict[int, list] = {}
+        self._anchors: dict[int, tuple] = {}
+        self._streams: dict[int, object] = {}
+
+    def recording(self) -> bool:
+        """Whether spans are recorded now: ``enabled``, or a
+        torch.profiler session is running."""
+        return self.enabled or _profiling()
 
     # -- depth tracking (per-thread nesting, for tests/ordering) ------
     def _enter_depth(self) -> int:
@@ -143,15 +276,22 @@ class Tracer:
         return getattr(self._local, "depth", 0)
 
     # -- emission -----------------------------------------------------
-    def _emit(self, name, t0, t1, tags, depth) -> None:
+    def _emit(self, name, t0, t1, tags, depth) -> dict:
+        local = self._local
+        scope = getattr(local, "scope", None)
+        args = {**scope, **tags} if scope else dict(tags)
+        tid = getattr(local, "tid", None)
+        if tid is None:
+            # a system call: read once a thread
+            tid = local.tid = threading.get_native_id()
         ev = {
             "name": name,
             "ph": "X",
-            "ts": (t0 - self._origin) * 1e6,
+            "ts": (t0 - self.origin) * 1e6,
             "dur": max(0.0, (t1 - t0) * 1e6),
             "pid": 1,
-            "tid": threading.get_ident() % 100_000,
-            "args": dict(tags) if tags else {},
+            "tid": tid,
+            "args": args,
         }
         if depth:
             ev["args"]["depth"] = depth
@@ -161,37 +301,120 @@ class Tracer:
                 drop = len(self._events) - self.max_events
                 del self._events[:drop]
                 self.dropped += drop
+        return ev
+
+    # -- device intervals ---------------------------------------------
+    def _device_begin(self, dev: int) -> tuple:
+        """(start, end, anchor, stream) of a new device interval on
+        ``dev``, its start event recorded on the current stream."""
+        torch = sys.modules["torch"]
+        if len(self._pending) >= _REAP_AT:
+            self._resolve(wait=False)
+        anchor = self._anchors.get(dev)
+        if anchor is None:
+            anchor = self._anchors[dev] = self._make_anchor(torch, dev)
+        try:
+            # list.pop is atomic under the interpreter lock
+            start, end = self._pool[dev].pop()
+        except (KeyError, IndexError):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+        # torch.cuda.current_stream builds a Stream object a call: keep
+        # one per raw stream
+        raw = torch._C._cuda_getCurrentRawStream(dev)
+        stream = self._streams.get(raw)
+        if stream is None:
+            stream = self._streams[raw] = torch.cuda.current_stream(dev)
+        _record(start, stream)
+        return start, end, anchor, stream
+
+    @staticmethod
+    def _make_anchor(torch, dev: int) -> tuple:
+        """(event, perf_counter seconds): an event recorded on an idle
+        card, and the host time the record returned, which the card
+        runs it just after (the quickest of three records; the wait
+        that sees it done can return much later)."""
+        stream = torch.cuda.current_stream(dev)
+        best = None
+        for _ in range(3):
+            ev = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            _record(ev, stream)
+            t1 = time.perf_counter()
+            if best is None or t1 - t0 < best[0]:
+                best = (t1 - t0, ev, t1)
+        torch.cuda.synchronize(dev)
+        return best[1], best[2]
+
+    def _resolve(self, wait: bool = True) -> None:
+        """Write ``device_ts``/``device_ms`` into the pending device
+        intervals' events and return their timing events to the pool;
+        ``wait=False`` stops at the first interval not yet finished."""
+        with self._lock:
+            pending, self._pending = self._pending, []
+        done = 0
+        for ev, start, end, (a_ev, a_t), dev in pending:
+            if wait:
+                end.synchronize()
+            elif not end.query():
+                break
+            ev["args"]["device_ms"] = start.elapsed_time(end)
+            ev["args"]["device_ts"] = ((a_t - self.origin) * 1e6
+                                       + a_ev.elapsed_time(start) * 1e3)
+            self._pool.setdefault(dev, []).append((start, end))
+            done += 1
+        if done < len(pending):
+            with self._lock:
+                self._pending[:0] = pending[done:]
 
     # -- public API ---------------------------------------------------
     def enable(self, on: bool = True) -> "Tracer":
         self.enabled = on
+        if on:
+            self._anchors = {}
         return self
 
-    def span(self, name: str, **tags):
-        """Context manager; the no-op singleton when disabled."""
-        if not self.enabled:
+    def span(self, name: str, *, device=None, **tags):
+        """Context manager; the no-op singleton when not recording.
+        ``device`` (a torch.device, or True for the current CUDA
+        device) also times the span's work there when it is a card."""
+        if not (self.enabled or _profiling()):
             return _NULL_SPAN
-        return _Span(self, name, tags)
+        return _open(self, name, device, tags)
+
+    def scope(self, name: str, key: str, **tags):
+        """A span tagged ``key`` = a fresh id that also tags every span
+        its thread emits while it is open; the no-op singleton when not
+        recording."""
+        if not (self.enabled or _profiling()):
+            return _NULL_SPAN
+        tags[key] = next(self._ids)
+        return _Scope(self, name, tags, key)
 
     def timed(self, name: str, out: dict | None, key: str, **tags):
         """Context manager that always times into ``out[key]`` and
-        additionally traces when enabled."""
+        additionally traces when recording."""
         return _Timed(self, name, out, key, tags)
 
     def event(self, name: str, t0: float, t1: float, **tags) -> None:
         """Emit a completed interval measured by the caller (both
         bounds on the ``perf_counter`` clock)."""
-        if not self.enabled:
+        if not (self.enabled or _profiling()):
             return
         self._emit(name, t0, t1, tags, 0)
 
     def events(self) -> list[dict]:
-        """Copy of the buffered events (chronological emit order)."""
+        """Copy of the buffered events (chronological emit order), their
+        device intervals resolved (this waits for the card)."""
+        self._resolve()
         with self._lock:
             return list(self._events)
 
     def drain(self) -> list[dict]:
-        """Return and clear the buffer."""
+        """Return and clear the buffer (device intervals resolved)."""
+        self._resolve()
+        self._anchors = {}
         with self._lock:
             out = self._events
             self._events = []
@@ -200,12 +423,15 @@ class Tracer:
     def clear(self) -> None:
         with self._lock:
             self._events = []
+            self._pending = []
             self.dropped = 0
+        self._anchors = {}
 
 
 # Module-level default: library call sites trace through this; it
-# stays disabled (no-op spans, skipped events) unless a front end —
-# serve.py --trace-out, a test — enables it.
+# records nothing (no-op spans, skipped events) unless a front end —
+# serve.py --trace-out, a test — enables it or a torch.profiler
+# session runs.
 _DEFAULT = Tracer()
 
 
@@ -213,11 +439,21 @@ def get_tracer() -> Tracer:
     return _DEFAULT
 
 
-def span(name: str, **tags):
+def recording() -> bool:
+    """Whether the default tracer records now."""
+    return _DEFAULT.enabled or _profiling()
+
+
+def span(name: str, *, device=None, **tags):
     """Span on the default tracer (the common call-site spelling)."""
-    if not _DEFAULT.enabled:
+    if not (_DEFAULT.enabled or _profiling()):
         return _NULL_SPAN
-    return _Span(_DEFAULT, name, tags)
+    return _open(_DEFAULT, name, device, tags)
+
+
+def scope(name: str, key: str, **tags):
+    """Scope on the default tracer."""
+    return _DEFAULT.scope(name, key, **tags)
 
 
 def timed(name: str, out: dict | None, key: str, **tags):
@@ -226,5 +462,5 @@ def timed(name: str, out: dict | None, key: str, **tags):
 
 
 def event(name: str, t0: float, t1: float, **tags) -> None:
-    if _DEFAULT.enabled:
+    if _DEFAULT.enabled or _profiling():
         _DEFAULT._emit(name, t0, t1, tags, 0)

@@ -1,5 +1,6 @@
-# Copied from src/repro/serving/scheduler.py; keep the two in step.  One change:
-# pad_pow2 comes from core.padding (the reference imports it through dist_engine).
+# Copied from src/repro/serving/scheduler.py; keep the two in step.  Two changes:
+# pad_pow2 comes from core.padding (the reference imports it through dist_engine),
+# and request events follow trace.recording() (also true under torch.profiler).
 """Deadline-aware micro-batching scheduler (DESIGN.md §11).
 
 Single ``(s, t)`` requests arrive one at a time (live traffic); the
@@ -256,8 +257,7 @@ class MicroBatcher:
         log, and (tracing on) one lifecycle event per request covering
         scheduled-arrival -> respond, tagged with the tier/epoch/
         staleness the flush stamped."""
-        tr = trace.get_tracer()
-        emit = tr.enabled
+        emit = trace.recording()
         for req in batch:
             lat = now - req.t_sched
             self._m_latency.observe(lat)
@@ -273,11 +273,11 @@ class MicroBatcher:
                     "batch_size": len(batch),
                 })
             if emit:
-                tr.event("serve.request", req.t_sched, now,
-                         tier=req.tier, epoch=req.epoch,
-                         staleness=lag, bucket=pad_pow2(len(batch)),
-                         wait_ms=round(
-                             (t_flush - req.t_submit) * 1e3, 3))
+                trace.event("serve.request", req.t_sched, now,
+                            tier=req.tier, epoch=req.epoch,
+                            staleness=lag, bucket=pad_pow2(len(batch)),
+                            wait_ms=round(
+                                (t_flush - req.t_submit) * 1e3, 3))
 
     def flush(self) -> int:
         """Synchronously flush one batch of whatever is pending (the
