@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only PHASE[,PHASE...]]
 
 Needs one NVIDIA card, ``nvcc`` and the repository checkout around this
 file; without a card (or without the checkout) it exits non-zero and
@@ -42,7 +42,9 @@ prints no result.  Phases, each of which must pass:
      label table's row ids (q = 8 to 4,096 at W = 480, 1,712 and 4,661,
      (0, 0) pads, the sentinel row and repeated ids),
      timed over input copies larger than the L2 together, beside an
-     empty launch;
+     empty launch; and the hierarchy's lift and leg kernels
+     (``gather_minplus.cu``, no Pallas counterpart) at road64k's two and
+     road250k's four level shapes, q = 1,024 and 24;
   3. small end-to-end references: road_like(900) with 96 seeded hub
      nodes, built and served on the card, equals the same run on the
      CPU (plain versions), table for table (hub tables and sidecars
@@ -852,6 +854,141 @@ def _grouped_cases() -> list:
     return cases
 
 
+#: (label, units, groups, m2, slots, next width) of the hierarchy's
+#: level shapes: road64k's two (fragment rows of 64 over 130 fragments,
+#: then 440) and road250k's four (rows of 96 over 246 fragments, then
+#: 1,072, 1,624 and 2,056 over its groups)
+GATHER_LEVELS = (
+    ("road64k-l1", 130, 6, 1024, 64, 440),
+    ("road64k-l2", 7, 3, 1024, 440, 592),
+    ("road250k-l1", 246, 10, 2048, 96, 1072),
+    ("road250k-l2", 11, 7, 2048, 1072, 1624),
+    ("road250k-l3", 8, 4, 4096, 1624, 2056),
+    ("road250k-l4", 5, 2, 4096, 2056, 2336),
+)
+
+
+def _gather_level(units, groups, m2, slots, width, rows, seed):
+    """One level's operands on the card: overlay ids g * m2 + p in
+    ``groups`` groups (the sentinel id in the sentinel group); ``units``
+    table rows (the last all-sentinel), each a run of distinct ids of one
+    group, then sentinel slots; the lift rows [G + 1, m2, width] and the
+    closures [G + 1, m2, m2] integers with ~20% +inf, the sentinel
+    group's +inf; ``rows`` rows finite (~80%) on their valid slots only,
+    every eleventh all +inf; units uniform."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    S = groups * m2
+    gof = np.concatenate([np.repeat(np.arange(groups), m2), [groups]])
+    pof = np.concatenate([np.tile(np.arange(m2), groups), [0]])
+    tab = np.full((units, slots), S, np.int64)
+    for u in range(units - 1):
+        k = int(rng.integers(slots // 2, slots + 1))
+        tab[u, :k] = u % groups * m2 + rng.choice(m2, k, replace=False)
+    lift = _int_inf((groups + 1, m2, width), rng)
+    clo = _int_inf((groups + 1, m2, m2), rng)
+    lift[groups] = clo[groups] = np.inf
+    unit = rng.integers(0, units, rows)
+    row = _int_inf((rows, slots), rng)
+    row[tab[unit] == S] = np.inf
+    row[5::11] = np.inf
+    dev = torch.device("cuda")
+    f32 = lambda x: torch.from_numpy(x).to(dev)                # noqa: E731
+    return {"row": f32(row), "unit": torch.from_numpy(unit).to(dev),
+            "tab": torch.from_numpy(tab).to(dev, torch.int32),
+            "gof": torch.from_numpy(gof).to(dev, torch.int32),
+            "pof": torch.from_numpy(pof).to(dev, torch.int32),
+            "lift": f32(lift), "clo": f32(clo)}
+
+
+def _gather_work(op, q):
+    """(lift cells, lift bytes, leg cells, leg bytes) these operands need:
+    the (row, slot, column) cells whose terms are all finite (the leg's
+    only for queries whose slot-0 groups agree, in one group), and each
+    input byte once (rows, tables, the closure rows the units reach) with
+    the outputs."""
+    import torch
+    row, unit, tab, gof, pof = (op[k] for k in ("row", "unit", "tab",
+                                                "gof", "pof"))
+    ids = tab.long()
+    grp, pos = gof[ids].long(), pof[ids].long()
+    m2 = op["clo"].shape[1]
+    fin = torch.isfinite(row).double()
+    lift = op["lift"].reshape(-1, op["lift"].shape[2])
+    per_row = torch.isfinite(lift).double().sum(dim=1)
+    rid = grp * m2 + pos                                     # [U, K]
+    lift_cells = float((fin * per_row[rid[unit]]).sum())
+    reached = torch.unique(rid[torch.unique(unit)])
+    table = 4.0 * (tab.numel() + gof.numel() + pof.numel() + unit.numel())
+    lift_bytes = (4.0 * (row.numel() + row.shape[0] * lift.shape[1]
+                         + reached.numel() * lift.shape[1]) + table)
+    clo = torch.isfinite(op["clo"].reshape(-1, m2))
+    us, ut = unit[:q], unit[q:]
+    leg_cells = 0.0
+    blocks = 0
+    for a, b in torch.unique(torch.stack([us, ut]), dim=1).T.tolist():
+        if grp[a, 0] != grp[b, 0]:
+            continue
+        blk = (clo[rid[a][:, None], pos[b][None, :]]
+               & (grp[a][:, None] == grp[b][None, :])).double()
+        sel = (us == a) & (ut == b)
+        leg_cells += float(((fin[:q][sel] @ blk) * fin[q:][sel]).sum())
+        blocks += blk.numel()
+    leg_bytes = 4.0 * (row.numel() + q + blocks) + table
+    return lift_cells, lift_bytes, leg_cells, leg_bytes
+
+
+def _check_gather_minplus(out):
+    """The hierarchy's lift and leg kernels (``ops.gather_minplus``,
+    ``ops.gather_minplus_twoside``) against their plain versions at each
+    of ``GATHER_LEVELS`` at q = 1,024 (2,048 rows a lift: both sides), and
+    at q = 24 (one warp a row), array-equal, timed by CUDA events and
+    device time beside the plain version."""
+    import functools
+
+    import torch
+    from repro_torch.core.device_engine import _chunk
+    from repro_torch.kernels import gather_minplus as gm
+    from repro_torch.kernels import ops
+    for label, units, groups, m2, slots, width in GATHER_LEVELS:
+        for q in (1024, 24):
+            op = _gather_level(units, groups, m2, slots, width, 2 * q,
+                               seed=slots + q)
+            row, unit, tab, gof, pof = (op[k] for k in (
+                "row", "unit", "tab", "gof", "pof"))
+            lift_cells, lift_bytes, leg_cells, leg_bytes = _gather_work(op, q)
+            lift = functools.partial(ops.gather_minplus, row, unit, tab, pof,
+                                     op["lift"], gof=gof)
+            leg_args = (row[:q], unit[:q], row[q:], unit[q:], tab, gof, pof,
+                        op["clo"])
+            leg = functools.partial(ops.gather_minplus_twoside, *leg_args)
+            for kernel, fn, plain, cells, nbytes, regime in (
+                    ("gather_minplus_cuda", lift, functools.partial(
+                        lift, chunk=_chunk(row, width), force="ref"),
+                     lift_cells, lift_bytes,
+                     gm.plan(2 * q, slots, units, units)),
+                    ("gather_minplus_twoside_cuda", leg, functools.partial(
+                        leg, chunk=_chunk(row[:q], slots), force="ref"),
+                     leg_cells, leg_bytes,
+                     gm.plan(q, slots, units, units * units))):
+                got, want = fn(), plain()
+                torch.cuda.synchronize()
+                ok = torch.equal(got, want)
+                bound, by = _bound_ms(nbytes, 2.0 * cells)
+                _record(out, {
+                    "case": f"{label} q={q}", "kernel": kernel,
+                    "q": q, "slots": slots, "width": width, "units": units,
+                    "regime": regime, "equal": ok,
+                    "max_abs_err": _max_abs_err(got, want),
+                    "ms": _time_ms(fn, 20), "device_ms": _device_ms(fn, 20),
+                    "plain_ms": _time_ms(plain, 1),
+                    "bound_ms": bound, "bound_by": by,
+                    "bound_ops_ms": 2.0 * cells / FP32_OPS_PER_S * 1e3,
+                    "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "finite_cells": cells, "bytes": nbytes}, ok)
+
+
 def _finite_triples(a, b) -> float:
     """(i, k, j) triples of a (min,+) product whose two terms are both
     finite: the work this data needs (a +inf term cannot move a min)."""
@@ -1110,7 +1247,10 @@ KERNELS = (("fw_next_reg", "floyd_warshall", "fw_next_reg_cuda"),
            ("minplus_twoside_argmin", "minplus_twoside",
             "minplus_twoside_argmin_cuda"),
            ("label_merge", "label_merge", "label_merge_cuda"),
-           ("label_merge_rows", "label_merge", "label_merge_rows_cuda"))
+           ("label_merge_rows", "label_merge", "label_merge_rows_cuda"),
+           ("gather_minplus", "gather_minplus", "gather_minplus_cuda"),
+           ("gather_minplus_twoside", "gather_minplus",
+            "gather_minplus_twoside_cuda"))
 
 
 #: kernel entries the main paths must not launch (the dense label merge
@@ -3096,8 +3236,16 @@ def _paper() -> dict:
     return res
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+    ap = argparse.ArgumentParser(description="On-card smoke test of the "
+                                 "PyTorch/CUDA port.")
+    ap.add_argument("--only", default="", help="comma-separated phases to "
+                    "run (besides build); the end-of-run launch checks and "
+                    "kernel table need every phase and are left out")
+    only = {p for p in ap.parse_args(argv).only.split(",") if p}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured",
               file=sys.stderr)
@@ -3110,8 +3258,11 @@ def main() -> int:
     new_cases: list = []
     slice3_cases: list = []
     grouped_cases: list = []
+    gather_cases: list = []
 
     def phase(name, fn):
+        if only and name not in only | {"build"}:
+            return
         print(f"== {name}", flush=True)
         t0 = time.perf_counter()
         try:
@@ -3247,6 +3398,8 @@ def main() -> int:
         return _check_label_merge_rows(MERGE_ROWS_CASES, slice3_cases)
 
     phase("label_merge_kernel", label_merge_kernel)
+    phase("gather_minplus_kernel",
+          lambda: _check_gather_minplus(gather_cases))
     phase("small_reference", _small_reference)
     phase("road4000", lambda: _main_path("road4000", 64, json_out=True))
     phase("road4000_levels", _level_differential)
@@ -3272,7 +3425,8 @@ def main() -> int:
     # the dry-run sweep needs no card: it runs at nice 19 in its own
     # processes beside the phases from here on (none of them gated on
     # time), and phase dryrun waits for it
-    sweep = _start_dryrun()
+    sweep = (_start_dryrun() if not only or "dryrun" in only
+             else (None, 0.0))
     try:
         phase("road64k_live", _road64k_live)
         phase("sharded", _sharded)
@@ -3287,6 +3441,7 @@ def main() -> int:
     report["fw_cases"], report["ts_cases"] = fw_cases, ts_cases
     report["new_cases"], report["slice3_cases"] = new_cases, slice3_cases
     report["grouped_cases"] = grouped_cases
+    report["gather_cases"] = gather_cases
     report["profiler_windows"] = WINDOWS
     print(f"profiler windows: {WINDOWS}")
     smi = subprocess.run(
@@ -3305,6 +3460,10 @@ def main() -> int:
               + ("" if card else "; nvidia-smi gave no card"),
               file=sys.stderr)
         return 1
+    if only:
+        print(card)
+        print(json.dumps({"ok": True, "phases": sorted(report["phases"])}))
+        return 0
 
     def pick(cases, label, kernel=None):
         return next(c for c in cases if c["case"] == label
@@ -3315,16 +3474,13 @@ def main() -> int:
                           ("fw_next_reg", "fw_next_blocked",
                            "minplus_twoside_grouped",
                            "minplus_twoside_argmin"))
-        _require_launched(report["road64k"], "road64k",
-                          ("fw_next_reg", "fw_batch", "minplus_accum_panels",
-                           "minplus_accum_into", "minplus",
-                           "fw_next_blocked", "minplus_twoside_grouped",
-                           "minplus_twoside_argmin", "label_merge_rows"))
-        _require_launched(report["road250k"], "road250k",
-                          ("fw_next_reg", "fw_batch", "minplus_accum_panels",
-                           "minplus_accum_into", "minplus",
-                           "fw_next_blocked", "minplus_twoside_grouped",
-                           "minplus_twoside_argmin", "label_merge_rows"))
+        for graph in ("road64k", "road250k"):
+            _require_launched(report[graph], graph, (
+                "fw_next_reg", "fw_batch", "minplus_accum_panels",
+                "minplus_accum_into", "minplus", "fw_next_blocked",
+                "minplus_twoside_grouped", "minplus_twoside_argmin",
+                "label_merge_rows", "gather_minplus",
+                "gather_minplus_twoside"))
         for path in ("road4000_live", "road64k_live"):
             _require_launched(report[path], path,
                               ("label_merge_rows",
@@ -3422,6 +3578,15 @@ def main() -> int:
         ("label_merge_rows", pick(slice3_cases, MERGE_ROWS_MAIN),
          "src/repro_torch/csrc/label_merge.cu",
          "src/repro/kernels/label_merge.py:66"),
+        ("gather_minplus", pick(gather_cases, "road250k-l4 q=1024",
+                                "gather_minplus_cuda"),
+         "src/repro_torch/csrc/gather_minplus.cu",
+         "none (XLA gathers in the reference)"),
+        ("gather_minplus_twoside",
+         pick(gather_cases, "road250k-l4 q=1024",
+              "gather_minplus_twoside_cuda"),
+         "src/repro_torch/csrc/gather_minplus.cu",
+         "none (XLA gathers in the reference)"),
     ]
     kernels = [{
         "name": name, "route": "cuda", "source": source,

@@ -36,8 +36,11 @@ computed without a [q, mb, mb] block.  On the card the compact
 (top-level) boundary rows are contracted through their id tables by the
 grouped ``minplus_twoside`` CUDA kernel (``ops.minplus_twoside_grouped``:
 only the closure cells the rows can reach, where the reference scatters
-them over the whole closure for its TPU kernel); elsewhere chunked
-gathers keep the peak intermediate at [q, c, width] (``_chunk``).
+them over the whole closure for its TPU kernel), and the hierarchy's
+lifts and same-group legs, whose rows read the closures through slot
+ids, run as one ``gather_minplus`` kernel each (``ops.gather_minplus``,
+``ops.gather_minplus_twoside``); elsewhere chunked gathers keep the
+peak intermediate at [q, c, width] (``_chunk``).
 ``serve_one_to_all`` answers one source against every node through the
 ``minplus`` kernel.  The ``*_w`` programs return a witness beside each
 distance (the winning overlay pair from the ``minplus_twoside_argmin``
@@ -1636,48 +1639,49 @@ def _overlay_size(dix: DeviceIndex) -> int:
             else dix.d_super.shape[0])
 
 
-def _hier_leg(dix: DeviceIndex, li: int, row_s, grp_s, pos_s,
-              row_t, grp_t, pos_t):
+def _hier_leg(dix: DeviceIndex, li: int, row_s, unit_s, row_t, unit_t,
+              tab, top, *, force=None):
     """Same-group leg at grouping level ``li``: min over slot pairs
     (i, j) in the SAME level-li group of
-    row_s[i] + sf_closure[li][g, pos_i, pos_j] + row_t[j], chunked over
-    the s-axis (``_chunk``) so the gathered block stays [q, c, width].
-    Traced as ``serve.leg`` (``level`` li + 1) with its card time."""
-    q, mbs = row_s.shape
-    c = _chunk(row_s, row_t.shape[1])
-    clo = dix.sf_closure[li]
-    with trace.span("serve.leg", device=row_s.device, level=li + 1):
-        acc = torch.full((q, row_t.shape[1]), _INF, dtype=row_s.dtype,
-                         device=row_s.device)
-        for i in range(0, mbs, c):
-            g_c, p_c = grp_s[:, i:i + c, None], pos_s[:, i:i + c, None]
-            blk = clo[g_c, p_c, pos_t[:, None, :]]          # [q, c, mbt]
-            same = g_c == grp_t[:, None, :]
-            cand = torch.where(same, row_s[:, i:i + c, None] + blk, _INF)
-            acc = torch.minimum(acc, cand.amin(dim=1))
-        return (acc + row_t).amin(dim=1)
+    row_s[i] + sf_closure[li][g, pos_i, pos_j] + row_t[j], the slots of
+    each side those of its table row tab[unit]
+    (``ops.gather_minplus_twoside``: on the card one kernel, which
+    answers +inf without reading the closure where the sides' groups
+    differ; elsewhere the gather chunked over the s-axis (``_chunk``), so
+    the gathered block stays [q, c, width]).  Traced as ``serve.leg``
+    (``level`` li + 1) with its card time; while the tracer records it
+    also carries ``passed``, the queries whose sides share the level's
+    group (``top``: both sides' next-level units, s first), a 0-d tensor
+    read with the tracer's events."""
+    tags = {}
+    if trace.recording():
+        q = row_s.shape[0]
+        tags["passed"] = (top[:q] == top[q:]).sum()
+    with trace.span("serve.leg", device=row_s.device, level=li + 1, **tags):
+        return ops.gather_minplus_twoside(
+            row_s, unit_s, row_t, unit_t, tab, dix.sf_of[li],
+            dix.pos_in_sf[li], dix.sf_closure[li],
+            chunk=_chunk(row_s, row_t.shape[1]), force=force)
 
 
-def _lift_compact(dix: DeviceIndex, li: int, row, grp, pos):
-    """Lift a compact boundary row one level: out[q, j] = min_b
-    row[q, b] + l2row[li][grp_b, pos_b, j].  All valid slots of one side
-    share one group per level (groups nest), so the output stays
-    COMPACT: its next-level ids are that group's bnd2_sid row, read by
-    the caller.  Chunked (``_chunk``) so the gathered block stays
-    [q, c, mb'].  Traced as ``serve.lift`` (``level`` li + 1, ``kind``
-    "compact") with its card time."""
-    q, mb = row.shape
+def _lift_compact(dix: DeviceIndex, li: int, row, unit, tab, *,
+                  force=None):
+    """Lift compact boundary rows one level: out[r, j] = min_b
+    row[r, b] + l2row[li][grp_b, pos_b, j], the slots of row r those of
+    its table row tab[unit[r]].  All valid slots of one row share one
+    group per level (groups nest), so the output stays COMPACT: its
+    next-level ids are that group's bnd2_sid row, read by the caller.
+    ``ops.gather_minplus``: one kernel on the card; elsewhere chunked
+    (``_chunk``) so the gathered block stays [q, c, mb'].  Traced as
+    ``serve.lift`` (``level`` li + 1, ``kind`` "compact") with its card
+    time."""
     l2 = dix.l2row[li]
-    c = _chunk(row, l2.shape[2])
     with trace.span("serve.lift", device=row.device, level=li + 1,
                     kind="compact"):
-        acc = torch.full((q, l2.shape[2]), _INF, dtype=row.dtype,
-                         device=row.device)
-        for i in range(0, mb, c):
-            l2_c = l2[grp[:, i:i + c], pos[:, i:i + c]]      # [q, c, mb']
-            acc = torch.minimum(acc,
-                                (row[:, i:i + c, None] + l2_c).amin(dim=1))
-        return acc
+        return ops.gather_minplus(row, unit, tab, dix.pos_in_sf[li], l2,
+                                  gof=dix.sf_of[li],
+                                  chunk=_chunk(row, l2.shape[2]),
+                                  force=force)
 
 
 def _scatter_top(dix: DeviceIndex, row, ids):
@@ -1706,54 +1710,57 @@ def _top_mid_gather(dix: DeviceIndex, row_s, ids_s, row_t, ids_t):
     return (acc + row_t).amin(dim=1)
 
 
-def _combine_mid_h(dix: DeviceIndex, row_s, bs, row_t, bt, *,
+def _combine_mid_h(dix: DeviceIndex, row_s, fs, row_t, ft, *,
                    force=None, layout=None):
-    """Hierarchical combine:
+    """Hierarchical combine of the boundary rows of fragments fs and ft:
 
       mid = min_{x,y} row_s[x] + OD(x, y) + row_t[y]
 
     where OD decomposes per level: either both sides sit in the same
     level-l group (its closure answers exactly: the va legs), or the
     route crosses every level's boundary and the TOP closure answers
-    against both rows lifted level by level (the vb leg).  The scatter
-    layout contracts both compact top rows through their TOP group's
-    ``bnd2_sid`` row (``ops.minplus_twoside_grouped``: the grouped kernel
-    on the card, scatter + dense contraction as its plain version); the
-    gather layout gathers only each side's own top-group columns of d2
+    against both rows lifted level by level (the vb leg).  Both sides
+    travel as one [2q, width] row block (s first), so each lift is one
+    call; a side's slots at each level are those of one table row, its
+    unit's (level 1: ``bnd_super[f]``; above: the previous level's group
+    boundary ``bnd2_sid``).  The scatter layout contracts both compact
+    top rows through their TOP group's ``bnd2_sid`` row
+    (``ops.minplus_twoside_grouped``: the grouped kernel on the card,
+    scatter + dense contraction as its plain version); the gather layout
+    gathers only each side's own top-group columns of d2
     (``_top_mid_gather``).  Both give the same bits."""
     layout = _layout(row_s.device, force, layout)
     q = row_s.shape[0]
-    ids_s, ids_t = bs.long(), bt.long()
-    va = torch.full((q,), _INF, dtype=row_s.dtype, device=row_s.device)
+    rows = torch.cat([row_s, row_t])
+    units = torch.cat([fs, ft])
+    tab = dix.bnd_super
+    va = None
     for li in range(len(dix.sf_of)):
-        grp_s = dix.sf_of[li][ids_s].long()
-        pos_s = dix.pos_in_sf[li][ids_s].long()
-        grp_t = dix.sf_of[li][ids_t].long()
-        pos_t = dix.pos_in_sf[li][ids_t].long()
-        va = torch.minimum(va, _hier_leg(dix, li, row_s, grp_s, pos_s,
-                                         row_t, grp_t, pos_t))
-        new_s = _lift_compact(dix, li, row_s, grp_s, pos_s)
-        new_t = _lift_compact(dix, li, row_t, grp_t, pos_t)
         # slot 0 is valid-first by construction, so its group IS the
-        # side's group (sentinel-only rows land on the sentinel group,
-        # whose bnd2_sid row is all-sentinel and whose rows are +inf)
-        top_s, top_t = grp_s[:, 0].contiguous(), grp_t[:, 0].contiguous()
-        ids_s = dix.bnd2_sid[li][top_s].long()
-        ids_t = dix.bnd2_sid[li][top_t].long()
-        row_s, row_t = new_s, new_t
+        # side's group and the lifted row's unit (sentinel-only rows land
+        # on the sentinel group, whose bnd2_sid row is all-sentinel and
+        # whose rows are +inf)
+        top = dix.sf_of[li][tab[:, 0].long()].long()[units]
+        leg = _hier_leg(dix, li, rows[:q], units[:q], rows[q:], units[q:],
+                        tab, top, force=force)
+        va = leg if va is None else torch.minimum(va, leg)
+        rows = _lift_compact(dix, li, rows, units, tab, force=force)
+        units, tab = top, dix.bnd2_sid[li]
     if layout == "scatter":
-        vb = ops.minplus_twoside_grouped(row_s, top_s, dix.bnd2_sid[-1],
-                                         dix.d2, row_t, top_t,
-                                         dix.bnd2_sid[-1], force=force)
+        vb = ops.minplus_twoside_grouped(rows[:q], units[:q], tab, dix.d2,
+                                         rows[q:], units[q:], tab,
+                                         force=force)
     else:
-        vb = _top_mid_gather(dix, row_s, ids_s, row_t, ids_t)
+        vb = _top_mid_gather(dix, rows[:q], tab[units[:q]].long(), rows[q:],
+                             tab[units[q:]].long())
     return torch.minimum(va, vb)
 
 
-def _combine_mid(dix: DeviceIndex, row_s, bs, row_t, bt, *, force=None,
+def _combine_mid(dix: DeviceIndex, row_s, fs, row_t, ft, *, force=None,
                  layout=None):
     """combine = min_{b1,b2} row_s[b1] + D_super[bs[b1], bt[b2]]
-    + row_t[b2] without a [q, mb, mb] intermediate.
+    + row_t[b2] without a [q, mb, mb] intermediate, for the boundary
+    rows of fragments fs and ft (bs, bt = their ``bnd_super`` rows).
 
     Hierarchical indices (non-empty ``sf_of``) route to
     ``_combine_mid_h``.  ``layout`` picks one of the reference's two
@@ -1765,8 +1772,9 @@ def _combine_mid(dix: DeviceIndex, row_s, bs, row_t, bt, *, force=None,
     the b1 axis (``_chunk``) so the gathered block stays [q, c, mb].
     """
     if len(dix.sf_of):
-        return _combine_mid_h(dix, row_s, bs, row_t, bt, force=force,
+        return _combine_mid_h(dix, row_s, fs, row_t, ft, force=force,
                               layout=layout)
+    bs, bt = dix.bnd_super[fs], dix.bnd_super[ft]
     if _layout(row_s.device, force, layout) == "scatter":
         qi = torch.arange(row_s.shape[0], device=row_s.device)
         return ops.minplus_twoside_grouped(row_s, qi, bs, dix.d_super,
@@ -1813,8 +1821,8 @@ def serve_cross(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
     ds, dt, fs, ft, ps, pt, valid = _ends(dix, s, t)
     row_s = dix.brow[fs, ps]                     # [q, mb]
     row_t = dix.brow[ft, pt]
-    mid = _combine_mid(dix, row_s, dix.bnd_super[fs], row_t,
-                       dix.bnd_super[ft], force=force, layout=layout)
+    mid = _combine_mid(dix, row_s, fs, row_t, ft, force=force,
+                       layout=layout)
     if with_local:
         mid = torch.minimum(mid, torch.where(
             fs == ft, dix.frag_apsp[fs, ps, pt], _INF))
@@ -1902,6 +1910,10 @@ def _combine_mid_h_w(dix: DeviceIndex, row_s, bs, row_t, bt, *,
     L = len(dix.sf_of)
     q = row_s.shape[0]
     ids_s, ids_t = bs.long(), bt.long()
+    # the lifts' table rows: each query's own boundary ids at level 1,
+    # its side's previous-level group boundary above
+    unit_s = unit_t = torch.arange(q, device=row_s.device)
+    tab_s, tab_t = bs, bt
     states, vas, legx, legy = [], [], [], []
     for li in range(L):
         grp_s = dix.sf_of[li][ids_s].long()
@@ -1915,10 +1927,12 @@ def _combine_mid_h_w(dix: DeviceIndex, row_s, bs, row_t, bt, *,
         vas.append(va)
         legx.append(xa)
         legy.append(ya)
-        row_s = _lift_compact(dix, li, row_s, grp_s, pos_s)
-        row_t = _lift_compact(dix, li, row_t, grp_t, pos_t)
-        ids_s = dix.bnd2_sid[li][grp_s[:, 0]].long()
-        ids_t = dix.bnd2_sid[li][grp_t[:, 0]].long()
+        row_s = _lift_compact(dix, li, row_s, unit_s, tab_s, force=force)
+        row_t = _lift_compact(dix, li, row_t, unit_t, tab_t, force=force)
+        unit_s, unit_t = grp_s[:, 0].contiguous(), grp_t[:, 0].contiguous()
+        tab_s = tab_t = dix.bnd2_sid[li]
+        ids_s = dix.bnd2_sid[li][unit_s].long()
+        ids_t = dix.bnd2_sid[li][unit_t].long()
     mid, wc, wd = ops.minplus_twoside_argmin(
         _scatter_top(dix, row_s, ids_s), dix.d2,
         _scatter_top(dix, row_t, ids_t), force=force)
@@ -2052,25 +2066,23 @@ def serve_hub(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
     return torch.where(valid, d, _INF)
 
 
-def _lift_res(dix: DeviceIndex, row, pos, ridx, cols):
-    """Resident lift, restricted to d2 column ids ``cols`` [q, w] (an
-    endpoint's own top-group boundary columns, outside which the lifted
-    row is +inf): rs[q, c] = min_b row[q, b] +
-    res_rows[ridx, pos_b, cols[q, c]], the whole per-level lift ladder
-    collapsed into one chunked gather against the pre-composed rows.
-    Traced as ``serve.lift`` (``level`` 1, ``kind`` "res")."""
-    q, mb = row.shape
-    width = cols.shape[1]
-    c = _chunk(row, width)
+def _lift_res(dix: DeviceIndex, row, frag, grp, *, force=None):
+    """Resident lift of the boundary rows of fragments ``frag``,
+    restricted to the d2 column ids of their TOP groups ``grp`` (the
+    lifted row is +inf outside an endpoint's own top-group boundary
+    columns): rs[q, c] = min_b row[q, b] + res_rows[res_of_frag[f],
+    pos_b, bnd2_sid[-1][g, c]], the whole per-level lift ladder collapsed
+    into one product against the pre-composed rows
+    (``ops.gather_minplus``: one kernel on the card; elsewhere chunked
+    gathers, ``_chunk``).  Traced as ``serve.lift`` (``level`` 1,
+    ``kind`` "res")."""
+    top = dix.bnd2_sid[-1]
     with trace.span("serve.lift", device=row.device, level=1, kind="res"):
-        acc = torch.full((q, width), _INF, dtype=row.dtype,
-                         device=row.device)
-        for i in range(0, mb, c):
-            blk = dix.res_rows[ridx[:, None, None], pos[:, i:i + c, None],
-                               cols[:, None, :]]             # [q, c, w]
-            acc = torch.minimum(acc,
-                                (row[:, i:i + c, None] + blk).amin(dim=1))
-        return acc
+        return ops.gather_minplus(row, frag, dix.bnd_super, dix.pos_in_sf[0],
+                                  dix.res_rows, ugrp=dix.res_of_frag,
+                                  cunit=grp, ctab=top,
+                                  chunk=_chunk(row, top.shape[1]),
+                                  force=force)
 
 
 def serve_cross_res(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
@@ -2090,21 +2102,17 @@ def serve_cross_res(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
     ds, dt, fs_c, ft_c, ps, pt, valid = _ends(dix, s, t)
     row_s = dix.brow[fs_c, ps]                   # [q, mb]
     row_t = dix.brow[ft_c, pt]
-    pos_s = dix.pos_in_sf[0][dix.bnd_super[fs_c].long()].long()
-    pos_t = dix.pos_in_sf[0][dix.bnd_super[ft_c].long()].long()
-    rid_s = dix.res_of_frag[fs_c].long()
-    rid_t = dix.res_of_frag[ft_c].long()
     top = dix.bnd2_sid[-1]
     grp_s = dix.topgrp_of_frag[fs_c].long()
     grp_t = dix.topgrp_of_frag[ft_c].long()
-    ids_s, ids_t = top[grp_s].long(), top[grp_t].long()
-    rs = _lift_res(dix, row_s, pos_s, rid_s, cols=ids_s)
-    rt = _lift_res(dix, row_t, pos_t, rid_t, cols=ids_t)
+    rs = _lift_res(dix, row_s, fs_c, grp_s, force=force)
+    rt = _lift_res(dix, row_t, ft_c, grp_t, force=force)
     if _layout(row_s.device, force, layout) == "scatter":
         mid = ops.minplus_twoside_grouped(rs, grp_s, top, dix.d2, rt, grp_t,
                                           top, force=force)
     else:
-        mid = _top_mid_gather(dix, rs, ids_s, rt, ids_t)
+        mid = _top_mid_gather(dix, rs, top[grp_s].long(), rt,
+                              top[grp_t].long())
     d = ds + mid + dt
     return torch.where(valid, d, _INF)
 

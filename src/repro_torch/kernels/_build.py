@@ -28,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("fw_next", "minplus_twoside", "fw_dist", "minplus",
-           "minplus_twoside_argmin", "label_merge")
+           "minplus_twoside_argmin", "label_merge", "gather_minplus")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -25,6 +25,7 @@ from typing import Literal, Optional
 import torch
 
 from . import ref as _ref
+from . import gather_minplus as _gm
 from .floyd_warshall import (blocked_scratch_bytes, dist_out, fw_batch_cuda,
                              fw_batch_next_cuda, fw_blocked, next_buffers,
                              route as fw_route)
@@ -120,6 +121,52 @@ def minplus_twoside_grouped(row_s: torch.Tensor, gs: torch.Tensor,
                                             tab_t)
     return _ref.minplus_twoside_grouped_ref(row_s, gs, tab_s, d, row_t, gt,
                                             tab_t)
+
+
+def gather_minplus(row: torch.Tensor, unit: torch.Tensor,
+                   tab: torch.Tensor, pof: torch.Tensor, m: torch.Tensor, *,
+                   gof=None, ugrp=None, cunit=None, ctab=None,
+                   chunk: int = 8, force: Force = None) -> torch.Tensor:
+    """The hierarchy's lift: out[r, j] = min_b row[r, b] + m[group_b,
+    pos_b, c_j], slot b of row r being id = tab[unit[r], b] at (gof[id],
+    pof[id]) (or (ugrp[unit[r]], pof[id])), c_j = j (or ctab[cunit[r],
+    j]); never forming the [R, K, W] block.  ``chunk``: slots a step of
+    the plain version (the kernel does not read it)."""
+    r = _route(row, force)
+    if r == "meta":
+        width = m.shape[2] if ctab is None else ctab.shape[1]
+        return _gm.store_buffers(*row.shape, tab.shape[0], width,
+                                 ctab is not None, row.device)[1]
+    if r == "kernel":
+        return _gm.gather_minplus_cuda(row, unit, tab, pof, m, gof=gof,
+                                       ugrp=ugrp, cunit=cunit, ctab=ctab)
+    return _ref.gather_minplus_ref(row, unit, tab, pof, m, gof=gof,
+                                   ugrp=ugrp, cunit=cunit, ctab=ctab,
+                                   chunk=chunk)
+
+
+def gather_minplus_twoside(row_s: torch.Tensor, unit_s: torch.Tensor,
+                           row_t: torch.Tensor, unit_t: torch.Tensor,
+                           tab: torch.Tensor, gof: torch.Tensor,
+                           pof: torch.Tensor, m: torch.Tensor, *,
+                           chunk: int = 8, force: Force = None
+                           ) -> torch.Tensor:
+    """The hierarchy's same-group leg: out[q] = min over slot pairs
+    (i, j) of one group of row_s[q, i] + m[g_i, pos_i, pos_j] + row_t[q,
+    j], the slots those of tab[unit_s[q]] and tab[unit_t[q]].  The kernel
+    answers +inf without reading ``m`` where the two slot-0 groups
+    differ, which equals the plain version where every slot with a finite
+    row entry lies in its side's slot-0 group (the hierarchy's rows do).
+    ``chunk``: slots a step of the plain version."""
+    r = _route(row_s, force)
+    if r == "meta":
+        return _gm.twoside_buffers(*row_s.shape, tab.shape[0],
+                                   row_s.device)[1]
+    if r == "kernel":
+        return _gm.gather_minplus_twoside_cuda(row_s, unit_s, row_t, unit_t,
+                                               tab, gof, pof, m)
+    return _ref.gather_minplus_twoside_ref(row_s, unit_s, row_t, unit_t, tab,
+                                           gof, pof, m, chunk=chunk)
 
 
 def minplus_twoside_argmin(rows: torch.Tensor, d: torch.Tensor,

@@ -211,6 +211,131 @@ def minplus_twoside_grouped_split_ref(row_s: torch.Tensor, gs: torch.Tensor,
     return part.amin(dim=1)
 
 
+def _slots(unit: torch.Tensor, tab: torch.Tensor, pof: torch.Tensor,
+           gof=None, ugrp=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(group, pos) [R, K] int64 of each row's slots, id = tab[unit[r],
+    b]: (gof[id], pof[id]), or (ugrp[unit[r]], pof[id])."""
+    unit = unit.long()
+    ids = tab[unit].long()
+    pos = pof[ids].long()
+    if ugrp is None:
+        return gof[ids].long(), pos
+    return ugrp[unit].long()[:, None].expand_as(pos), pos
+
+
+def gather_minplus_ref(row: torch.Tensor, unit: torch.Tensor,
+                       tab: torch.Tensor, pof: torch.Tensor,
+                       m: torch.Tensor, *, gof=None, ugrp=None, cunit=None,
+                       ctab=None, chunk: int = 8) -> torch.Tensor:
+    """out[r, j] = min_b row[r, b] + m[group_b, pos_b, c_j] (``_slots``;
+    c_j = j, or ctab[cunit[r], j]), chunked over b so the peak
+    intermediate is [R, chunk, W]: the serve programs' lifts as chunked
+    gathers, which the chunk width only regroups."""
+    grp, pos = _slots(unit, tab, pof, gof, ugrp)
+    cols = None if ctab is None else ctab[cunit.long()].long()
+    width = m.shape[2] if cols is None else cols.shape[1]
+    acc = torch.full((row.shape[0], width), float("inf"), dtype=row.dtype,
+                     device=row.device)
+    for i in range(0, row.shape[1], chunk):
+        g_c, p_c = grp[:, i:i + chunk], pos[:, i:i + chunk]
+        if cols is None:
+            blk = m[g_c, p_c]                               # [R, c, W]
+        else:
+            blk = m[g_c[:, :, None], p_c[:, :, None], cols[:, None, :]]
+        acc = torch.minimum(acc, (row[:, i:i + chunk, None] + blk).amin(1))
+    return acc
+
+
+def gather_minplus_twoside_ref(row_s: torch.Tensor, unit_s: torch.Tensor,
+                               row_t: torch.Tensor, unit_t: torch.Tensor,
+                               tab: torch.Tensor, gof: torch.Tensor,
+                               pof: torch.Tensor, m: torch.Tensor, *,
+                               chunk: int = 8) -> torch.Tensor:
+    """out[q] = min over slot pairs (i, j) in the SAME group of
+    row_s[q, i] + m[g_i, pos_i, pos_j] + row_t[q, j], the slots those of
+    tab[unit_s[q]] and tab[unit_t[q]] (``_slots``), chunked over i so the
+    peak intermediate is [q, chunk, K]: the hierarchy's same-group leg."""
+    grp_s, pos_s = _slots(unit_s, tab, pof, gof)
+    grp_t, pos_t = _slots(unit_t, tab, pof, gof)
+    acc = torch.full(row_t.shape, float("inf"), dtype=row_s.dtype,
+                     device=row_s.device)
+    for i in range(0, row_s.shape[1], chunk):
+        g_c, p_c = grp_s[:, i:i + chunk, None], pos_s[:, i:i + chunk, None]
+        blk = m[g_c, p_c, pos_t[:, None, :]]                # [q, c, K]
+        same = g_c == grp_t[:, None, :]
+        cand = torch.where(same, row_s[:, i:i + chunk, None] + blk,
+                           float("inf"))
+        acc = torch.minimum(acc, cand.amin(dim=1))
+    return (acc + row_t).amin(dim=1)
+
+
+def _by_key(keys: torch.Tensor, q_tile: int) -> list:
+    """The tiles regimes' order: the rows with a key (>= 0) grouped by
+    key, each key's run cut into tiles of at most ``q_tile`` rows."""
+    tiles = []
+    for k in torch.unique(keys[keys >= 0]).tolist():
+        rows = torch.nonzero(keys == k)[:, 0]
+        tiles += [rows[i:i + q_tile] for i in range(0, rows.numel(), q_tile)]
+    return tiles
+
+
+def gather_minplus_model(row, unit, tab, pof, m, *, gof=None, ugrp=None,
+                         q_tile: int = 64, x_tile: int = 32
+                         ) -> torch.Tensor:
+    """The store kernel's tiles schedule in plain torch, for the CPU
+    tests (identity columns): the rows grouped by unit in tiles of
+    ``q_tile``; each tile walks the slots ``x_tile`` at a time, skips a
+    slot tile whose rows are all +inf, and contracts the rest against its
+    unit's closure rows, gathered once for the tile."""
+    R, K = row.shape
+    inf = float("inf")
+    out = torch.full((R, m.shape[2]), inf, dtype=row.dtype)
+    for rows in _by_key(unit.long(), q_tile):
+        grp, pos = _slots(unit[rows[:1]], tab, pof, gof, ugrp)
+        acc = out[rows]
+        for x0 in range(0, K, x_tile):
+            rt = row[rows, x0:x0 + x_tile]
+            if torch.isinf(rt).all():
+                continue
+            blk = m[grp[0, x0:x0 + x_tile], pos[0, x0:x0 + x_tile]]
+            acc = torch.minimum(acc, (rt[:, :, None] + blk[None]).amin(1))
+        out[rows] = acc
+    return out
+
+
+def gather_minplus_twoside_model(row_s, unit_s, row_t, unit_t, tab, gof,
+                                 pof, m, *, q_tile: int = 64,
+                                 x_tile: int = 32) -> torch.Tensor:
+    """The twoside kernel's schedule in plain torch, for the CPU tests:
+    +inf, without reading ``m``, for the queries whose two slot-0 groups
+    differ; the others grouped by (unit_s, unit_t) in tiles of
+    ``q_tile`` (1: the warp regime's one query at a time), each tile's
+    closure block gathered once with the same-group mask applied where it
+    is staged (+inf in the cells of two groups), all-+inf slot tiles
+    skipped, then + row_t and the min over the columns."""
+    Q, K = row_s.shape
+    inf = float("inf")
+    us, ut = unit_s.long(), unit_t.long()
+    g0 = gof[tab[:, 0].long()]
+    keys = torch.where(g0[us] == g0[ut], us * tab.shape[0] + ut, -1)
+    out = torch.full((Q,), inf, dtype=row_s.dtype)
+    for rows in _by_key(keys, q_tile):
+        grp_s, pos_s = _slots(us[rows[:1]], tab, pof, gof)
+        grp_t, pos_t = _slots(ut[rows[:1]], tab, pof, gof)
+        blk = torch.where(grp_s[0, :, None] == grp_t[0, None, :],
+                          m[grp_s[0, :, None], pos_s[0, :, None],
+                            pos_t[0, None, :]], inf)
+        acc = torch.full((rows.numel(), K), inf, dtype=row_s.dtype)
+        for x0 in range(0, K, x_tile):
+            rt = row_s[rows, x0:x0 + x_tile]
+            if torch.isinf(rt).all():
+                continue
+            acc = torch.minimum(acc, (rt[:, :, None]
+                                      + blk[None, x0:x0 + x_tile]).amin(1))
+        out[rows] = (acc + row_t[rows]).amin(dim=1)
+    return out
+
+
 def _argmin_acc(rows: torch.Tensor, d: torch.Tensor, chunk: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(acc, accx) [q, k2]: acc = min_x rows[q, x] + d[x, y] and accx the

@@ -20,7 +20,9 @@ tracing is off:
   or True for the current CUDA device), drawn from a pool.  The event
   then carries ``device_ts`` (microseconds from ``origin``, the host
   clock) and ``device_ms`` in ``args``, resolved when ``events()`` or
-  ``drain()`` is called; on the CPU both stay absent.  One anchor event
+  ``drain()`` is called; on the CPU both stay absent.  A tag may be a
+  0-d tensor (a count kept on the card): it is read, as a Python
+  number, at the same time, so the span never waits on the card.  One anchor event
   per device and recording session, recorded on an idle card at a
   known ``perf_counter`` reading, places these intervals on the host
   clock.  A session starts at ``enable()``, ``clear()`` or ``drain()``.
@@ -252,6 +254,8 @@ class Tracer:
         # resolved; free (start, end) event pairs and the anchors, by
         # device index
         self._pending: list[tuple] = []
+        # events with tensor-valued tags, read when the events are
+        self._lazy: list[dict] = []
         self._pool: dict[int, list] = {}
         self._anchors: dict[int, tuple] = {}
         self._streams: dict[int, object] = {}
@@ -295,8 +299,13 @@ class Tracer:
         }
         if depth:
             ev["args"]["depth"] = depth
+        tensor = getattr(sys.modules.get("torch"), "Tensor", None)
+        lazy = tensor is not None and any(
+            isinstance(v, tensor) for v in tags.values())
         with self._lock:
             self._events.append(ev)
+            if lazy:
+                self._lazy.append(ev)
             if len(self._events) > self.max_events:
                 drop = len(self._events) - self.max_events
                 del self._events[:drop]
@@ -350,7 +359,8 @@ class Tracer:
     def _resolve(self, wait: bool = True) -> None:
         """Write ``device_ts``/``device_ms`` into the pending device
         intervals' events and return their timing events to the pool;
-        ``wait=False`` stops at the first interval not yet finished."""
+        ``wait=False`` stops at the first interval not yet finished;
+        with ``wait`` the tensor-valued tags are read too."""
         with self._lock:
             pending, self._pending = self._pending, []
         done = 0
@@ -367,6 +377,14 @@ class Tracer:
         if done < len(pending):
             with self._lock:
                 self._pending[:0] = pending[done:]
+        if wait:
+            with self._lock:
+                lazy, self._lazy = self._lazy, []
+            for ev in lazy:
+                args = ev["args"]
+                for k, v in args.items():
+                    if hasattr(v, "item"):
+                        args[k] = v.item()
 
     # -- public API ---------------------------------------------------
     def enable(self, on: bool = True) -> "Tracer":
@@ -424,6 +442,7 @@ class Tracer:
         with self._lock:
             self._events = []
             self._pending = []
+            self._lazy = []
             self.dropped = 0
         self._anchors = {}
 
