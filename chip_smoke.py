@@ -2023,9 +2023,12 @@ def _live(engine, args, refresh_stats: list | None = None) -> dict:
     """One ``serve.live_loop`` with the launch counters zeroed just
     before and read just after, and each refresh call's own launches
     and stats; fails on a mismatch, a failed gate, or a kernel library
-    built or loaded during the run (everything was loaded before it).
-    Records the process's full (generation-2) garbage collections
-    during the run: each stops every thread, the flusher included."""
+    built or loaded during the run (everything was loaded before it),
+    or no planner bucket replayed as a CUDA graph (``graphs``: buckets
+    replayed, captured, run eagerly, and graphs captured, new epochs'
+    included).  Records the process's full (generation-2)
+    garbage collections during the run: each stops every thread, the
+    flusher included."""
     import gc
 
     from repro_torch.kernels import _build
@@ -2045,6 +2048,8 @@ def _live(engine, args, refresh_stats: list | None = None) -> dict:
     undo = _count_refreshes(per_call, refresh_stats)
     gc.callbacks.append(on_gc)
     _reset_counts()
+    graphs = engine.planner.graph_counts
+    before = dict(graphs)
     try:
         live = serve.live_loop(engine, args)
     finally:
@@ -2055,13 +2060,17 @@ def _live(engine, args, refresh_stats: list | None = None) -> dict:
     live["launches"] = _read_counts()
     live["refresh_launches"] = [{k: c[k] for k in REFRESH_KERNELS}
                                 for c in per_call]
+    # planner buckets replayed as CUDA graphs, captured first, or run
+    # eagerly, and graphs captured (at warm-up and in each new epoch)
+    live["graphs"] = {k: graphs[k] - before[k] for k in graphs}
     rec = live["serve_live"]
     if rec["oracle_bad"] or live["gate_failures"] or builds \
-            or set(_build._LIBS) != libs:
+            or set(_build._LIBS) != libs or not live["graphs"]["replay"]:
         raise AssertionError(
             f"live at {rec['rate_qps']} qps: {rec['oracle_bad']} "
             f"mismatches, gates {live['gate_failures']}, builds {builds}, "
-            f"libraries loaded {sorted(set(_build._LIBS) - libs)}")
+            f"libraries loaded {sorted(set(_build._LIBS) - libs)}, "
+            f"planner graphs {live['graphs']}")
     return live
 
 
@@ -2071,6 +2080,7 @@ def _live_numbers(live: dict) -> dict:
     rec = live["serve_live"]
     return {"gc_gen2": len(live["gc_gen2_ms"]),
             "gc_gen2_max_ms": max(live["gc_gen2_ms"], default=0.0),
+            "graphs": live["graphs"],
             **{k: rec.get(k) for k in (
         "rate_qps", "n_requests", "offered_qps", "achieved_qps", "p50_ms",
         "p95_ms", "p99_ms", "max_ms", "cache_hits", "label_hits",
@@ -2356,7 +2366,8 @@ def _sharded() -> dict:
     1,024, 64 validated each, 0 mismatches);
     road64k (3 levels) through ``serve_sharded`` on a one-card mesh and on
     ``cuda:0`` repeated four times, a batch of 1,024 and a ragged one of
-    1,000, each == ``serve_step`` == the planner, 32 == Dijkstra; 64
+    1,000, each == ``serve_step`` == the planner (warmed, so its buckets
+    replay as CUDA graphs; the phase prints how many), 32 == Dijkstra; 64
     road4000 answers of ``serve_sharded`` == the port's
     ``DislandEngine`` on ``cuda:0`` x 4, and from copies of the index:
     one on the CPU served on the one-card mesh (its replica copied to
@@ -2398,6 +2409,8 @@ def _sharded() -> dict:
     rng = np.random.default_rng(21)
     # -- references, before the count
     g64, dix64 = _BUILT["road64k"]
+    planner64 = QueryPlanner(dix64)
+    planner64.warmup(1024)
     batches = []
     for q in (1024, 1000):
         s, t = rng.integers(0, g64.n, q), rng.integers(0, g64.n, q)
@@ -2405,8 +2418,7 @@ def _sharded() -> dict:
                           torch.from_numpy(t).cuda()).cpu().numpy()
         oracle = np.array([dijkstra.pair(g64, int(a), int(b))
                            for a, b in zip(s[:32], t[:32])], np.float32)
-        batches.append((s, t, step, QueryPlanner(dix64).query(s, t),
-                        oracle))
+        batches.append((s, t, step, planner64.query(s, t), oracle))
     g4, dix4 = _BUILT["road4000"]
     s4, t4 = rng.integers(0, g4.n, 64), rng.integers(0, g4.n, 64)
     engine4 = DislandEngine(_HOST["road4000"][0]).query_many(
@@ -2450,9 +2462,16 @@ def _sharded() -> dict:
         "bf": super_apsp_sharded(one, *edges, plan.S)}
         for graph, (dix, plan, want, edges) in builds.items()}
     torch.cuda.synchronize()
-    res = {"launches": _read_counts()}
+    res = {"launches": _read_counts(),
+           "planner_graphs": dict(planner64.graph_counts)}
+    print(f"  sharded: road64k planner buckets replayed / captured / "
+          f"eager: {planner64.graph_counts['replay']} / "
+          f"{planner64.graph_counts['capture']} / "
+          f"{planner64.graph_counts['eager']}, graphs captured "
+          f"{planner64.graph_counts['captured']}")
     # -- checks
     checks = {
+        "planner_replayed": planner64.graph_counts["replay"] > 0,
         "cli_validated": all(cli[m]["mismatches"] == 0
                              and serve.failures(cli[m]) == 0
                              for m in cli),

@@ -76,7 +76,7 @@ import torch
 from ..kernels import ops
 from ..kernels.ref import scatter_rows as _scatter_rows
 from ..obs import trace
-from . import hierarchy, padding
+from . import graphs, hierarchy, padding
 from .hierarchy import _sync
 from .supergraph import DislandIndex
 
@@ -1649,10 +1649,11 @@ def _hier_leg(dix: DeviceIndex, li: int, row_s, unit_s, row_t, unit_t,
     answers +inf without reading the closure where the sides' groups
     differ; elsewhere the gather chunked over the s-axis (``_chunk``), so
     the gathered block stays [q, c, width]).  Traced as ``serve.leg``
-    (``level`` li + 1) with its card time; while the tracer records it
-    also carries ``passed``, the queries whose sides share the level's
-    group (``top``: both sides' next-level units, s first), a 0-d tensor
-    read with the tracer's events."""
+    (``level`` li + 1) with its card time; while the tracer records, and
+    in every captured bucket graph, it also carries ``passed``, the
+    queries whose sides share the level's group (``top``: both sides'
+    next-level units, s first), a 0-d tensor read with the tracer's
+    events (a graph's, after each replay)."""
     tags = {}
     if trace.recording():
         q = row_s.shape[0]
@@ -1747,9 +1748,11 @@ def _combine_mid_h(dix: DeviceIndex, row_s, fs, row_t, ft, *,
         rows = _lift_compact(dix, li, rows, units, tab, force=force)
         units, tab = top, dix.bnd2_sid[li]
     if layout == "scatter":
-        vb = ops.minplus_twoside_grouped(rows[:q], units[:q], tab, dix.d2,
-                                         rows[q:], units[q:], tab,
-                                         force=force)
+        # kernel 2 stays a Python call at every replay of a bucket graph
+        # (graphs.host_call), so each call is seen with its operands
+        vb = graphs.host_call(ops, "minplus_twoside_grouped")(
+            rows[:q], units[:q], tab, dix.d2, rows[q:], units[q:], tab,
+            force=force)
     else:
         vb = _top_mid_gather(dix, rows[:q], tab[units[:q]].long(), rows[q:],
                              tab[units[q:]].long())
@@ -1777,8 +1780,8 @@ def _combine_mid(dix: DeviceIndex, row_s, fs, row_t, ft, *, force=None,
     bs, bt = dix.bnd_super[fs], dix.bnd_super[ft]
     if _layout(row_s.device, force, layout) == "scatter":
         qi = torch.arange(row_s.shape[0], device=row_s.device)
-        return ops.minplus_twoside_grouped(row_s, qi, bs, dix.d_super,
-                                           row_t, qi, bt, force=force)
+        return graphs.host_call(ops, "minplus_twoside_grouped")(
+            row_s, qi, bs, dix.d_super, row_t, qi, bt, force=force)
     q, mb = row_s.shape
     c = _chunk(row_s, mb)
     bs, bt = bs.long(), bt.long()
@@ -2108,8 +2111,8 @@ def serve_cross_res(dix: DeviceIndex, s: torch.Tensor, t: torch.Tensor, *,
     rs = _lift_res(dix, row_s, fs_c, grp_s, force=force)
     rt = _lift_res(dix, row_t, ft_c, grp_t, force=force)
     if _layout(row_s.device, force, layout) == "scatter":
-        mid = ops.minplus_twoside_grouped(rs, grp_s, top, dix.d2, rt, grp_t,
-                                          top, force=force)
+        mid = graphs.host_call(ops, "minplus_twoside_grouped")(
+            rs, grp_s, top, dix.d2, rt, grp_t, top, force=force)
     else:
         mid = _top_mid_gather(dix, rs, top[grp_s].long(), rt,
                               top[grp_t].long())

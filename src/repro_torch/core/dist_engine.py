@@ -21,6 +21,17 @@ index object, and every entry point takes ``dix=`` to pin one epoch, so
 a publish that lands mid-batch cannot mix one epoch's tensors with
 another's sidecars.
 
+On a card the planner replays each bucket's program as a CUDA graph
+(``core/graphs.py``): one graph per (index object, kind, case, padded
+size), captured at ``warmup`` for every size a batch can fill, and
+otherwise at a key's first use in an epoch once the key has run before
+(a published epoch's, at their first batches; a shape's very first run
+is eager, so no kernel is built or loaded inside a capture).  A batch
+stages each bucket's padded pair in pinned host memory, replays, copies
+the outputs back without blocking, and waits once, after its last
+bucket.  A pinned epoch whose graphs were dropped, a batch that finds
+another thread replaying, and the CPU run the programs eagerly.
+
 ``EpochedEngine`` serves batched queries while it absorbs live
 edge-weight updates: ``apply_updates`` runs the incremental refresh
 (``device_engine.refresh_index``) beside the serving epoch, on a CUDA
@@ -38,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import threading
+import time
 from typing import TYPE_CHECKING
 
 import numpy as np
@@ -46,7 +58,7 @@ import torch
 from .. import convert
 from ..kernels import ops
 from ..obs import trace
-from . import padding, refresh_pipeline, sssp
+from . import graphs, padding, refresh_pipeline, sssp
 from .device_engine import (DeviceIndex, RefreshStats, _sync,
                             build_device_index_with_plan, refresh_index,
                             resolve_device, serve_cross, serve_cross_res,
@@ -92,7 +104,11 @@ class QueryPlanner:
     the index's device.  ``force`` and ``layout`` pass through to the
     cross-fragment programs (``device_engine._combine_mid``), the
     resident program (``serve_cross_res``) and their witness versions;
-    ``paths`` makes ``warmup`` run the witness programs too."""
+    ``paths`` makes ``warmup`` run the witness programs too.  On a card
+    the buckets replay CUDA graphs (module docstring); ``graph_counts``
+    counts buckets by how they ran (``replay``, ``capture``: captured,
+    then replayed; ``eager``) and the graphs captured (``captured``,
+    warm-up's included)."""
 
     CASES = ("same_dra", "same_frag", "cross_frag", "cross_res")
 
@@ -127,6 +143,14 @@ class QueryPlanner:
         self._hub_fn = functools.partial(serve_hub, force=force)
         self.paths = paths
         self.last_counts: dict = {}
+        self.graph_counts = dict.fromkeys(
+            ("replay", "capture", "eager", "captured"), 0)
+        # graphs: one stream, and one thread at a time capturing or
+        # replaying on it; (kind, case, size) keys run at least once
+        self._graph_stream = graphs.new_stream(dix.device)
+        self._graph_lock = threading.Lock()
+        self._seen: set = set()
+        self._epoch_graphs: tuple = (None, None)
         self.set_index(dix)
 
     def set_index(self, dix: DeviceIndex) -> None:
@@ -136,9 +160,36 @@ class QueryPlanner:
         tuple keyed by the index object, replaced in a single
         assignment, so a call pinned to an epoch (``dix=``) buckets and
         gates with that epoch's maps even when a publish lands between
-        the pin and the dispatch."""
+        the pin and the dispatch.  With graphs, the new epoch's (index,
+        set) tuple, its set still empty, replaces the old one, whose
+        graphs go with it; the new epoch's are captured at their first
+        batches (``_replay_batch``), so the publish waits for no
+        capture."""
+        if self._graph_stream is None:
+            self._epoch_graphs = (dix, None)
+        else:
+            gs = graphs.GraphSet(dix, self._graph_stream)
+            with self._graph_lock:
+                # the old set is freed here, under the lock, where no
+                # capture runs (a batch holds a set only while it holds
+                # the lock): freeing its pinned buffers records events on
+                # the stream a capture would be using
+                self._epoch_graphs = (dix, gs)
         self.dix = dix
         self._maps = self._host_maps(dix)
+
+    def _graph_set(self, dix: DeviceIndex):
+        """The graph set of ``dix``'s epoch while it is the published one
+        (None on the CPU, or once a publish replaced it)."""
+        cached = self._epoch_graphs      # one read of the published tuple
+        return cached[1] if cached[0] is dix else None
+
+    def _capture(self, gs, key: tuple):
+        kind, case, _size = key
+        fns = self._fns if kind == "d" else self._wfns
+        bg = gs.capture(key, fns[case])
+        self.graph_counts["captured"] += 1
+        return bg
 
     @staticmethod
     def _host_maps(dix: DeviceIndex) -> tuple:
@@ -177,18 +228,28 @@ class QueryPlanner:
         # pre-lifted rows (the cold dummy is (1, 1, 1)); its bucket is
         # provably empty otherwise
         has_res = self.dix.res_rows.shape[0] > 1
-        fns = [fn for case, fn in self._fns.items()
-               if has_res or case != "cross_res"]
+        progs = [("d", case, fn) for case, fn in self._fns.items()
+                 if has_res or case != "cross_res"]
         if self.paths:
-            fns += [fn for case, fn in self._wfns.items()
-                    if has_res or case != "cross_res"]
+            progs += [("w", case, fn) for case, fn in self._wfns.items()
+                      if has_res or case != "cross_res"]
         # the hub program runs only on indices with real label rows (the
-        # dummy is (1, 1))
+        # dummy is (1, 1)); it is no planner bucket, so never a graph
         if self.dix.hub_rows.shape[0] > 1:
-            fns.append(self._hub_fn)
-        for fn in fns:
-            for size in self.bucket_sizes(batch_size):
+            progs.append(("hub", None, self._hub_fn))
+        sizes = self.bucket_sizes(batch_size)
+        for _kind, _case, fn in progs:
+            for size in sizes:
                 fn(self.dix, z[:size], z[:size])
+        keys = [(kind, case, size) for kind, case, _fn in progs
+                if kind != "hub" for size in sizes]
+        self._seen.update(keys)
+        with self._graph_lock:
+            gs = self._graph_set(self.dix)
+            for key in keys if gs is not None else ():
+                if key not in gs.graphs:
+                    self._capture(gs, key)
+            gs = None
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -267,43 +328,112 @@ class QueryPlanner:
         index's device and scatter every output into the matching array
         of ``outs``.  ``dix`` pins the epoch; by default the current
         one, read ONCE, so a publish between two buckets cannot split a
-        batch across epochs.
+        batch across epochs.  Where the epoch has a graph set and no
+        other thread replays, the buckets replay their graphs
+        (``_replay_batch``); else each runs eagerly.
 
         While the tracer records, the call is one ``serve.batch`` scope
         (its ``batch`` id tags every span below it): ``planner.plan``
         around the bucketing, and per non-empty bucket a
-        ``planner.bucket`` (``case``, ``queries``, ``padded``) holding
-        ``serve.program``, the call that issues the program's torch ops,
-        and ``planner.readback``, the blocking copies of its outputs to
-        the host.  What the batch's span holds beyond those two is the
-        planner's own host work: bucketing, padding and staging,
-        scatter."""
+        ``planner.bucket`` (``case``, ``queries``, ``padded``, and
+        ``graph``: "replay", "capture" or "eager") holding
+        ``serve.program``, the call that issues the program's work (a
+        replay, or the program's torch ops), and, for an eager bucket,
+        ``planner.readback``, the blocking copies of its outputs to the
+        host; a replayed batch has one ``planner.readback`` after its
+        last bucket, the one wait.  What the batch's span holds beyond
+        those two is the planner's own host work: bucketing, padding and
+        staging, scatter."""
         dix = self.dix if dix is None else dix
         with trace.scope("serve.batch", "batch", queries=int(s.size),
                          witness=fns is self._wfns):
             with trace.span("planner.plan"):
                 plan = self.plan(s, t, dix)
             self.last_counts = {c: int(ix.size) for c, ix in plan.items()}
+            if (self._graph_stream is not None
+                    and self._graph_lock.acquire(blocking=False)):
+                # the set is held only under the lock (see set_index)
+                try:
+                    gs = self._graph_set(dix)
+                    if gs is not None:
+                        self._replay_batch(gs, fns, plan, s, t, outs, dix)
+                        return
+                finally:
+                    gs = None
+                    self._graph_lock.release()
             for case, idx in plan.items():
-                if idx.size == 0:
-                    continue
-                m = _pad_pow2(idx.size)
-                with trace.span("planner.bucket", case=case,
-                                queries=int(idx.size), padded=m):
-                    sp = np.zeros(m, np.int64)
-                    tp = np.zeros(m, np.int64)
-                    sp[:idx.size] = s[idx]
-                    tp[:idx.size] = t[idx]
-                    sd = torch.from_numpy(sp).to(dix.device)
-                    td = torch.from_numpy(tp).to(dix.device)
-                    with trace.span("serve.program"):
-                        res = fns[case](dix, sd, td)
-                    if len(outs) == 1:
-                        res = (res,)
-                    with trace.span("planner.readback"):
-                        host = [r.cpu().numpy() for r in res]
-                    for out, h in zip(outs, host):
-                        out[idx] = h[:idx.size]
+                if idx.size:
+                    self._eager_bucket(fns[case], case, idx, s, t, outs,
+                                       dix)
+
+    def _eager_bucket(self, fn, case, idx, s, t, outs, dix) -> None:
+        """One bucket through its program, its outputs read back (a
+        blocking copy) and scattered."""
+        m = _pad_pow2(idx.size)
+        with trace.span("planner.bucket", case=case, queries=int(idx.size),
+                        padded=m, graph="eager"):
+            sp = np.zeros(m, np.int64)
+            tp = np.zeros(m, np.int64)
+            sp[:idx.size] = s[idx]
+            tp[:idx.size] = t[idx]
+            sd = torch.from_numpy(sp).to(dix.device)
+            td = torch.from_numpy(tp).to(dix.device)
+            with trace.span("serve.program"):
+                res = fn(dix, sd, td)
+            if len(outs) == 1:
+                res = (res,)
+            with trace.span("planner.readback"):
+                host = [r.cpu().numpy() for r in res]
+            for out, h in zip(outs, host):
+                out[idx] = h[:idx.size]
+        self.graph_counts["eager"] += 1
+
+    def _replay_batch(self, gs, fns, plan, s, t, outs, dix) -> None:
+        """The buckets of one batch through ``gs``'s graphs, largest
+        first (the card starts on the most work while the host issues
+        the rest): each one's padded pair staged in its graph's pinned
+        input, replayed and copied out without a wait; one wait after the
+        last, then the scatter.  A key never run before runs eagerly (and
+        is captured at its next use); one run before but not captured in
+        this epoch is captured here first."""
+        kind = "w" if fns is self._wfns else "d"
+        done = []
+        for case, idx in sorted(plan.items(), key=lambda ci: -ci[1].size):
+            n = idx.size
+            if n == 0:
+                continue
+            m = _pad_pow2(n)
+            key = (kind, case, m)
+            bg = gs.graphs.get(key)
+            if bg is None and key not in self._seen:
+                self._eager_bucket(fns[case], case, idx, s, t, outs, dix)
+                self._seen.add(key)
+                continue
+            how = "replay" if bg is not None else "capture"
+            with trace.span("planner.bucket", case=case, queries=int(n),
+                            padded=m, graph=how):
+                if bg is None:
+                    bg = self._capture(gs, key)
+                h = bg.host_in_np
+                h[0, :n] = s[idx]
+                h[1, :n] = t[idx]
+                h[:, n:] = 0
+                with trace.span("serve.program"):
+                    t0 = time.perf_counter()
+                    bg.launch()
+                    t1 = time.perf_counter()
+            done.append((idx, bg, t0, t1))
+            self.graph_counts[how] += 1
+        if not done:
+            return
+        with trace.span("planner.readback"):
+            gs.wait()
+        if trace.recording():
+            for _idx, bg, t0, t1 in done:
+                trace.replayed(bg.spans(), t0, t1, dix.device)
+        for idx, bg, _t0, _t1 in done:
+            for out, h in zip(outs, bg.host_out_np):
+                out[idx] = h[:idx.size]
 
     def __call__(self, s, t) -> np.ndarray:
         return self.query(s, t)

@@ -13,6 +13,12 @@ beside a refresh thread) build and load it once.
 
 The flags hold the exactness contract: no ``--use_fast_math``, so adds
 stay plain IEEE adds and ``inf`` stays ``inf``.
+
+Each kernel wrapper counts its launches in its ``.launches``
+(``count_launch``).  A thread that captures a CUDA graph launches
+nothing: while it has a tally open (``tally``), its wrapper calls count
+there, and each replay of the graph adds that tally to the wrappers'
+counts (``core/graphs.py``).
 """
 from __future__ import annotations
 
@@ -34,6 +40,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOAD_LOCK = threading.Lock()
+# a thread's open launch tally (``tally``)
+_TALLY = threading.local()
+
+
+def count_launch(wrapper) -> None:
+    """One launch through the kernel wrapper ``wrapper``: its
+    ``.launches`` goes up by one, or, while this thread has a tally open,
+    the tally's count of it."""
+    into = getattr(_TALLY, "into", None)
+    if into is None:
+        wrapper.launches += 1
+    else:
+        into[wrapper] = into.get(wrapper, 0) + 1
+
+
+def tally(into: dict | None) -> None:
+    """Count this thread's wrapper calls in ``into`` ({wrapper: calls})
+    in place of the wrappers' ``.launches`` from now on; None stops."""
+    _TALLY.into = into
 
 
 def nvcc() -> str:

@@ -185,7 +185,7 @@ def fw_next_reg_cuda(d: torch.Tensor) -> tuple[torch.Tensor,
         raise ValueError(f"fw_next_reg takes n <= {REG_MAX_N}, got "
                          f"{d.shape[-1]}")
     out = _launch(entry, d, np_)
-    fw_next_reg_cuda.launches += 1
+    _build.count_launch(fw_next_reg_cuda)
     return out
 
 
@@ -193,7 +193,7 @@ def fw_next_global_cuda(d: torch.Tensor) -> tuple[torch.Tensor,
                                                    torch.Tensor]:
     """Device-memory variant: one launch per pivot, any n."""
     out = _launch("fw_next_global", d)
-    fw_next_global_cuda.launches += 1
+    _build.count_launch(fw_next_global_cuda)
     return out
 
 
@@ -212,7 +212,7 @@ def fw_next_blocked_cuda(d: torch.Tensor) -> tuple[torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fw_next_blocked launch failed: CUDA error "
                            f"{err}")
-    fw_next_blocked_cuda.launches += 1
+    _build.count_launch(fw_next_blocked_cuda)
     return dist, nxt
 
 
@@ -288,7 +288,7 @@ def fw_dist_blocked_cuda(d: torch.Tensor, out: torch.Tensor
     if not (out.data_ptr() == d.data_ptr() and out.stride() == d.stride()):
         out.copy_(d)
     _blocked_cuda(out, blocked_steps(d.shape[-1], DIST_BLOCK), DIST_BLOCK)
-    fw_dist_blocked_cuda.launches += 1
+    _build.count_launch(fw_dist_blocked_cuda)
     return out
 
 
@@ -317,7 +317,7 @@ def fw_dist_smem_cuda(d: torch.Tensor, out: torch.Tensor | None = None
         raise ValueError(f"fw_dist_smem takes n <= {DIST_SMEM_MAX_N}, got "
                          f"{d.shape[-1]}")
     out = _dist_baseline("fw_dist_smem", d, out)
-    fw_dist_smem_cuda.launches += 1
+    _build.count_launch(fw_dist_smem_cuda)
     return out
 
 
@@ -327,7 +327,7 @@ def fw_dist_global_cuda(d: torch.Tensor, out: torch.Tensor | None = None
     pivot, any n, contiguous operands): off the route since the blocked
     one, kept to be timed beside it."""
     out = _dist_baseline("fw_dist_global", d, out)
-    fw_dist_global_cuda.launches += 1
+    _build.count_launch(fw_dist_global_cuda)
     return out
 
 
@@ -342,7 +342,7 @@ def launch_dist_reg(din: int, dout: int, b: int, n: int, *, ld_in: int,
                                   bs_out, stream)
     if err != 0:
         raise RuntimeError(f"fw_dist_reg launch failed: CUDA error {err}")
-    fw_batch_cuda.launches += 1
+    _build.count_launch(fw_batch_cuda)
 
 
 fw_batch_cuda.launches = 0

@@ -21,7 +21,7 @@ by key on the card, but one warp per row where the keys outnumber
 fewer than ``UNIT_ROWS`` times on average (level 1's fragments).  Plain
 versions: ``ref.gather_minplus_ref`` and
 ``ref.gather_minplus_twoside_ref``.  Each wrapper's ``.launches`` counts
-its calls.
+its launches (``_build.count_launch``).
 """
 from __future__ import annotations
 
@@ -180,7 +180,7 @@ def gather_minplus_cuda(row: torch.Tensor, unit: torch.Tensor,
             max_tiles(R, U), vec, perm, tiles, nt, _stream(row.device))
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
-    gather_minplus_cuda.launches += 1
+    _build.count_launch(gather_minplus_cuda)
     return out
 
 
@@ -230,7 +230,7 @@ def gather_minplus_twoside_cuda(row_s: torch.Tensor, unit_s: torch.Tensor,
             _stream(row_s.device))
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
-    gather_minplus_twoside_cuda.launches += 1
+    _build.count_launch(gather_minplus_twoside_cuda)
     return out
 
 

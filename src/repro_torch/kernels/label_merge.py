@@ -110,7 +110,7 @@ def label_merge_cuda(labs: torch.Tensor, labt: torch.Tensor) -> torch.Tensor:
             labs.data_ptr(), labt.data_ptr(), out.data_ptr(), q, w,
             team(q, w).bit_length() - 1, _stream(labs.device)),
             "label_merge")
-    label_merge_cuda.launches += 1
+    _build.count_launch(label_merge_cuda)
     return out
 
 
@@ -135,7 +135,7 @@ def label_merge_rows_cuda(rows: torch.Tensor, ids_s: torch.Tensor,
             rows.data_ptr(), ids_s.data_ptr(), ids_t.data_ptr(),
             out.data_ptr(), q, w, team(q, w).bit_length() - 1, 1,
             _stream(dev)), "label_merge_rows")
-    label_merge_rows_cuda.launches += 1
+    _build.count_launch(label_merge_rows_cuda)
     return out
 
 

@@ -31,7 +31,7 @@ where it lies, and a fourth runs phase 2's two panels in one launch:
 ``ref.minplus_accum_into_ref`` and ``ref.minplus_accum_panels_ref``).
 The two in-place wrappers take matrices [m, n] or batches [b, m, n] of
 them (the blocked FW over a batch of matrices), one launch either way.
-Each wrapper counts its calls in ``.launches``.
+Each wrapper counts its launches in ``.launches`` (``_build.count_launch``).
 """
 from __future__ import annotations
 
@@ -139,7 +139,7 @@ def minplus_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = product_out(a, b)
     _run(name, out, a.data_ptr(), b.data_ptr(), m=m, n=n, k=k,
          extra=(sw,) if name == "minplus_gemv" else ())
-    minplus_cuda.launches += 1
+    _build.count_launch(minplus_cuda)
     return out
 
 
@@ -154,7 +154,7 @@ def minplus_accum_cuda(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     out = product_out(a, b)
     _run("minplus_accum", out, c.data_ptr(), a.data_ptr(), b.data_ptr(),
          m=m, n=n, k=k)
-    minplus_accum_cuda.launches += 1
+    _build.count_launch(minplus_accum_cuda)
     return out
 
 
@@ -210,7 +210,7 @@ def launch_into(job: Job, skip_rows, skip_cols, stream: int) -> None:
     if err != 0:
         raise RuntimeError(f"minplus_accum_ld launch failed: CUDA error "
                            f"{err}")
-    minplus_accum_into_cuda.launches += 1
+    _build.count_launch(minplus_accum_into_cuda)
 
 
 def launch_panels(row: Job, skip_cols, col: Job, skip_rows,
@@ -227,7 +227,7 @@ def launch_panels(row: Job, skip_cols, col: Job, skip_rows,
     if err != 0:
         raise RuntimeError(f"minplus_accum_panels launch failed: CUDA "
                            f"error {err}")
-    minplus_accum_panels_cuda.launches += 1
+    _build.count_launch(minplus_accum_panels_cuda)
 
 
 def _span(t: torch.Tensor) -> tuple[int, int]:

@@ -24,7 +24,7 @@ Ports of ``repro/kernels/minplus_twoside.py``:
   ``ref.minplus_twoside_argmin_ref``), which also returns the winning
   (x, y), on dense rows.
 
-Each wrapper's ``.launches`` counts its calls.
+Each wrapper's ``.launches`` counts its launches (``_build.count_launch``).
 """
 from __future__ import annotations
 
@@ -219,7 +219,7 @@ def minplus_twoside_grouped_cuda(row_s: torch.Tensor, gs: torch.Tensor,
     Launches: the kernel (warp regime), or the grouping order (when
     ``grouped_plan`` says so), the kernel and its finish (tiles)."""
     out = _grouped(row_s, gs, tab_s, d, row_t, gt, tab_t)
-    minplus_twoside_grouped_cuda.launches += 1
+    _build.count_launch(minplus_twoside_grouped_cuda)
     return out
 
 
@@ -232,7 +232,7 @@ def minplus_twoside_cuda(rows: torch.Tensor, d: torch.Tensor,
     one CUDA device) -> out [q]: the grouped kernel with one group and
     identity tables."""
     out = _grouped(rows, None, None, d, rowt, None, None)
-    minplus_twoside_cuda.launches += 1
+    _build.count_launch(minplus_twoside_cuda)
     return out
 
 
@@ -290,7 +290,7 @@ def minplus_twoside_argmin_cuda(rows: torch.Tensor, d: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"minplus_twoside_argmin launch failed: CUDA "
                            f"error {err}")
-    minplus_twoside_argmin_cuda.launches += 1
+    _build.count_launch(minplus_twoside_argmin_cuda)
     return argmin_outputs(res)
 
 

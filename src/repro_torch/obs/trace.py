@@ -40,6 +40,13 @@ tracing is off:
   the caller already measured (per-request lifecycle events derived
   from ``Request.t_sched``/``t_done``).  Not recording, it's one
   attribute check.
+* ``capture()`` — while a thread captures a CUDA graph: its device spans
+  become a pair of external timing events recorded into the graph
+  (event-record nodes) and are listed, not emitted; its host spans
+  record nothing; ``recording()`` is True there, so spans compute their
+  card-side tags (a 0-d tensor then lives in the graph).
+  ``replayed(spans, t0, t1, device)`` emits such spans as one replay ran
+  them, once its work is done.
 
 The tracer records while its ``enabled`` flag is set and while a
 ``torch.profiler`` session runs (torch's own ``_is_profiler_enabled``
@@ -57,6 +64,7 @@ buffer into a Chrome-trace JSON at exit.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import sys
 import threading
@@ -66,6 +74,11 @@ import time
 # finished ones (without waiting), so the event pool stays bounded; high
 # enough that a window of a few seconds resolves only when read
 _REAP_AT = 8192
+# threads capturing a CUDA graph now (``capture``): while none is, a span
+# that records nothing costs one more module read
+_CAPTURES = 0
+_CAPTURE = threading.local()
+_CAPTURES_LOCK = threading.Lock()
 
 
 def _profiling() -> bool:
@@ -187,9 +200,48 @@ class _Scope(_Span):
         return super().__exit__(*exc)
 
 
+class _GraphSpan:
+    """A device span opened while its thread captures a CUDA graph: two
+    external timing events recorded on the capturing stream become
+    event-record nodes of the graph; (name, tags, start, end) goes to the
+    capture's list."""
+
+    __slots__ = ("_spans", "name", "tags", "_start", "_end")
+
+    def __init__(self, spans: list, name: str, tags: dict):
+        self._spans = spans
+        self.name = name
+        self.tags = tags
+
+    def __enter__(self):
+        cuda = sys.modules["torch"].cuda
+        self._start = cuda.Event(enable_timing=True, external=True)
+        self._end = cuda.Event(enable_timing=True, external=True)
+        self._start.record()
+        return self
+
+    def __exit__(self, *exc):
+        self._end.record()
+        self._spans.append((self.name, self.tags, self._start, self._end))
+        return False
+
+
+def _captured() -> list | None:
+    """The span list of the graph this thread captures, or None."""
+    return getattr(_CAPTURE, "spans", None) if _CAPTURES else None
+
+
 def _open(tracer, name: str, device, tags: dict):
     """A recording span: on a card (``device``, see ``_card``) also its
-    device interval."""
+    device interval.  On a thread that captures a graph, a device span
+    on a card is a ``_GraphSpan`` and any other span records nothing."""
+    spans = _captured()
+    if spans is not None:
+        if device is not None and _card(device) is not None:
+            return _GraphSpan(spans, name, tags)
+        return _NULL_SPAN
+    if not (tracer.enabled or _profiling()):
+        return _NULL_SPAN
     if device is not None:
         dev = _card(device)
         if dev is not None:
@@ -397,7 +449,7 @@ class Tracer:
         """Context manager; the no-op singleton when not recording.
         ``device`` (a torch.device, or True for the current CUDA
         device) also times the span's work there when it is a card."""
-        if not (self.enabled or _profiling()):
+        if not (self.enabled or _profiling() or _CAPTURES):
             return _NULL_SPAN
         return _open(self, name, device, tags)
 
@@ -421,6 +473,30 @@ class Tracer:
         if not (self.enabled or _profiling()):
             return
         self._emit(name, t0, t1, tags, 0)
+
+    def replayed(self, spans: list, t0: float, t1: float,
+                 device) -> None:
+        """Emit the device spans a graph captured (``capture``) as one
+        replay ran them: (name, tags, start, end), the tags' values as
+        that replay left them; host bounds ``t0``-``t1`` (the replay's
+        issue), ``device_ts``/``device_ms`` from the events.  Call once
+        the replay's work on the card ``device`` (a torch.device) is done
+        and before the graph replays again, which overwrites the events."""
+        if not spans:
+            return
+        device = _card(device)
+        anchor = self._anchors.get(device)
+        if anchor is None:
+            anchor = self._anchors[device] = self._make_anchor(
+                sys.modules["torch"], device)
+        a_ev, a_t = anchor
+        depth = self.depth
+        for name, tags, start, end in spans:
+            args = dict(tags)
+            args["device_ms"] = start.elapsed_time(end)
+            args["device_ts"] = ((a_t - self.origin) * 1e6
+                                 + a_ev.elapsed_time(start) * 1e3)
+            self._emit(name, t0, t1, args, depth)
 
     def events(self) -> list[dict]:
         """Copy of the buffered events (chronological emit order), their
@@ -459,15 +535,39 @@ def get_tracer() -> Tracer:
 
 
 def recording() -> bool:
-    """Whether the default tracer records now."""
-    return _DEFAULT.enabled or _profiling()
+    """Whether the default tracer records now, or this thread captures
+    a CUDA graph (whose device spans are read at each replay)."""
+    return _DEFAULT.enabled or _profiling() or _captured() is not None
 
 
 def span(name: str, *, device=None, **tags):
     """Span on the default tracer (the common call-site spelling)."""
-    if not (_DEFAULT.enabled or _profiling()):
+    if not (_DEFAULT.enabled or _profiling() or _CAPTURES):
         return _NULL_SPAN
     return _open(_DEFAULT, name, device, tags)
+
+
+@contextlib.contextmanager
+def capture():
+    """While open, this thread captures a CUDA graph: yields the list
+    its device spans go to (``_GraphSpan``)."""
+    global _CAPTURES
+    spans: list = []
+    outer = getattr(_CAPTURE, "spans", None)
+    _CAPTURE.spans = spans
+    with _CAPTURES_LOCK:
+        _CAPTURES += 1
+    try:
+        yield spans
+    finally:
+        with _CAPTURES_LOCK:
+            _CAPTURES -= 1
+        _CAPTURE.spans = outer
+
+
+def replayed(spans: list, t0: float, t1: float, device) -> None:
+    """``Tracer.replayed`` on the default tracer."""
+    _DEFAULT.replayed(spans, t0, t1, device)
 
 
 def scope(name: str, key: str, **tags):
