@@ -7,8 +7,9 @@ the spans nested in it.  On a 3-level index (``road_like(2500, 3)``,
 whose resident rows make every planner bucket reachable) one batch gives
 one ``serve.batch``, one ``planner.bucket`` per non-empty case and lift
 and leg spans at every level, all on one ``batch`` id; answers and paths
-are the same with the tracer on and off; ``paths.unwind`` counts every
-read of the walk that waits on the card.  The build keeps one span per
+are the same with the tracer on and off; ``paths.unwind`` counts the
+unwinder's one read of the card a level pass, its passes and its route
+decisions.  The build keeps one span per
 group closure (``build.sf_stage``).
 """
 import threading
@@ -253,31 +254,50 @@ def test_answers_and_paths_equal_with_the_tracer_on_and_off():
 
 
 def test_unwind_counts_every_read_that_waits(tracer, monkeypatch):
+    """The unwinder decides the batch's routes a grouping level at a
+    time with one read of the card a level pass, made through ``_wait``:
+    the event's ``syncs`` == ``passes`` == the reads (``_host``) == the
+    level passes run, levels 1, 2, ... in turn; ``routes`` == the pairs
+    the passes decided, summed, the first pass taking every packed
+    witness of the batch."""
     g, eng = _engine()
     s, t = _pairs(g, 24, 9)
     dist, wit = eng.planner.query_witness(s, t)
     uw = eng.unwinder()
     tracer.clear()
-    seen = {"host": 0, "block": 0, "item": 0}
-    host, block, item = tpaths._host, uw._dist_block, torch.Tensor.item
+    seen = {"host": 0, "wait": 0, "passes": []}
+    host, wait, decide = tpaths._host, uw._wait, uw._decide
 
-    def count(key, fn):
-        def counted(*a, **k):
-            seen[key] += 1
-            return fn(*a, **k)
-        return counted
+    def counted_host(x):
+        seen["host"] += 1
+        return host(x)
 
-    monkeypatch.setattr(tpaths, "_host", count("host", host))
-    monkeypatch.setattr(uw, "_dist_block", count("block", block))
-    monkeypatch.setattr(torch.Tensor, "item", count("item", item))
+    def counted_wait(read, *a):
+        seen["wait"] += 1
+        return wait(read, *a)
+
+    def counted_decide(lvl, x, y):
+        seen["passes"].append((lvl, len(x)))
+        return decide(lvl, x, y)
+
+    monkeypatch.setattr(tpaths, "_host", counted_host)
+    monkeypatch.setattr(uw, "_wait", counted_wait)
+    monkeypatch.setattr(uw, "_decide", counted_decide)
     out = uw.unwind_many(s, t, dist, wit)
     monkeypatch.undo()
     (ev,) = [e for e in tracer.events() if e["name"] == "paths.unwind"]
     args = ev["args"]
     assert args["paths"] == 24
     assert args["nodes"] == sum(len(p) for p in out if p is not None)
-    assert seen["host"] > 0 and seen["block"] > 0
-    assert args["syncs"] == sum(seen.values())
+    levels = [lvl for lvl, _n in seen["passes"]]
+    assert levels == [1, 2], seen          # both grouping levels decide
+    assert args["passes"] == args["syncs"] == seen["wait"] == seen["host"] \
+        == len(levels)
+    agent = eng.planner.dix.agent_of.numpy()
+    packed = ((s != t) & np.isfinite(dist) & (wit >= 0)
+              & (agent[s] != agent[t]))
+    assert seen["passes"][0][1] == packed.sum() > 0
+    assert args["routes"] == sum(n for _lvl, n in seen["passes"])
     assert 0.0 < args["sync_s"] <= ev["dur"] * 1e-6
 
 
