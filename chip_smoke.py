@@ -12,22 +12,21 @@ prints no result.  Phases, each of which must pass:
   2. hold each kernel against its plain PyTorch version on the card,
      array-equal, on integer-valued float32 inputs with ~20% +inf at
      shapes that are not tile multiples (and all-+inf blocks), timing
-     kernel and plain version with CUDA events and, but for the
-     per-pivot FW, the profiler's device time: the witness FW at the
+     kernel and plain version with CUDA events and the profiler's
+     device time: the witness FW at the
      piece buckets of both main paths ([407, 8, 8], [6, 32, 32],
      [6211, 8, 8], [75, 32, 32]), the dense path's shapes, road64k's
      fragments ([130, 496, 496], out of L2) and the hierarchy's group
      closures ([6 and 3, 1024, 1024]), ragged n, tie-heavy values and
      all-+inf blocks, each shape timed for the register kernel beside
-     the blocked one (n <= 64) or the blocked kernel beside the
-     per-pivot one it replaced (above); the dense twoside
+     the blocked one (n <= 64) or the blocked kernel alone (above); the
+     dense twoside
      contraction at the dense and top-closure shapes (S_top+1 = 1712)
      through the grouped kernel's identity tables; the distance-only FW
      (kernel 3, fresh and in place on strided tiles: the register route
      at each of its block sizes, the batched blocked route above n = 128
      at [2, 200], [2, 240], [3, 300], [4, 496], an all-+inf batch and
-     ragged n, the shared-memory kernel it replaced timed beside it up
-     to n = 240), the (min,+) products with and without accumulation (the
+     ragged n), the (min,+) products with and without accumulation (the
      one-to-all GEMV at [1, 480], [1, 1712] and [1, 4614] with B cycled
      out of L2 and warm, the m = 8 / 9 neighbours of its row threshold,
      negative entries), the
@@ -112,7 +111,7 @@ prints no result.  Phases, each of which must pass:
      4,661) timed on its own tables; one 1% traffic epoch through
      ``refresh_index`` (16 answers == Dijkstra before and after, == its
      scratch rebuild, ``RefreshStats`` and the ``first_hops`` span
-     printed); every kernel but the per-pivot ones must launch;
+     printed); every kernel of its main path must launch;
   8. the live serving runtime through ``repro_torch.launch.serve``'s
      ``build_engine`` and ``live_loop`` (``serve --live``): road4000
      with a 4-worker parallel host build (== serial) streamed into the
@@ -151,8 +150,7 @@ prints no result.  Phases, each of which must pass:
      overlay at road64k); counters zeroed around it (it must launch the
      grouped twoside and kernel 3's blocked route ``fw_dist_blocked``
      with its three kernels), then the sharded build and kernel 3 at
-     [130, 496, 496] timed beside the per-pivot ``fw_dist_global`` it
-     replaced and the witness ``fw_next_blocked``;
+     [130, 496, 496] timed beside the witness ``fw_next_blocked``;
  10. the training path (``_train``; no kernel of the port runs in it:
      counters zeroed around it must read 0): card == CPU on reduced
      float32 granite-moe and granite-8b (loss, every gradient, one AdamW
@@ -206,9 +204,8 @@ prints no result.  Phases, each of which must pass:
      ``road250k_launches``;
      together they must launch both witness FW kernels, the
      grouped twoside, the label merge through row ids, the in-place
-     accumulate and ``fw_dist_blocked``, and never the per-pivot FWs,
-     kernel 3's shared-memory kernel, the fresh-output accumulate or the
-     dense label merge; times and bounds from phases 2, 7 and 9),
+     accumulate and ``fw_dist_blocked``, and never the fresh-output
+     accumulate or the dense label merge; times and bounds from phases 2, 7 and 9),
      the card's name and power limit from nvidia-smi, and the
      ``{"ok": true, ...}`` line last.
 
@@ -344,11 +341,10 @@ def _fw_input(b, n, kind, all_inf):
 
 def _check_fw(cases, out):
     """(label, b, n, kind, all_inf): the witness FW variants against the
-    plain version, dist and nxt array-equal, each timed in this call:
-    n <= REG_MAX_N the register kernel (the main path's) and the blocked
-    one, above it the blocked kernel (the main path's) and the per-pivot
-    one it replaced (CUDA events; device time too, but for the per-pivot
-    kernel, off the main path)."""
+    plain version, dist and nxt array-equal, each timed in this call
+    (CUDA events and device time): n <= REG_MAX_N the register kernel
+    (the main path's) and the blocked one, above it the blocked kernel
+    (the main path's)."""
     import torch
     from repro_torch.kernels import floyd_warshall as fw
     from repro_torch.kernels import ops
@@ -360,8 +356,7 @@ def _check_fw(cases, out):
                             1 if big else 3)
         bound, by = _bound_ms(12.0 * b * n * n, 2.0 * b * n ** 3)
         for kernel in ((fw.fw_next_reg_cuda, fw.fw_next_blocked_cuda)
-                       if n <= fw.REG_MAX_N else
-                       (fw.fw_next_blocked_cuda, fw.fw_next_global_cuda)):
+                       if n <= fw.REG_MAX_N else (fw.fw_next_blocked_cuda,)):
             got = kernel(d)
             torch.cuda.synchronize()
             dist_ok = torch.equal(got[0], want[0])
@@ -371,9 +366,7 @@ def _check_fw(cases, out):
                 "kind": kind, "dist_equal": dist_ok, "nxt_equal": nxt_ok,
                 "max_abs_err": _max_abs_err(got[0], want[0]),
                 "ms": _time_ms(lambda: kernel(d), 2 if big else 10),
-                "device_ms": (None if kernel is fw.fw_next_global_cuda
-                              else _device_ms(lambda: kernel(d),
-                                              2 if big else 10)),
+                "device_ms": _device_ms(lambda: kernel(d), 2 if big else 10),
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by},
                 dist_ok and nxt_ok)
 
@@ -1010,10 +1003,7 @@ def _check_fw_batch(cases, out):
     to DIST_REG_MAX_N, the batched blocked schedule above) against the
     plain version, fresh and in place on the matrices as strided tiles
     of a larger tensor (as the blocked schedule runs its diagonal
-    tiles).  Between DIST_REG_MAX_N and DIST_SMEM_MAX_N the
-    shared-memory kernel the blocked route replaced there
-    (``fw_dist_smem_cuda``, off the route) is checked and timed beside
-    it, as its own record."""
+    tiles)."""
     import functools
 
     import numpy as np
@@ -1047,18 +1037,6 @@ def _check_fw_batch(cases, out):
             "max_abs_err": _max_abs_err(got, want),
             "ms": _time_ms(kern, 10), "device_ms": _device_ms(kern, 10),
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}, ok)
-        if fw.DIST_REG_MAX_N < n <= fw.DIST_SMEM_MAX_N:
-            smem = functools.partial(fw.fw_dist_smem_cuda, d)
-            got = smem()
-            torch.cuda.synchronize()
-            ok = torch.equal(got, want)
-            _record(out, {
-                "case": label, "kernel": "fw_dist_smem_cuda", "b": b,
-                "n": n, "variant": "smem", "equal": ok,
-                "max_abs_err": _max_abs_err(got, want),
-                "ms": _time_ms(smem, 10), "device_ms": _device_ms(smem, 10),
-                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by},
-                ok)
 
 
 def _check_minplus(cases, out):
@@ -1233,13 +1211,10 @@ def _check_fw_apsp(cases, out):
 #: every kernel entry: (name, wrapper module, wrapper attribute)
 KERNELS = (("fw_next_reg", "floyd_warshall", "fw_next_reg_cuda"),
            ("fw_next_blocked", "floyd_warshall", "fw_next_blocked_cuda"),
-           ("fw_next_global", "floyd_warshall", "fw_next_global_cuda"),
            ("minplus_twoside_grouped", "minplus_twoside",
             "minplus_twoside_grouped_cuda"),
            ("fw_batch", "floyd_warshall", "fw_batch_cuda"),
            ("fw_dist_blocked", "floyd_warshall", "fw_dist_blocked_cuda"),
-           ("fw_dist_smem", "floyd_warshall", "fw_dist_smem_cuda"),
-           ("fw_dist_global", "floyd_warshall", "fw_dist_global_cuda"),
            ("minplus_accum", "minplus", "minplus_accum_cuda"),
            ("minplus_accum_into", "minplus", "minplus_accum_into_cuda"),
            ("minplus_accum_panels", "minplus", "minplus_accum_panels_cuda"),
@@ -1253,10 +1228,10 @@ KERNELS = (("fw_next_reg", "floyd_warshall", "fw_next_reg_cuda"),
             "gather_minplus_twoside_cuda"))
 
 
-#: kernel entries the main paths must not launch (the dense label merge
-#: left them when ``serve_hub`` took the row ids)
-OFF_MAIN_PATH = ("fw_next_global", "minplus_accum", "fw_dist_smem",
-                 "fw_dist_global", "label_merge")
+#: kernel entries the main paths must not launch: the fresh-output
+#: ``minplus_accum`` (the tests and the dry run's op table call it) and
+#: the dense label merge (left when ``serve_hub`` took the row ids)
+OFF_MAIN_PATH = ("minplus_accum", "label_merge")
 
 
 def _wrapper(module: str, attr: str):
@@ -2003,8 +1978,8 @@ def _road250k_kernels(g, dix, plan) -> dict:
 #: kernels a refresh launches; serving launches none of them, so their
 #: counts across a refresh call are the refresh's own even while a
 #: serving thread launches its kernels beside it
-REFRESH_KERNELS = ("fw_next_reg", "fw_next_blocked", "fw_next_global",
-                   "fw_batch", "minplus_accum", "minplus_accum_into",
+REFRESH_KERNELS = ("fw_next_reg", "fw_next_blocked", "fw_batch",
+                   "minplus_accum", "minplus_accum_into",
                    "minplus_accum_panels", "minplus")
 
 #: road4000_live's bound on the longest stretch with no response while
@@ -2383,9 +2358,8 @@ def _sharded() -> dict:
     the Bellman-Ford's dense counterpart) and kernel 3 at road64k's
     fragments ([130, 496, 496], its blocked route ``fw_dist_blocked``)
     are timed with CUDA events, kernel 3 also by device time, beside the
-    per-pivot ``fw_dist_global`` it replaced, the witness
-    ``fw_next_blocked`` on the same input, its plain version and its
-    bound."""
+    witness ``fw_next_blocked`` on the same input, its plain version and
+    its bound."""
     import functools
 
     import numpy as np
@@ -2521,8 +2495,6 @@ def _sharded() -> dict:
     for key, name, kern in (
             ("kernel3", "fw_batch_cuda -> fw_dist_blocked",
              functools.partial(fw.fw_batch_cuda, adj)),
-            ("kernel3_global", "fw_dist_global_cuda",
-             functools.partial(fw.fw_dist_global_cuda, adj)),
             ("kernel1_blocked", "fw_next_blocked_cuda",
              lambda: fw.fw_next_blocked_cuda(adj)[0])):
         got = kern()
@@ -2538,8 +2510,8 @@ def _sharded() -> dict:
     res["kernel3"]["inf_share"] = float(torch.isinf(adj).double().mean())
     res["timing"], res["checks"] = timing, checks
     print(f"  sharded: cli {res['cli']}; build {timing}; kernel 3 "
-          f"{res['kernel3']}, beside {res['kernel3_global']} and "
-          f"{res['kernel1_blocked']}; launches {res['launches']}")
+          f"{res['kernel3']}, beside {res['kernel1_blocked']}; launches "
+          f"{res['launches']}")
     if not all(checks.values()):
         raise AssertionError(f"sharded: {checks}")
     return res
@@ -3517,11 +3489,9 @@ def main(argv=None) -> int:
             "road4000_live", "road64k_live", "sharded", "paper",
             "road250k")) + report["road250k"]["refresh"]["launches"][name]
             for name, _m, _a in KERNELS}
-        # the per-pivot FWs, kernel 3's shared-memory kernel, the
-        # fresh-output accumulate and the dense label merge left the main
-        # paths (for the blocked FWs, the in-place accumulate and the
-        # merge through row ids): timed beside their replacements, never
-        # run there
+        # the fresh-output accumulate and the dense label merge left the
+        # main paths (for the in-place accumulate and the merge through
+        # row ids): timed beside their replacements, never run there
         for name in OFF_MAIN_PATH:
             if launches.pop(name):
                 raise AssertionError(f"main paths launched {name}")
@@ -3551,10 +3521,6 @@ def main(argv=None) -> int:
                                  "fw_next_blocked_cuda"),
          "src/repro_torch/csrc/fw_next.cu",
          "src/repro/kernels/floyd_warshall.py:97"),
-        ("fw_next_global", pick(fw_cases, "b=130 n=496 (frag_stage)",
-                                "fw_next_global_cuda"),
-         "src/repro_torch/csrc/fw_next.cu",
-         "src/repro/kernels/floyd_warshall.py:97"),
         ("minplus_twoside_grouped",
          pick(grouped_cases, "serve road64k cross_res (serve_cross_res)"),
          "src/repro_torch/csrc/minplus_twoside.cu",
@@ -3563,13 +3529,6 @@ def main(argv=None) -> int:
          "src/repro_torch/csrc/fw_dist.cu",
          "src/repro/kernels/floyd_warshall.py:54"),
         ("fw_dist_blocked", report["sharded"]["kernel3"],
-         "src/repro_torch/csrc/fw_dist.cu",
-         "src/repro/kernels/floyd_warshall.py:54"),
-        ("fw_dist_smem", pick(new_cases, "fw_batch b=2 n=240",
-                              "fw_dist_smem_cuda"),
-         "src/repro_torch/csrc/fw_dist.cu",
-         "src/repro/kernels/floyd_warshall.py:54"),
-        ("fw_dist_global", report["sharded"]["kernel3_global"],
          "src/repro_torch/csrc/fw_dist.cu",
          "src/repro/kernels/floyd_warshall.py:54"),
         ("minplus_accum", pick(

@@ -6,10 +6,10 @@
 Needs one NVIDIA card and ``nvcc``.  Builds ``csrc/fw_next.cu`` once per
 width (``-DFWB_B=<B>``, otherwise the port's own flags) into the
 git-ignored build directory, then at the shapes of the main path times
-each width's ``fw_next_blocked`` with CUDA events, beside the per-pivot
-``fw_next_global`` of the same build, after checking dist and nxt
-array-equal to the plain version.  Prints one JSON line per case, the
-ptxas report of each build, and the card's name and power limit.
+each width's ``fw_next_blocked`` with CUDA events, after checking dist
+and nxt array-equal to the plain version.  Prints one JSON line per
+case, the ptxas report of each build, and the card's name and power
+limit.
 """
 from __future__ import annotations
 
@@ -83,7 +83,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("fw_blocked_tune: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.kernels import floyd_warshall as fw
     from repro_torch.kernels import ref
     libs = {blk: _build(blk) for blk in args.blocks}
     for b, n in SHAPES:
@@ -99,7 +98,6 @@ def main() -> int:
             rec[f"equal_B{blk}"] = bool(torch.equal(got[0], want[0])
                                         and torch.equal(got[1], want[1]))
             rec[f"ms_B{blk}"] = _ms(lambda: _run(lib, d), reps)
-        rec["ms_global"] = _ms(lambda: fw.fw_next_global_cuda(d), reps)
         print(json.dumps(rec), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -67,11 +67,8 @@ profiler's device time:
     host index, kept in FILE: the first checkout run without FILE builds
     and saves it) the checkout's ``ops.fw_batch``, where it has the
     blocked route the schedule ``fw_blocked_into`` at k-blocks of 64 and
-    128, the per-pivot ``fw_dist_global_cuda`` and the witness
-    ``ops.fw_batch_next`` (``fw_next_blocked``); then ``ops.fw_batch``
-    beside the shared-memory kernel (``fw_dist_smem``: the route of a
-    checkout without the blocked one, else ``fw_dist_smem_cuda``) at
-    b = 2, n = 200 and 240, and ``ops.fw_batch`` at [3, 300, 300] and
+    128, and the witness ``ops.fw_batch_next`` (``fw_next_blocked``);
+    then ``ops.fw_batch`` at b = 2, n = 200 and 240, [3, 300, 300] and
     [4, 496, 496] (seeded integers, ~20% +inf);
   * with ``--hub`` alone, the hub tier on synthetic label tables of the
     three widths the hub tier serves (W = 480 with 257 rows, 1,712 with
@@ -516,22 +513,16 @@ def _fwdist(path: str, ops) -> dict:
         for block in (64, 128):
             time(f"fw_blocked_into block={block} {tag}",
                  functools.partial(blocked, block), want)
-    time(f"fw_dist_global_cuda {tag}", functools.partial(
-        fw.fw_dist_global_cuda, adj, torch.empty_like(adj)), want, 2, 1)
     time(f"ops.fw_batch_next (fw_next_blocked) {tag}",
          lambda: ops.fw_batch_next(adj)[0], want, 2, 1)
     del adj, want, scratch
     torch.cuda.empty_cache()
-    smem = getattr(fw, "fw_dist_smem_cuda", None)
     for b, n in ((2, 200), (2, 240), (3, 300), (4, 496)):
         rng = np.random.default_rng(b * 7907 + n)
         d = torch.from_numpy(_int_inf((b, n, n), rng)).cuda()
         want = ops.fw_batch(d, force="ref")
         time(f"ops.fw_batch b={b} n={n}", functools.partial(ops.fw_batch, d),
              want, 20, 10)
-        if smem is not None and n <= fw.DIST_SMEM_MAX_N:
-            time(f"fw_dist_smem_cuda b={b} n={n}",
-                 functools.partial(smem, d), want, 20, 10)
     return out
 
 

@@ -9,8 +9,7 @@ batch cells), warms the planner up, then serves ``--batches`` batches of
 uniform random pairs twice: with the tracer off (host clock: ms a batch
 and queries/s) and with it on (``repro_torch.obs.trace``), where it
 sums each ``serve.lift`` and ``serve.leg`` span's card time by level and
-kind per 1,000 queries and reads each leg's ``passed`` count as a share
-of the queries its bucket ran (padded).  Prints one JSON line.
+kind per 1,000 queries.  Prints one JSON line.
 ``--device cpu --graph road4000 --hierarchy-levels 3`` rehearses it on
 the plain versions (no card time there); the larger presets are for the
 card.
@@ -78,16 +77,11 @@ def main(argv=None) -> dict:
         tr.clear()
     kq = args.batches * args.batch_size / 1e3
     ms = collections.defaultdict(float)
-    passed = collections.defaultdict(int)
-    ran = collections.defaultdict(int)
     for e in events:
         a = e["args"]
         if e["name"] in ("serve.lift", "serve.leg"):
             key = f"{e['name'][6:]}.{a.get('kind', 'leg')}.l{a['level']}"
             ms[key] += a.get("device_ms", 0.0) / kq
-        if "passed" in a:
-            passed[a["level"]] += a["passed"]
-            ran[a["level"]] += _bucket_rows(events, e)
     out = {
         "graph": args.graph, "nodes": g.n, "levels": eng.dix.hierarchy_levels,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -100,24 +94,9 @@ def main(argv=None) -> dict:
                               if k.startswith("lift")),
         "leg_ms_per_kq": sum(v for k, v in ms.items()
                              if k.startswith("leg")),
-        "passed_share": {lv: passed[lv] / ran[lv]
-                         for lv in sorted(passed) if ran[lv]},
     }
     print(json.dumps(out))
     return out
-
-
-def _bucket_rows(events, leg) -> int:
-    """The padded size of the planner bucket around ``leg``: the last
-    ``planner.bucket`` of its batch that opened before it."""
-    best = None
-    for e in events:
-        a = e["args"]
-        if (e["name"] == "planner.bucket"
-                and a.get("batch") == leg["args"].get("batch")
-                and e["ts"] <= leg["ts"] <= e["ts"] + e["dur"]):
-            best = a["padded"]
-    return best or 0
 
 
 if __name__ == "__main__":

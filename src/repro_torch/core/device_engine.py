@@ -1640,7 +1640,7 @@ def _overlay_size(dix: DeviceIndex) -> int:
 
 
 def _hier_leg(dix: DeviceIndex, li: int, row_s, unit_s, row_t, unit_t,
-              tab, top, *, force=None):
+              tab, *, force=None):
     """Same-group leg at grouping level ``li``: min over slot pairs
     (i, j) in the SAME level-li group of
     row_s[i] + sf_closure[li][g, pos_i, pos_j] + row_t[j], the slots of
@@ -1649,16 +1649,8 @@ def _hier_leg(dix: DeviceIndex, li: int, row_s, unit_s, row_t, unit_t,
     answers +inf without reading the closure where the sides' groups
     differ; elsewhere the gather chunked over the s-axis (``_chunk``), so
     the gathered block stays [q, c, width]).  Traced as ``serve.leg``
-    (``level`` li + 1) with its card time; while the tracer records, and
-    in every captured bucket graph, it also carries ``passed``, the
-    queries whose sides share the level's group (``top``: both sides'
-    next-level units, s first), a 0-d tensor read with the tracer's
-    events (a graph's, after each replay)."""
-    tags = {}
-    if trace.recording():
-        q = row_s.shape[0]
-        tags["passed"] = (top[:q] == top[q:]).sum()
-    with trace.span("serve.leg", device=row_s.device, level=li + 1, **tags):
+    (``level`` li + 1) with its card time."""
+    with trace.span("serve.leg", device=row_s.device, level=li + 1):
         return ops.gather_minplus_twoside(
             row_s, unit_s, row_t, unit_t, tab, dix.sf_of[li],
             dix.pos_in_sf[li], dix.sf_closure[li],
@@ -1743,7 +1735,7 @@ def _combine_mid_h(dix: DeviceIndex, row_s, fs, row_t, ft, *,
         # whose rows are +inf)
         top = dix.sf_of[li][tab[:, 0].long()].long()[units]
         leg = _hier_leg(dix, li, rows[:q], units[:q], rows[q:], units[q:],
-                        tab, top, force=force)
+                        tab, force=force)
         va = leg if va is None else torch.minimum(va, leg)
         rows = _lift_compact(dix, li, rows, units, tab, force=force)
         units, tab = top, dix.bnd2_sid[li]

@@ -430,7 +430,7 @@ class QueryPlanner:
             gs.wait()
         if trace.recording():
             for _idx, bg, t0, t1 in done:
-                trace.replayed(bg.spans(), t0, t1, dix.device)
+                trace.replayed(bg.spans, t0, t1, dix.device)
         for idx, bg, _t0, _t1 in done:
             for out, h in zip(outs, bg.host_out_np):
                 out[idx] = h[:idx.size]

@@ -33,10 +33,9 @@ they are.
 What a capture cannot hold: a host read of a card value (``.item()``,
 ``nonzero``, a boolean mask); the serve programs make none.  Device
 spans opened while capturing (``trace.span(..., device=...)``) become
-event-record nodes of the graph (``trace.capture``), and their tensor
-tags are copied out with the outputs (another graph's replay may
-overwrite them on the card); ``BucketGraph.spans`` gives them, for the
-tracer to emit after each replay (``trace.replayed``).
+event-record nodes of the graph (``trace.capture``), listed in
+``BucketGraph.spans`` for the tracer to emit after each replay
+(``trace.replayed``).
 
 A capture launches nothing, so the kernel wrappers it calls count their
 calls in the graph's tally (``_build.tally``), not in their
@@ -76,19 +75,6 @@ def host_call(owner, name: str):
     return lambda *args, **kwargs: graph._step(owner, name, args, kwargs)
 
 
-#: tensor tags a graph's device spans may carry (one a leg: ``passed``)
-_TAG_SLOTS = 64
-
-
-class _Slot:
-    """A tensor tag's place in a graph's host copy of its tags."""
-
-    __slots__ = ("i",)
-
-    def __init__(self, i: int):
-        self.i = i
-
-
 def _index_storage(dix) -> frozenset:
     """The data pointers of every tensor of the index ``dix`` (a
     dataclass whose fields are tensors or tuples of them)."""
@@ -107,10 +93,10 @@ class BucketGraph:
     of the pinned input ``host_in`` into the static input ``st`` opens
     the first segment, and the copies of the outputs ``outs`` (a tuple)
     into their pinned host buffers ``host_out`` close the last (numpy
-    views: ``host_in_np``, ``host_out_np``), with the values of the
-    device spans' tensor tags (``passed``: integer, 0-d), which live in
-    the shared pool too.  ``spans()`` gives the captured device spans as
-    the last replay ran them.  Capture and replay run on ``stream``."""
+    views: ``host_in_np``, ``host_out_np``).  ``spans`` lists the
+    captured device spans, (name, tags, start, end), their events as the
+    last replay left them (read once it is done).  Capture and replay
+    run on ``stream``."""
 
     def __init__(self, fn, dix, size: int, *, pool, stream,
                  index_storage: frozenset):
@@ -137,8 +123,6 @@ class BucketGraph:
                 torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
                 for o in (out if isinstance(out, tuple) else (out,)))
             del out
-            self._host_tags = torch.zeros(_TAG_SLOTS, dtype=torch.int64,
-                                          pin_memory=True)
             _LOCAL.graph = self
             try:
                 with trace.capture() as spans:
@@ -148,7 +132,7 @@ class BucketGraph:
                     self.outs = out if isinstance(out, tuple) else (out,)
                     for h, o in zip(self.host_out, self.outs):
                         h.copy_(o, non_blocking=True)
-                    self._spans = self._tags_out(spans)
+                    self.spans = spans
                     self._end()
             except BaseException:
                 if self._cur is not None:
@@ -162,36 +146,6 @@ class BucketGraph:
                 _LOCAL.graph = None
         self.host_in_np = self.host_in.numpy()
         self.host_out_np = tuple(h.numpy() for h in self.host_out)
-        self._tags_np = self._host_tags.numpy()
-
-    def _tags_out(self, spans: list) -> list:
-        """While capturing the last segment: copy the spans' tensor tags
-        to ``_host_tags``; -> the spans with each such tag replaced by
-        its slot there."""
-        vals, out = [], []
-        for name, tags, start, end in spans:
-            plain = {}
-            for k, v in tags.items():
-                if isinstance(v, torch.Tensor):
-                    plain[k] = _Slot(len(vals))
-                    vals.append(v.reshape(()).to(torch.int64))
-                else:
-                    plain[k] = v
-            out.append((name, plain, start, end))
-        if len(vals) > _TAG_SLOTS:
-            raise ValueError(f"{len(vals)} tensor tags, more than the "
-                             f"{_TAG_SLOTS} a graph keeps")
-        if vals:
-            self._host_tags[:len(vals)].copy_(torch.stack(vals),
-                                              non_blocking=True)
-        return out
-
-    def spans(self) -> list:
-        """[(name, tags, start, end)]: the captured device spans, tensor
-        tags as the last replay left them (read once it is done)."""
-        return [(name, {k: int(self._tags_np[v.i]) if isinstance(v, _Slot)
-                        else v for k, v in tags.items()}, start, end)
-                for name, tags, start, end in self._spans]
 
     def _begin(self) -> None:
         g = torch.cuda.CUDAGraph()

@@ -762,11 +762,6 @@ def l2_slot_map(hier: HierPlan) -> SlotMap:
     return SlotMap(hier.l2_src, hier.l2_dst, hier.l2_w, hier.S2 + 1)
 
 
-#: historical alias — hierarchical epochs' host_ov_slot sidecars are
-#: SlotMap instances (the unwinder dispatches on this type)
-OvSlotMap = SlotMap
-
-
 # copied from src/repro/core/hierarchy.py:724
 def hier_overlay_stats(levels: List[HierPlan], S: int) -> dict:
     """Shape/memory summary for perf records and the serve driver.

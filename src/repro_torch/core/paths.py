@@ -207,7 +207,7 @@ class PathUnwinder:
         # winning slot per overlay adjacency pair, paired with this
         # dix's overlay-closure epoch (see class docstring); dense
         # epochs carry the [S, S] table, hierarchical epochs the
-        # sparse OvSlotMap (sub-quadratic host memory)
+        # sparse SlotMap (sub-quadratic host memory)
         ov = getattr(dix, "host_ov_slot", None)
         if ov is None:
             ov = (hierarchy.ov_slot_map(plan) if self.hier is not None

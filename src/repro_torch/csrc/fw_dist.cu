@@ -40,26 +40,13 @@
 //    that skipped all of them unread and unwritten: road64k's fragments
 //    are 99.6% +inf as built and 32% once closed (sparse roads, the
 //    smaller fragments' padding), and the skip takes ~40% off the
-//    route.  3 ceil(n / B) launches: 24 at n = 496, against the n + 1
-//    of the per-pivot kernel.  The same
+//    route.  3 ceil(n / B) launches: 24 at n = 496.  The same
 //    schedule is ops.fw_apsp's on one padded matrix (the hierarchy's
 //    top closure).  It is exact without the witness machinery of
 //    fw_next.cu's blocked kernel (snapshots, argmin carry): those only
 //    make ties pick the serial first hop, and distances have no ties
 //    to break.  No padding copy: the last k-block is short and the
 //    kernels mask the ragged edge.
-//
-// Two more launch shapes, off the route and kept to be timed beside it
-// (kernels/floyd_warshall.py: fw_dist_smem_cuda, fw_dist_global_cuda):
-//  * fw_dist_smem: one block per matrix holds dist (4 bytes a cell) in
-//    shared memory for all n pivots, n <= FWD_SMEM_MAX_N.  Updating in
-//    place is exact: the diagonal is 0 and every weight is nonnegative,
-//    so during pivot k neither row k nor column k changes
-//    (d[i][k] + d[k][k] == d[i][k]), and one barrier between pivots
-//    reproduces the functional update.
-//  * fw_dist_global: an init pass, then one launch per pivot over all b
-//    matrices in device memory; any n.  Each launch streams the whole
-//    batch through HBM: 62.5 ms at [130, 496, 496] (PERF.md).
 //
 // Plain IEEE float adds only: built without --use_fast_math, and
 // inf + x stays inf, so no NaN can arise from the +inf padding.
@@ -68,8 +55,6 @@
 
 #include "fw_reg_tile.cuh"
 
-#define FWD_SMEM_MAX_N 240          // 240 * 240 * 4 B = 225 KB <= 227 KB
-#define FWD_TILE 32
 #define FWD_REG_MAX_N 128           // register tiles: padded n of 32, 64, 128
 
 // NP: padded n, a multiple of RM; RM: rows a thread owns.  Threads:
@@ -99,54 +84,6 @@ static cudaError_t reg_launch(const float* din, float* dout, int b, int n,
   return cudaSuccess;
 }
 
-__global__ void __launch_bounds__(1024)
-fw_dist_smem_kernel(const float* __restrict__ din,
-                    float* __restrict__ dout, int n) {
-  extern __shared__ float ds[];
-  const size_t base = (size_t)blockIdx.x * n * n;
-  const int tx = threadIdx.x % 32;          // column lane
-  const int ty = threadIdx.x / 32;          // row lane
-  const int ny = blockDim.x / 32;
-  for (int i = ty; i < n; i += ny)
-    for (int j = tx; j < n; j += 32)
-      ds[i * n + j] = (i == j) ? 0.0f : din[base + (size_t)i * n + j];
-  __syncthreads();
-  for (int k = 0; k < n; ++k) {
-    const float* rowk = ds + k * n;
-    for (int i = ty; i < n; i += ny) {
-      const float dik = ds[i * n + k];
-      float* rowi = ds + i * n;
-      for (int j = tx; j < n; j += 32) {
-        const float cand = dik + rowk[j];
-        if (cand < rowi[j]) rowi[j] = cand;
-      }
-    }
-    __syncthreads();
-  }
-  for (int i = ty; i < n; i += ny)
-    for (int j = tx; j < n; j += 32)
-      dout[base + (size_t)i * n + j] = ds[i * n + j];
-}
-
-__global__ void fw_dist_init_kernel(const float* __restrict__ din,
-                                    float* __restrict__ dout, int n) {
-  const int j = blockIdx.x * FWD_TILE + threadIdx.x;
-  const int i = blockIdx.y * FWD_TILE + threadIdx.y;
-  if (i >= n || j >= n) return;
-  const size_t c = (size_t)blockIdx.z * n * n + (size_t)i * n + j;
-  dout[c] = (i == j) ? 0.0f : din[c];
-}
-
-__global__ void fw_dist_pivot_kernel(float* __restrict__ d, int n, int k) {
-  const int j = blockIdx.x * FWD_TILE + threadIdx.x;
-  const int i = blockIdx.y * FWD_TILE + threadIdx.y;
-  if (i >= n || j >= n) return;
-  const size_t base = (size_t)blockIdx.z * n * n;
-  const size_t c = base + (size_t)i * n + j;
-  const float cand = d[base + (size_t)i * n + k] + d[base + (size_t)k * n + j];
-  if (cand < d[c]) d[c] = cand;
-}
-
 extern "C" {
 
 // din, dout: float32 [b, n, n] with row strides ldi, ldo and batch
@@ -167,55 +104,6 @@ int fw_dist_reg(const void* din, void* dout, int b, int n, long long ldi,
   else
     err = reg_launch<128, 16>(di, dd, b, n, ldi, ldo, bsi, bso, s);
   return (int)err;
-}
-
-// din, dout: float32 [b, n, n]; n <= FWD_SMEM_MAX_N.
-int fw_dist_smem(const void* din, void* dout, int b, int n, void* stream) {
-  if (b <= 0 || n <= 0) return (int)cudaSuccess;
-  if (n > FWD_SMEM_MAX_N) return (int)cudaErrorInvalidValue;
-  const int bytes = n * n * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fw_dist_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return (int)err;
-  // one warp per row lane, at most 32 row lanes and never more than n
-  const int threads = 32 * (n < 32 ? n : 32);
-  // a batch wider than the grid's x limit is walked in chunks
-  for (int b0 = 0; b0 < b; b0 += 65535) {
-    const int bc = (b - b0 < 65535) ? b - b0 : 65535;
-    const size_t off = (size_t)b0 * n * n;
-    fw_dist_smem_kernel<<<bc, threads, bytes, (cudaStream_t)stream>>>(
-        (const float*)din + off, (float*)dout + off, n);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
-}
-
-// Same contract, any n: init pass, then one launch per pivot.
-int fw_dist_global(const void* din, void* dout, int b, int n,
-                   void* stream) {
-  if (b <= 0 || n <= 0) return (int)cudaSuccess;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int tiles = (n + FWD_TILE - 1) / FWD_TILE;
-  const dim3 block(FWD_TILE, FWD_TILE);
-  const size_t nn = (size_t)n * n;
-  // gridDim.z is capped at 65535: walk the batch in chunks of that many
-  for (int b0 = 0; b0 < b; b0 += 65535) {
-    const int bc = (b - b0 < 65535) ? b - b0 : 65535;
-    const dim3 grid(tiles, tiles, bc);
-    const float* di = (const float*)din + b0 * nn;
-    float* dd = (float*)dout + b0 * nn;
-    fw_dist_init_kernel<<<grid, block, 0, s>>>(di, dd, n);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    for (int k = 0; k < n; ++k) {
-      fw_dist_pivot_kernel<<<grid, block, 0, s>>>(dd, n, k);
-    }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
 }
 
 }  // extern "C"

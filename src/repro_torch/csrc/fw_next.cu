@@ -18,11 +18,8 @@
 // only by the thread that owns it, and one barrier (or one launch
 // boundary) between pivots reproduces the reference's functional update.
 //
-// Three launch shapes:
+// Two launch shapes:
 //  * fw_next_reg: every matrix in registers, n <= 64 (below).
-//  * fw_next_global: an init pass, then one launch per pivot over all b
-//    matrices in device memory; any n.  Off the main path since the
-//    blocked variant; kept to time the two side by side.
 //  * fw_next_blocked: an init pass, then two launches per k-block
 //    K = [s, s + B) over all b matrices (B = FWB_B); any n.
 //
@@ -66,7 +63,7 @@
 // form for (min,+)).  The blocked variant issues 4 instructions per cell
 // and pivot in phase 3 (add, compare, two selects: the witness) and
 // re-reads and re-writes dist and nxt once per k-block (16 bytes a cell
-// every n / B pivots, against every pivot for fw_next_global); its
+// every n / B pivots); its
 // phases 1+2 are B serial steps over 2 B x B tiles per block.
 //
 // The register variant (fw_next_reg, the piece buckets: [6211, 8, 8]
@@ -412,21 +409,6 @@ __global__ void fw_next_init_kernel(const float* __restrict__ din,
   init_cell(din[c], i, j, &dout[c], &nout[c]);
 }
 
-__global__ void fw_next_pivot_kernel(float* __restrict__ d,
-                                     int* __restrict__ nx, int n, int k) {
-  const int j = blockIdx.x * FW_TILE + threadIdx.x;
-  const int i = blockIdx.y * FW_TILE + threadIdx.y;
-  if (i >= n || j >= n) return;
-  const size_t base = (size_t)blockIdx.z * n * n;
-  const size_t c = base + (size_t)i * n + j;
-  const size_t ik = base + (size_t)i * n + k;
-  const float cand = d[ik] + d[base + (size_t)k * n + j];
-  if (cand < d[c]) {
-    d[c] = cand;
-    nx[c] = nx[ik];
-  }
-}
-
 // Phases 1+2 of k-block [s, s + kb), kb = min(B, n - s).  blockIdx.x < T:
 // row band tile t = blockIdx.x (rows K x cols [tB, tB + B)); else column
 // band tile t = blockIdx.x - T (rows [tB, tB + B) x cols K).
@@ -697,33 +679,6 @@ int fw_next_reg(const void* din, void* dout, void* nout, int b, int n,
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
-}
-
-// Same contract, any n: init pass, then one launch per pivot.
-int fw_next_global(const void* din, void* dout, void* nout, int b, int n,
-                   void* stream) {
-  if (b <= 0 || n <= 0) return (int)cudaSuccess;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int tiles = (n + FW_TILE - 1) / FW_TILE;
-  const dim3 block(FW_TILE, FW_TILE);
-  const size_t nn = (size_t)n * n;
-  // gridDim.z is capped at 65535: walk the batch in chunks of that many
-  for (int b0 = 0; b0 < b; b0 += 65535) {
-    const int bc = (b - b0 < 65535) ? b - b0 : 65535;
-    const dim3 grid(tiles, tiles, bc);
-    const float* di = (const float*)din + b0 * nn;
-    float* dd = (float*)dout + b0 * nn;
-    int* nd = (int*)nout + b0 * nn;
-    fw_next_init_kernel<<<grid, block, 0, s>>>(di, dd, nd, n);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    for (int k = 0; k < n; ++k) {
-      fw_next_pivot_kernel<<<grid, block, 0, s>>>(dd, nd, n, k);
-    }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
 }
 
 // Bytes of scratch fw_next_blocked takes for b matrices of n nodes.

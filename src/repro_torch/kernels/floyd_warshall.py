@@ -13,9 +13,7 @@ thread, one block a matrix, up to 64),
 ``fw_next_blocked`` runs the exact blocked schedule (two launches per
 k-block of 32 pivots over the batch, ``ref.fw_batch_next_blocked_ref``
 models it) for the fragments, the SUPER overlay, the hierarchy's
-group closures and the large piece buckets.  ``fw_next_global``, one
-launch per pivot, left the main path with the blocked variant and stays
-callable so the two can be timed side by side.
+group closures and the large piece buckets.
 
 Distance-only FW, port of ``fw_batch_pallas``, with plain version
 ``ref.fw_batch_ref``: ``fw_batch_cuda`` holds each matrix in one
@@ -23,9 +21,6 @@ block's registers up to n = DIST_REG_MAX_N (``fw_dist_reg`` in
 ``csrc/fw_dist.cu``, one launch), and above it runs the blocked
 schedule below over the whole batch at once, in place on its output
 (``fw_dist_blocked_cuda``: 3 launches a k-block of DIST_BLOCK pivots).
-``fw_dist_smem_cuda`` (a matrix in one block's shared memory, n <= 240)
-and ``fw_dist_global_cuda`` (one launch a pivot), which that route
-replaced, stay callable so that the two can be timed beside it.
 
 ``fw_blocked_into`` is the 3-phase blocked APSP of ``fw_blocked`` in the
 reference, run in place on a matrix or on every matrix of a batch at
@@ -47,8 +42,6 @@ import torch
 from . import _build
 
 _VP = ctypes.c_void_p
-_SIG = [_VP, _VP, _VP, ctypes.c_int, ctypes.c_int, _VP]
-_SIG_DIST = [_VP, _VP, ctypes.c_int, ctypes.c_int, _VP]
 #: padded n of the register variant's shapes (``fw_next_reg`` in the
 #: .cu): a row a lane at 8, a quarter row a thread at 32, a 4 x 4 tile a
 #: thread at 64 (the piece buckets are 8 and 32); the blocked variant
@@ -56,9 +49,6 @@ _SIG_DIST = [_VP, _VP, ctypes.c_int, ctypes.c_int, _VP]
 #: one replaced beat the blocked one at n <= 64 and lost above)
 REG_SHAPES = (8, 32, 64)
 REG_MAX_N = REG_SHAPES[-1]
-#: largest n of the distance-only shared-memory variant (FWD_SMEM_MAX_N
-#: in fw_dist.cu): 240 * 240 cells * 4 bytes = 225 KB
-DIST_SMEM_MAX_N = 240
 #: largest n of the distance-only register variant (FWD_REG_MAX_N);
 #: kernel 3 runs the blocked schedule above it
 DIST_REG_MAX_N = 128
@@ -93,9 +83,7 @@ def route(n: int) -> tuple[str, int]:
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fw_next")
-    if lib.fw_next_global.argtypes is None:
-        lib.fw_next_global.argtypes = _SIG
-        lib.fw_next_global.restype = ctypes.c_int
+    if lib.fw_next_reg.argtypes is None:
         lib.fw_next_reg.argtypes = [_VP, _VP, _VP, ctypes.c_int,
                                     ctypes.c_int, ctypes.c_int, _VP]
         lib.fw_next_reg.restype = ctypes.c_int
@@ -109,10 +97,7 @@ def _lib() -> ctypes.CDLL:
 
 def _dist_lib() -> ctypes.CDLL:
     lib = _build.load("fw_dist")
-    if lib.fw_dist_smem.argtypes is None:
-        for fn in (lib.fw_dist_smem, lib.fw_dist_global):
-            fn.argtypes = _SIG_DIST
-            fn.restype = ctypes.c_int
+    if lib.fw_dist_reg.argtypes is None:
         ll = ctypes.c_longlong
         lib.fw_dist_reg.argtypes = [_VP, _VP, ctypes.c_int, ctypes.c_int, ll,
                                     ll, ll, ll, _VP]
@@ -120,17 +105,17 @@ def _dist_lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(d: torch.Tensor, kernel: str = "fw_next") -> tuple[int, int]:
+def _check(d: torch.Tensor) -> tuple[int, int]:
     if not d.is_cuda:
-        raise ValueError(f"{kernel} kernel needs a CUDA tensor, got "
+        raise ValueError(f"fw_next kernel needs a CUDA tensor, got "
                          f"{d.device}")
     if d.dtype != torch.float32:
-        raise TypeError(f"{kernel} kernel takes float32, got {d.dtype}")
+        raise TypeError(f"fw_next kernel takes float32, got {d.dtype}")
     if d.dim() != 3 or d.shape[1] != d.shape[2]:
-        raise ValueError(f"{kernel} kernel takes [b, n, n], got "
+        raise ValueError(f"fw_next kernel takes [b, n, n], got "
                          f"{tuple(d.shape)}")
     if not d.is_contiguous():
-        raise ValueError(f"{kernel} kernel takes a contiguous tensor")
+        raise ValueError("fw_next kernel takes a contiguous tensor")
     return d.shape[0], d.shape[1]
 
 
@@ -164,19 +149,6 @@ def dist_out(d: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(d, memory_format=torch.contiguous_format)
 
 
-def _launch(entry: str, d: torch.Tensor, *extra: int
-            ) -> tuple[torch.Tensor, torch.Tensor]:
-    b, n = _check(d)
-    dist, nxt, _ = next_buffers(d)
-    with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_lib(), entry)(d.data_ptr(), dist.data_ptr(),
-                                     nxt.data_ptr(), b, n, *extra, stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
-    return dist, nxt
-
-
 def fw_next_reg_cuda(d: torch.Tensor) -> tuple[torch.Tensor,
                                                 torch.Tensor]:
     """Register variant: every matrix in registers, n <= REG_MAX_N."""
@@ -184,17 +156,16 @@ def fw_next_reg_cuda(d: torch.Tensor) -> tuple[torch.Tensor,
     if entry != "fw_next_reg":
         raise ValueError(f"fw_next_reg takes n <= {REG_MAX_N}, got "
                          f"{d.shape[-1]}")
-    out = _launch(entry, d, np_)
+    b, n = _check(d)
+    dist, nxt, _ = next_buffers(d)
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().fw_next_reg(d.data_ptr(), dist.data_ptr(),
+                                 nxt.data_ptr(), b, n, np_, stream)
+    if err != 0:
+        raise RuntimeError(f"fw_next_reg launch failed: CUDA error {err}")
     _build.count_launch(fw_next_reg_cuda)
-    return out
-
-
-def fw_next_global_cuda(d: torch.Tensor) -> tuple[torch.Tensor,
-                                                   torch.Tensor]:
-    """Device-memory variant: one launch per pivot, any n."""
-    out = _launch("fw_next_global", d)
-    _build.count_launch(fw_next_global_cuda)
-    return out
+    return dist, nxt
 
 
 def fw_next_blocked_cuda(d: torch.Tensor) -> tuple[torch.Tensor,
@@ -217,7 +188,6 @@ def fw_next_blocked_cuda(d: torch.Tensor) -> tuple[torch.Tensor,
 
 
 fw_next_reg_cuda.launches = 0
-fw_next_global_cuda.launches = 0
 fw_next_blocked_cuda.launches = 0
 
 
@@ -292,45 +262,6 @@ def fw_dist_blocked_cuda(d: torch.Tensor, out: torch.Tensor
     return out
 
 
-def _dist_baseline(entry: str, d: torch.Tensor, out) -> torch.Tensor:
-    _check(d, entry)
-    if out is None:
-        out = dist_out(d)
-    elif out.shape != d.shape or not out.is_contiguous():
-        raise ValueError(f"{entry} kernel: out must be contiguous "
-                         f"{tuple(d.shape)}, got {tuple(out.shape)}")
-    with torch.cuda.device(d.device):
-        err = getattr(_dist_lib(), entry)(
-            d.data_ptr(), out.data_ptr(), d.shape[0], d.shape[1],
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
-    return out
-
-
-def fw_dist_smem_cuda(d: torch.Tensor, out: torch.Tensor | None = None
-                      ) -> torch.Tensor:
-    """The shared-memory variant of kernel 3 (one block a matrix, n <=
-    DIST_SMEM_MAX_N, contiguous operands): off the route since the
-    blocked one took n above 128, kept to be timed beside it."""
-    if d.shape[-1] > DIST_SMEM_MAX_N:
-        raise ValueError(f"fw_dist_smem takes n <= {DIST_SMEM_MAX_N}, got "
-                         f"{d.shape[-1]}")
-    out = _dist_baseline("fw_dist_smem", d, out)
-    _build.count_launch(fw_dist_smem_cuda)
-    return out
-
-
-def fw_dist_global_cuda(d: torch.Tensor, out: torch.Tensor | None = None
-                        ) -> torch.Tensor:
-    """The per-pivot variant of kernel 3 (an init launch, then one a
-    pivot, any n, contiguous operands): off the route since the blocked
-    one, kept to be timed beside it."""
-    out = _dist_baseline("fw_dist_global", d, out)
-    _build.count_launch(fw_dist_global_cuda)
-    return out
-
-
 def launch_dist_reg(din: int, dout: int, b: int, n: int, *, ld_in: int,
                     ld_out: int, bs_in: int, bs_out: int,
                     stream: int) -> None:
@@ -347,8 +278,6 @@ def launch_dist_reg(din: int, dout: int, b: int, n: int, *, ld_in: int,
 
 fw_batch_cuda.launches = 0
 fw_dist_blocked_cuda.launches = 0
-fw_dist_smem_cuda.launches = 0
-fw_dist_global_cuda.launches = 0
 
 
 def blocked_steps(n: int, block: int):

@@ -20,9 +20,7 @@ tracing is off:
   or True for the current CUDA device), drawn from a pool.  The event
   then carries ``device_ts`` (microseconds from ``origin``, the host
   clock) and ``device_ms`` in ``args``, resolved when ``events()`` or
-  ``drain()`` is called; on the CPU both stay absent.  A tag may be a
-  0-d tensor (a count kept on the card): it is read, as a Python
-  number, at the same time, so the span never waits on the card.  One anchor event
+  ``drain()`` is called; on the CPU both stay absent.  One anchor event
   per device and recording session, recorded on an idle card at a
   known ``perf_counter`` reading, places these intervals on the host
   clock.  A session starts at ``enable()``, ``clear()`` or ``drain()``.
@@ -43,10 +41,8 @@ tracing is off:
 * ``capture()`` — while a thread captures a CUDA graph: its device spans
   become a pair of external timing events recorded into the graph
   (event-record nodes) and are listed, not emitted; its host spans
-  record nothing; ``recording()`` is True there, so spans compute their
-  card-side tags (a 0-d tensor then lives in the graph).
-  ``replayed(spans, t0, t1, device)`` emits such spans as one replay ran
-  them, once its work is done.
+  record nothing.  ``replayed(spans, t0, t1, device)`` emits such spans
+  as one replay ran them, once its work is done.
 
 The tracer records while its ``enabled`` flag is set and while a
 ``torch.profiler`` session runs (torch's own ``_is_profiler_enabled``
@@ -306,8 +302,6 @@ class Tracer:
         # resolved; free (start, end) event pairs and the anchors, by
         # device index
         self._pending: list[tuple] = []
-        # events with tensor-valued tags, read when the events are
-        self._lazy: list[dict] = []
         self._pool: dict[int, list] = {}
         self._anchors: dict[int, tuple] = {}
         self._streams: dict[int, object] = {}
@@ -351,13 +345,8 @@ class Tracer:
         }
         if depth:
             ev["args"]["depth"] = depth
-        tensor = getattr(sys.modules.get("torch"), "Tensor", None)
-        lazy = tensor is not None and any(
-            isinstance(v, tensor) for v in tags.values())
         with self._lock:
             self._events.append(ev)
-            if lazy:
-                self._lazy.append(ev)
             if len(self._events) > self.max_events:
                 drop = len(self._events) - self.max_events
                 del self._events[:drop]
@@ -411,8 +400,7 @@ class Tracer:
     def _resolve(self, wait: bool = True) -> None:
         """Write ``device_ts``/``device_ms`` into the pending device
         intervals' events and return their timing events to the pool;
-        ``wait=False`` stops at the first interval not yet finished;
-        with ``wait`` the tensor-valued tags are read too."""
+        ``wait=False`` stops at the first interval not yet finished."""
         with self._lock:
             pending, self._pending = self._pending, []
         done = 0
@@ -429,14 +417,6 @@ class Tracer:
         if done < len(pending):
             with self._lock:
                 self._pending[:0] = pending[done:]
-        if wait:
-            with self._lock:
-                lazy, self._lazy = self._lazy, []
-            for ev in lazy:
-                args = ev["args"]
-                for k, v in args.items():
-                    if hasattr(v, "item"):
-                        args[k] = v.item()
 
     # -- public API ---------------------------------------------------
     def enable(self, on: bool = True) -> "Tracer":
@@ -477,11 +457,11 @@ class Tracer:
     def replayed(self, spans: list, t0: float, t1: float,
                  device) -> None:
         """Emit the device spans a graph captured (``capture``) as one
-        replay ran them: (name, tags, start, end), the tags' values as
-        that replay left them; host bounds ``t0``-``t1`` (the replay's
-        issue), ``device_ts``/``device_ms`` from the events.  Call once
-        the replay's work on the card ``device`` (a torch.device) is done
-        and before the graph replays again, which overwrites the events."""
+        replay ran them: (name, tags, start, end); host bounds
+        ``t0``-``t1`` (the replay's enqueue), ``device_ts``/``device_ms``
+        from the events.  Call once the replay's work on the card
+        ``device`` (a torch.device) is done and before the graph replays
+        again, which overwrites the events."""
         if not spans:
             return
         device = _card(device)
@@ -518,7 +498,6 @@ class Tracer:
         with self._lock:
             self._events = []
             self._pending = []
-            self._lazy = []
             self.dropped = 0
         self._anchors = {}
 
@@ -535,9 +514,9 @@ def get_tracer() -> Tracer:
 
 
 def recording() -> bool:
-    """Whether the default tracer records now, or this thread captures
-    a CUDA graph (whose device spans are read at each replay)."""
-    return _DEFAULT.enabled or _profiling() or _captured() is not None
+    """Whether the default tracer records now: ``enabled``, or a
+    torch.profiler session is running."""
+    return _DEFAULT.enabled or _profiling()
 
 
 def span(name: str, *, device=None, **tags):

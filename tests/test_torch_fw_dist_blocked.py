@@ -249,16 +249,12 @@ def test_cpu_tensors_refuse_the_kernels_and_count_nothing():
     ``force="kernel"`` refuse it (no fallback), and no counter moves."""
     counters = (floyd_warshall.fw_batch_cuda,
                 floyd_warshall.fw_dist_blocked_cuda,
-                floyd_warshall.fw_dist_smem_cuda,
-                floyd_warshall.fw_dist_global_cuda,
                 minplus.minplus_accum_panels_cuda,
                 minplus.minplus_accum_into_cuda)
     before = [k.launches for k in counters]
     d = torch.from_numpy(_fragments(2, 150, 3))
     assert torch.equal(ops.fw_batch(d), ref.fw_batch_ref(d))
     for call in (lambda: floyd_warshall.fw_batch_cuda(d),
-                 lambda: floyd_warshall.fw_dist_smem_cuda(d),
-                 lambda: floyd_warshall.fw_dist_global_cuda(d),
                  lambda: ops.fw_batch(d, force="kernel"),
                  lambda: floyd_warshall.fw_blocked_into(
                      d.clone(), block=64, force="kernel")):
@@ -353,13 +349,12 @@ def test_blocked_route_on_card(cuda_device, b, n):
     counters = (floyd_warshall.fw_dist_blocked_cuda,
                 floyd_warshall.fw_batch_cuda,
                 minplus.minplus_accum_panels_cuda,
-                minplus.minplus_accum_into_cuda,
-                floyd_warshall.fw_dist_global_cuda)
+                minplus.minplus_accum_into_cuda)
     before = [k.launches for k in counters]
     got = ops.fw_batch(d)
     kb = -(-n // floyd_warshall.DIST_BLOCK)
     assert [k.launches - c for k, c in zip(counters, before)] == [
-        1, kb, kb, kb, 0]
+        1, kb, kb, kb]
     assert torch.equal(got, want)
     out = torch.full_like(d, 3.0)
     assert floyd_warshall.fw_batch_cuda(d, out) is out
@@ -381,19 +376,6 @@ def test_blocked_widths_on_card(cuda_device, block):
     x = d.clone()
     floyd_warshall.fw_blocked_into(x, block=block)
     assert torch.equal(x, ops.fw_batch(d, force="ref"))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,n", [(2, 200), (2, 240), (3, 300)])
-def test_baselines_on_card(cuda_device, b, n):
-    """The kernels the route replaced stay right: ``fw_dist_smem`` (n <=
-    240) and the per-pivot ``fw_dist_global``."""
-    d = torch.from_numpy(_int_inf((b, n, n), np.random.default_rng(n))).to(
-        cuda_device)
-    want = ops.fw_batch(d, force="ref")
-    assert torch.equal(floyd_warshall.fw_dist_global_cuda(d), want)
-    if n <= floyd_warshall.DIST_SMEM_MAX_N:
-        assert torch.equal(floyd_warshall.fw_dist_smem_cuda(d), want)
 
 
 @pytest.mark.cuda

@@ -63,9 +63,7 @@ class _FakeGraph:
         self.host_out_np = tuple(np.empty(tuple(o.shape),
                                           o.numpy().dtype) for o in outs)
         self.inputs = []
-
-    def spans(self):
-        return []
+        self.spans = []
 
     def launch(self):
         self.st.copy_(self.host_in)
@@ -275,16 +273,17 @@ def test_busy_graph_lock_runs_the_batch_eagerly(fake_graphs):
 
 
 def test_tracer_capture_mode():
-    """While a thread captures, device spans on the CPU record nothing and
-    ``recording()`` is True there alone."""
+    """While a thread captures, device spans on the CPU and host spans
+    record nothing, and ``recording()`` stays False."""
     trace.get_tracer().clear()
     assert not trace.recording()
     with trace.capture() as spans:
-        assert trace.recording()
-        with trace.span("serve.lift", device=torch.device("cpu"), level=1):
-            pass
-        with trace.span("planner.plan"):
-            pass
+        assert not trace.recording()
+        with trace.span("serve.lift", device=torch.device("cpu"),
+                        level=1) as sp:
+            assert sp is trace._NULL_SPAN
+        with trace.span("planner.plan") as sp:
+            assert sp is trace._NULL_SPAN
     assert spans == []
     assert not trace.recording()
     assert trace.get_tracer().events() == []

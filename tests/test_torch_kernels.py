@@ -293,7 +293,6 @@ def test_cpu_dispatch_runs_plain_versions_and_counts_nothing():
     the kernel wrappers refuse CPU tensors outright."""
     def counts():
         return (floyd_warshall.fw_next_reg_cuda.launches,
-                floyd_warshall.fw_next_global_cuda.launches,
                 floyd_warshall.fw_next_blocked_cuda.launches,
                 minplus_twoside.minplus_twoside_cuda.launches,
                 minplus_twoside.minplus_twoside_grouped_cuda.launches,

@@ -111,9 +111,7 @@ def test_fw_fragments_sharded_on_card(cuda_device, mesh_name, n, variant):
     adj[4] = np.inf
     mesh = _meshes(cuda_device)[mesh_name]
     counters = (floyd_warshall.fw_batch_cuda,
-                floyd_warshall.fw_dist_blocked_cuda,
-                floyd_warshall.fw_dist_smem_cuda,
-                floyd_warshall.fw_dist_global_cuda)
+                floyd_warshall.fw_dist_blocked_cuda)
     before = [c.launches for c in counters]
     got = fw_fragments_sharded(mesh, adj)
     launched = [c.launches - b for c, b in zip(counters, before)]
@@ -124,8 +122,8 @@ def test_fw_fragments_sharded_on_card(cuda_device, mesh_name, n, variant):
     # the blocked route: one call a shard, its phase 1 one fw_dist_reg
     # launch a k-block
     kb = -(-n // floyd_warshall.DIST_BLOCK)
-    assert launched == ([shards * kb, shards, 0, 0] if variant == "blocked"
-                        else [shards, 0, 0, 0])
+    assert launched == ([shards * kb, shards] if variant == "blocked"
+                        else [shards, 0])
 
 
 @pytest.mark.cuda
