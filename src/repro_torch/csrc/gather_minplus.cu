@@ -45,12 +45,13 @@
 //    tile x 64 output columns and walks the slots in 32-deep tiles through
 //    twoside_tiles.cuh (rows staged transposed with a vote, the closure
 //    tile gathered through the key's slot rows by cp.async, double
-//    buffered; all-+inf rows tiles skipped; the 8 x 4 add-and-min
-//    micro-tile).  A tile holds one key, so the staged closure tile serves
-//    all of its rows.  The store writes its 64 x 64 outputs; the twoside
-//    adds row_t, takes the min over its columns and folds it into out[q]
-//    with an atomic min (out starts at +inf, set by gmp_order); a twoside
-//    block whose t-rows are +inf over its columns returns at once.
+//    buffered; all-+inf rows tiles skipped; the 8 x 4 micro-tile, an
+//    add a cell and a three-way min of the bits per two cells).  A tile
+//    holds one key, so the staged closure tile serves all of its rows.
+//    The store writes its 64 x 64 outputs; the twoside adds row_t,
+//    takes the min over its columns and folds it into out[q] with an
+//    atomic min (out starts at +inf, set by gmp_order); a twoside block
+//    whose t-rows are +inf over its columns returns at once.
 //
 // Bound on this card: 2 float32 operations (add, min) per (row, slot,
 // column) cell the inputs need, at 67 TFLOP/s outside the tensor cores
@@ -69,9 +70,11 @@
 // Exact: each output is a min of fl(row + M) sums (twoside: fl(that min
 // + row_t), as the plain version associates it), and min is exact and
 // order-free, so any grouping of the slots and any order of the minima
-// give the plain version's bits.  The atomic min orders floats by their
-// value (-0.0 below +0.0, which the non-negative serve inputs never
-// produce).  Built without --use_fast_math.
+// give the plain version's bits.  The tiles regime takes its min on the
+// sums' bit patterns as int32, the same bits for the non-negative inputs
+// every caller passes (twoside_tiles.cuh).  The atomic min orders floats
+// by their value (-0.0 below +0.0, which the non-negative serve inputs
+// never produce).  Built without --use_fast_math.
 
 #include <cuda_runtime.h>
 #include <math.h>

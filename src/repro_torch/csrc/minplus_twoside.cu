@@ -42,26 +42,31 @@
 //    For each segment of its queries that share (gs, gt) it stages rows
 //    (the other queries' as +inf) and the d tile gathered through that
 //    pair's id rows, 4-byte cp.async, double-buffered, and runs the
-//    8 x 4 micro-tile of twoside_tiles.cuh (add and min only; all-+inf
-//    rows tiles skipped).  Each block writes one partial per (query,
-//    j tile, i split) at the query's original index, and
+//    8 x 4 micro-tile of twoside_tiles.cuh (an add a cell and a
+//    three-way min of the bits per two cells; all-+inf rows tiles
+//    skipped).  Each block writes one partial per (query, j tile, i
+//    split) at the query's original index, and
 //    twoside_min_finish takes the min over them on the card: no
 //    un-permute pass.
 //
 // Bound on this card: 2 float32 operations (add, min) per cell
 // (q, i, j) these inputs need, Q * ms * mt, at 67 TFLOP/s outside the
-// tensor cores ((min,+) has no tensor-core form); the issue floor is 2
-// instructions a cell (FADD, FMNMX).  The tiles regime issues its
-// micro-tile over every segment of a block, so queries of other
-// segments cost cells that are +inf by construction.  Bytes (rows once,
-// the reached cells of d once) are far below that at the serve shapes.
+// tensor cores ((min,+) has no tensor-core form).  On sm_90 the min
+// bounds the loop, not the add: the tiles regime issues 1.5 instructions
+// a cell (FADD, half a VIMNMX3), the warp regime 2 (FADD, FMNMX).  The
+// tiles regime issues its micro-tile over every segment of a block, so
+// queries of other segments cost cells that are +inf by construction.
+// Bytes (rows once, the reached cells of d once) are far below that at
+// the serve shapes.
 //
 // Exact: the function is scatter-min of each row at its ids, then the
 // dense contraction, re-associated: fl(min(a, b) + c) == min(fl(a + c),
 // fl(b + c)) for any floats (rounding is monotone), so duplicate ids,
 // sentinel ids (d's +inf row or column) and the order of the minima give
 // the plain version's bits; integer-valued inputs keep every sum below
-// 2**24 besides.  Built without --use_fast_math.
+// 2**24 besides.  The tiles regime's int32 min of the sums' bits is the
+// bits of their float min for the non-negative inputs every caller
+// passes (twoside_tiles.cuh).  Built without --use_fast_math.
 
 #include <cuda_runtime.h>
 #include <math.h>

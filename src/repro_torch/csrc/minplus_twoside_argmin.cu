@@ -16,8 +16,9 @@
 //  * twoside_argmin_kernel: grid (y-tiles of 64, q-tiles of 64,
 //    x-splits).  Each block walks its contiguous x range through
 //    32-deep tiles twice.  Pass 1 keeps an 8 x 4 register micro-tile
-//    per thread of acc[q, y] = min_x rows + d: an add and a min a cell,
-//    half the instructions of carrying the winning x beside every cell.
+//    per thread of acc[q, y] = min_x rows + d: an add a cell and a
+//    three-way min of the bits per two cells, with no winning x carried
+//    beside every cell.
 //    After adding rowt the block reduces its y-tile on (value, y): per
 //    query the smallest y* at its minimum, and acc[q, y*].  Pass 2 walks
 //    the same tiles again and finds, per query, the smallest x of the
@@ -52,13 +53,15 @@
 //
 // Bound on this card: as minplus_twoside.cu, 2 float32 operations per
 // finite (q, x, y) triple outside the tensor cores, bound by operations
-// at the serve path's shapes; pass 1 issues exactly those 2 a cell,
+// at the serve path's shapes; pass 1 issues 1.5 instructions a cell,
 // pass 2 a compare per (query, x) up to the witness and a second read
 // of the d tiles.
 //
 // Exact: integer-valued inputs keep every sum below 2**24, so the
 // values and the equalities the tie rule compares are the plain
-// version's bits.  Built without --use_fast_math.
+// version's bits; pass 1's int32 min of the sums' bits is the bits of
+// their float min for the non-negative inputs every caller passes
+// (twoside_tiles.cuh).  Built without --use_fast_math.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -124,7 +127,7 @@ twoside_argmin_kernel(const float* __restrict__ rows,
   const int xb = min(K1, xa + xper);
   const float inf = __int_as_float(0x7f800000);
 
-  // pass 1: acc[q, y] = min over the x range of rows + d (add, min)
+  // pass 1: acc[q, y] = min over the x range of rows + d
   float acc[TA_MQ][TA_MY];
 #pragma unroll
   for (int a = 0; a < TA_MQ; ++a)

@@ -478,15 +478,32 @@ CARD_LEVELS = [
 ]
 
 
+#: the largest finite entry of a row or closure in the "large" operands
+#: and of a lift row: a leg's three terms and a lift's two reach
+#: 3 * BIG == BIG + BIG_LIFT == 2**24 - 1, the integer invariant's bound
+BIG = (2**24 - 1) // 3
+BIG_LIFT = 2**24 - 1 - BIG
+
+
 def _synthetic_level(units, groups, m2, slots, width, rows, kind, seed,
                      device):
     """One level's operands: overlay ids g * m2 + p in ``groups`` groups
     (the sentinel id groups * m2 in the sentinel group, pos 0); ``units``
     table rows (the last all-sentinel), each a run of distinct ids of
     one group, then sentinels (padded slots); closures and lift rows of
-    integers with ~20% +inf ("ties": {0, 1, 2}), the sentinel group's
-    +inf; rows finite on valid slots only (~20% +inf, some all +inf);
-    units drawn at random."""
+    integers with ~20% +inf ("ties": {0, 1, 2}; "large": the four
+    largest values up to each part's bound, BIG or BIG_LIFT), the sentinel
+    group's +inf; rows finite on valid slots only (~20% +inf, some all
+    +inf); units drawn at random.  "large" also plants the sums at the
+    bound: the first lift row (row 0) and the first leg query (rows 0
+    and rows // 2, as the card test splits them) hold one finite entry
+    each, so lift[0, 0] and leg[0] are exactly 2**24 - 1.  "holes" adds
+    +inf in every operand position: slots 32-63 of every row wider than
+    64 slots (an all-+inf x-tile inside the valid slots of the tiles
+    regime), every fifth closure row and seventh column, and every third
+    row from rows // 2 + 1 on (whole +inf t-rows of the legs beside
+    finite s-rows); its first leg query has both sides in unit 0, so
+    some leg is finite at every shape."""
     rng = np.random.default_rng(seed)
     S = groups * m2
     gof = np.concatenate([np.repeat(np.arange(groups), m2), [groups]])
@@ -497,12 +514,13 @@ def _synthetic_level(units, groups, m2, slots, width, rows, kind, seed,
         k = int(rng.integers(slots // 2, slots + 1))
         tab[u, :k] = g * m2 + rng.choice(m2, k, replace=False)
 
-    def ints(shape):
-        hi = 3 if kind == "ties" else 100
-        x = rng.integers(0, hi, shape).astype(np.float32)
+    def ints(shape, top=BIG):
+        lo, hi = (top - 3, top + 1) if kind == "large" else (
+            0, 3 if kind == "ties" else 100)
+        x = rng.integers(lo, hi, shape).astype(np.float32)
         x[rng.random(shape) < 0.2] = np.inf
         return x
-    lift = ints((groups + 1, m2, width))
+    lift = ints((groups + 1, m2, width), top=BIG_LIFT)
     lift[groups] = np.inf
     clo = ints((groups + 1, m2, m2))
     clo[groups] = np.inf
@@ -510,6 +528,22 @@ def _synthetic_level(units, groups, m2, slots, width, rows, kind, seed,
     row = ints((rows, slots))
     row[tab[unit] == S] = np.inf
     row[5::11] = np.inf
+    q = rows // 2
+    if kind in ("large", "holes"):
+        unit[0] = unit[q] = 0
+    if kind == "large":
+        row[0] = row[q] = np.inf
+        row[0, 0] = row[q, 1] = BIG
+        a, b = tab[0, 0], tab[0, 1]
+        lift[gof[a], pof[a], 0] = BIG_LIFT
+        clo[gof[a], pof[a], pof[b]] = BIG
+    if kind == "holes":
+        if slots > 64:
+            row[:, 32:64] = np.inf
+        row[q + 1::3] = np.inf
+        for m in (lift, clo):
+            m[:, ::5] = np.inf
+            m[:, :, ::7] = np.inf
     as_t = lambda x, dt: torch.as_tensor(x, dtype=dt).to(device)  # noqa
     return dict(row=as_t(row, torch.float32), unit=as_t(unit, torch.int64),
                 tab=as_t(tab, torch.int32), gof=as_t(gof, torch.int32),
@@ -527,13 +561,14 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [2048, 48])
-@pytest.mark.parametrize("kind", ["ragged", "ties"])
+@pytest.mark.parametrize("kind", ["ragged", "ties", "large", "holes"])
 @pytest.mark.parametrize("label,units,groups,m2,slots,width", CARD_LEVELS)
 def test_kernels_match_plain_on_card(cuda_device, label, units, groups, m2,
                                      slots, width, kind, rows):
     """Lift (both sides' rows at once) and leg == their plain versions at
     each level shape, level 1 in the warp regime, above it in the
-    tiles."""
+    tiles; with "large" operands the planted sums of 2**24 - 1 come out
+    exactly."""
     op = _synthetic_level(units, groups, m2, slots, width, rows, kind,
                           seed=rows + slots, device=cuda_device)
     row, unit, tab, gof, pof = (op[k] for k in ("row", "unit", "tab", "gof",
@@ -544,6 +579,8 @@ def test_kernels_match_plain_on_card(cuda_device, label, units, groups, m2,
     want = ops.gather_minplus(row, unit, tab, pof, op["lift"], gof=gof,
                               chunk=tde._chunk(row, width), force="ref")
     assert torch.equal(got, want), label
+    if kind == "large":
+        assert got[0, 0].item() == 2**24 - 1
     q = rows // 2
     args = (row[:q], unit[:q], row[q:], unit[q:], tab, gof, pof, op["clo"])
     got = ops.gather_minplus_twoside(*args)
@@ -552,6 +589,8 @@ def test_kernels_match_plain_on_card(cuda_device, label, units, groups, m2,
                                       force="ref")
     assert torch.equal(got, want), label
     assert torch.isfinite(want).any()
+    if kind == "large":
+        assert got[0].item() == 2**24 - 1
 
 
 @pytest.mark.cuda

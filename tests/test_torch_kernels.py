@@ -114,11 +114,19 @@ def test_minplus_twoside_all_inf(J):
 def _argmin_input(q, k1, k2, kind):
     """(rows, d, rowt) for the witness twoside: "ragged" integers with
     ~20% +inf, "ties" values from {0, 1, 2} (many cells at the minimum,
-    so the tie rule decides), "inf" all-+inf query rows."""
+    so the tie rule decides), "inf" all-+inf query rows, "large_ties"
+    the ties moved up to BIG - 2, BIG - 1 and BIG, BIG = (2**24 - 1) // 3,
+    so that a cell's three terms reach 2**24 - 1, which query 0 reaches
+    exactly (one finite entry a side: x = 0, y = k2 - 1)."""
     rng = np.random.default_rng(q * 7919 + k1 * 31 + k2)
-    if kind == "ties":
-        return tuple(rng.integers(0, 3, s).astype(np.float32)
-                     for s in ((q, k1), (k1, k2), (q, k2)))
+    if kind in ("ties", "large_ties"):
+        lo = (2**24 - 1) // 3 - 2 if kind == "large_ties" else 0
+        rows, d, rowt = (rng.integers(lo, lo + 3, s).astype(np.float32)
+                         for s in ((q, k1), (k1, k2), (q, k2)))
+        if kind == "large_ties":
+            rows[0], rowt[0] = np.inf, np.inf
+            rows[0, 0] = rowt[0, k2 - 1] = d[0, k2 - 1] = lo + 2
+        return rows, d, rowt
     rows, d, rowt = (_int_inf(s, rng) for s in ((q, k1), (k1, k2), (q, k2)))
     if kind == "inf":
         rows[::2] = np.inf
@@ -516,7 +524,8 @@ def test_fw_apsp_kernels_match_plain_on_card(cuda_device, n, block):
 @pytest.mark.cuda
 @pytest.mark.parametrize("q,k1,k2,kind", ARGMIN_CASES + [
     (1024, 480, 480, "ragged"), (64, 1712, 1712, "ties"),
-    (16, 1000, 1000, "ties"), (3, 2000, 50, "inf"), (1, 300, 4614, "ties")])
+    (16, 1000, 1000, "ties"), (3, 2000, 50, "inf"), (1, 300, 4614, "ties"),
+    (1024, 480, 480, "large_ties"), (16, 1712, 1712, "large_ties")])
 def test_twoside_argmin_kernel_matches_plain_on_card(cuda_device, q, k1, k2,
                                                      kind):
     args = [torch.from_numpy(x).to(cuda_device)
@@ -526,6 +535,8 @@ def test_twoside_argmin_kernel_matches_plain_on_card(cuda_device, q, k1, k2,
                                       torch.int32]
     for g, w in zip(got, ops.minplus_twoside_argmin(*args, force="ref")):
         assert torch.equal(g, w)
+    if kind == "large_ties":
+        assert [g[0].item() for g in got] == [2**24 - 1, 0, k2 - 1]
 
 
 @pytest.mark.cuda

@@ -189,23 +189,32 @@ def _synthetic(kind):
     rows of 100 against 33 entries, "one_vs_many" one source table row
     against a table row per query, "wide" 150-entry rows over several
     x and y tiles, "per_query_wide" 100-entry rows with a table row per
-    query (the warp regime past 64 entries)."""
+    query (the warp regime past 64 entries).  Two more, on the card only,
+    both with the "wide" rows (the tiles regime): "large" the three largest
+    values up to BIG in every operand, so a sum of the three terms
+    reaches 3 * BIG == 2**24 - 1, the integer invariant's bound, which
+    query 0 gets exactly (one finite entry a side, their cell BIG);
+    "holes" +inf in every operand position: entries 32-63 and 128-149 of
+    every s-row (all-+inf x-tiles inside the row and at its ragged end),
+    every third t-row whole (+inf beside a finite min over the s-side),
+    every fifth row and seventh column of d."""
     rng = np.random.default_rng(sum(map(ord, kind)))
     k1, k2, q = 150, 170, 150
     ms, mt, ns, nt = 40, 40, 5, 4
     if kind == "ms_ne_mt":
         ms, mt = 100, 33
-    if kind == "wide":
+    if kind in ("wide", "large", "holes"):
         ms, mt = 150, 150
     if kind == "one_vs_many":
         ns, nt, ms, mt = 1, q, 80, 24
     if kind == "per_query_wide":
         ns, nt, ms, mt = q, q, 100, 100
-    hi = 3 if kind == "ties" else 100
+    lo, hi = (BIG - 2, BIG + 1) if kind == "large" else (
+        0, 3 if kind == "ties" else 100)
     frac = 0.0 if kind == "ties" else 0.2
 
     def ints(shape):
-        x = rng.integers(0, hi, size=shape).astype(np.float32)
+        x = rng.integers(lo, hi, size=shape).astype(np.float32)
         x[rng.random(shape) < frac] = np.inf
         return x
     d = ints((k1, k2))
@@ -221,6 +230,13 @@ def _synthetic(kind):
     gs = np.arange(q) if kind == "per_query_wide" else rng.integers(0, ns, q)
     gt = (np.arange(q) if kind in ("one_vs_many", "per_query_wide")
           else rng.integers(0, nt, q))
+    if kind == "large":
+        row_s[0], row_t[0] = np.inf, np.inf
+        row_s[0, 0], row_t[0, 0] = BIG, BIG
+        d[tab_s[gs[0], 0], tab_t[gt[0], 0]] = BIG
+    if kind == "holes":
+        row_s[:, 32:64], row_s[:, 128:], row_t[::3] = np.inf, np.inf, np.inf
+        d[::5], d[:, ::7] = np.inf, np.inf
     return tuple(torch.from_numpy(x) for x in (
         row_s, gs.astype(np.int64), tab_s, d, row_t, gt.astype(np.int64),
         tab_t))
@@ -228,6 +244,9 @@ def _synthetic(kind):
 
 SYNTHETIC = ["ragged", "sentinel", "duplicates", "all_inf", "ties",
              "ms_ne_mt", "one_vs_many", "wide", "per_query_wide"]
+#: the largest finite entry of the "large" operands: three terms reach
+#: 3 * BIG == 2**24 - 1
+BIG = (2**24 - 1) // 3
 
 
 @pytest.mark.parametrize("kind", ["scatter", "jax_gather", "jax_pallas"])
@@ -387,16 +406,20 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", SYNTHETIC)
+@pytest.mark.parametrize("case", SYNTHETIC + ["large", "holes"])
 def test_grouped_kernel_matches_plain_on_card(cuda_device, case):
     """Both regimes (rows of 40 entries, or a table row per query: one
     warp per query; wider shared rows: the sorted tiles) array-equal to
-    the plain version."""
+    the plain version; with "large" operands query 0's sum of 2**24 - 1
+    comes out exactly."""
     args = [a.to(cuda_device) for a in _synthetic(case)]
     before = minplus_twoside.minplus_twoside_grouped_cuda.launches
     got = minplus_twoside.minplus_twoside_grouped_cuda(*args)
     assert minplus_twoside.minplus_twoside_grouped_cuda.launches == before + 1
     assert torch.equal(got, ops.minplus_twoside_grouped(*args, force="ref"))
+    assert torch.isfinite(got).any()
+    if case == "large":
+        assert got[0].item() == 2**24 - 1
 
 
 @pytest.mark.cuda
